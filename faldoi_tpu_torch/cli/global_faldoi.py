@@ -1,0 +1,105 @@
+"""CLI for the global variational refinement on the port — the contract of
+``faldoi_tpu.cli.global_faldoi`` (``global_faldoi.cpp:1846-2213``) plus
+``-device``:
+
+    python -m faldoi_tpu_torch.cli.global_faldoi ims.txt in_flow.flo out.flo \
+        [occl_input.png occl_out.png] [-m method] [-w warps] [-p params_file] \
+        [-glb_iters iters] [-verbose v] [-device cuda|cpu]
+
+Only method 0 (TV-L1) is ported; other methods exit with an error.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+from faldoi_tpu_torch import params as P
+
+
+def pick_option(args, name, default):
+    """Erase-style flag parser (utils_preprocess.cpp:21-35)."""
+    flag = "-" + name
+    for i, a in enumerate(args):
+        if a == flag and i + 1 < len(args):
+            val = args[i + 1]
+            del args[i : i + 2]
+            return val
+    return default
+
+
+def main(argv=None):
+    from faldoi_tpu_torch.core.preprocess import prepare_triple, read_frame_list
+    from faldoi_tpu_torch.io.flo import read_flo, write_flo
+    from faldoi_tpu_torch.io.image import read_image_split
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    warps = int(pick_option(args, "w", str(P.PAR_DEFAULT_NWARPS_GLOBAL)))
+    method = int(pick_option(args, "m", str(P.M_TVL1)))
+    file_params = pick_option(args, "p", "")
+    glb_iters = int(pick_option(args, "glb_iters", str(P.MAX_ITERATIONS_GLOBAL)))
+    verbose = pick_option(args, "verbose", "0") not in ("0", "false", "False")
+    device = pick_option(args, "device", "cuda")
+
+    if len(args) not in (3, 5):
+        print(__doc__, file=sys.stderr)
+        return 1
+
+    names = read_frame_list(args[0])
+    in_flow = read_flo(args[1])
+    outfile = args[2]
+    # args[4], occl_out: method 0 has no occlusion output, so it is not
+    # written (as in JAX)
+    occ_in = args[3] if len(args) == 5 else None
+
+    i0p = read_image_split(names[0])
+    i1p = read_image_split(names[1])
+    i_1p = read_image_split(names[2] if len(names) == 4 else names[1])
+    if i1p.shape != i0p.shape or i_1p.shape != i0p.shape:
+        print("ERROR: input images size mismatch", file=sys.stderr)
+        return 1
+    hw = i0p.shape[1:]
+    if in_flow.ndim != 3 or in_flow.shape[2] != 2 or in_flow.shape[:2] != hw:
+        print(f"ERROR: input flow field size mismatch ({in_flow.shape} vs "
+              f"frames {hw})", file=sys.stderr)
+        return 1
+
+    if method == P.M_TVL1_OCC and len(names) == 2:
+        print("Since only two images given, method is changed to TV-l2 coupled",
+              file=sys.stderr)
+        method = P.M_TVL1
+    if method != P.M_TVL1:
+        print(f"ERROR: method {method} not ported yet (the port runs method 0, "
+              "TV-L1)", file=sys.stderr)
+        return 2
+
+    prm = P.init_params(file_params, P.GLOBAL_STEP)
+    prm.warps = warps
+    prm.val_method = method
+    prm.iterations_of = glb_iters
+    prm.verbose = verbose
+
+    from faldoi_tpu_torch.models import global_refine
+
+    if occ_in is not None and read_image_split(occ_in).shape[1:] != hw:
+        print("ERROR: input occlusion mask size mismatch", file=sys.stderr)
+        return 1
+    i0n, i1n, _ = prepare_triple(i0p, i1p, i_1p, device=device)
+    dev = i0n.device
+    u1 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 0]), device=dev)
+    u2 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 1]), device=dev)
+    t0 = time.time()
+    u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm)
+    out = torch.stack([u1, u2], dim=-1).cpu().numpy()
+    if verbose:
+        print(f"(global) solve took {time.time() - t0:.3f}s on {dev}",
+              file=sys.stderr)
+    write_flo(outfile, out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

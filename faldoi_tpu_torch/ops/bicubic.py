@@ -1,0 +1,184 @@
+"""Bicubic (Catmull-Rom-style) sampling with the reference's exact C
+semantics — kernel K4 and its plain twin.
+
+Port of ``faldoi_tpu/ops/bicubic.py::bicubic_interp_at`` (``src/
+bicubic_interpolation.c:146-163``):
+
+* integer positions by C ``(int)`` casts (truncation toward zero),
+* the 4x4 stencil laid out with sign steps ``sx = sign(uu)``, ``sy =
+  sign(vv)``, including the quirk that the row stencil's ``my`` uses ``sx``
+  (bicubic_interpolation.c:159),
+* Neumann clamping with an out-of-domain flag; ``border_out=True`` returns 0
+  there, ``border_out=False`` extrapolates with the clamped stencil,
+* fractions ``uu - x_clamped``.
+
+Each sample reads one 4x4 window; the basis coefficient of every stencil
+element is accumulated onto its clamped window offset first (as the JAX
+functions do), then the window is contracted over rows and then over columns
+with fused multiply-adds: the order and rounding of XLA's CPU dot in the
+one-hot contractions of ``bicubic_window_sample``, which is what the JAX main
+path samples with (measured bit-identical given the same weights).  The port
+samples every point exactly: it does not carry over the JAX package's
+windowed one-hot forms (``bicubic_window_sample*``, the tiled
+``bicubic_warp_stack``), which clamp samples beyond their window.
+
+K4 (``csrc/bicubic.cu``) runs one thread per sample point and shares the 16
+weights across the C planes.  On the card it is bound by the 16 scattered
+4-byte reads per point and plane (each a 32-byte sector): ~0.1 GB of sector
+traffic for a 3-plane 436x1024 warp, mostly hitting L2 because neighbouring
+threads read neighbouring windows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from faldoi_tpu_torch.kernels import build as kb
+
+
+def _basis(t):
+    """Catmull-Rom basis over the stencil order [m, 0, d, dd]
+    (cubic_interpolation_cell, bicubic_interpolation.c:103-111)."""
+    t2 = t * t
+    t3 = t2 * t
+    a0 = 0.5 * (-t + 2.0 * t2 - t3)
+    a1 = 1.0 - 2.5 * t2 + 1.5 * t3
+    a2 = 0.5 * (t + 4.0 * t2 - 3.0 * t3)
+    a3 = 0.5 * (t3 - t2)
+    return a0, a1, a2, a3
+
+
+def _fma(a, b, c):
+    """Fused multiply-add a*b + c rounded once to float32 (the float64 product
+    of two float32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _trunc(x):
+    """C ``(int)`` cast (NaN -> 0, saturated at +-1e9 so later index
+    arithmetic never overflows; such samples are far out of any image)."""
+    return torch.nan_to_num(x, nan=0.0).clamp(-1e9, 1e9).to(torch.int64)
+
+
+def _window_weights(elems, start, n, origin):
+    """Accumulate the basis coefficients of the 4 (clamped) stencil elements
+    onto their offsets in the 4-window at ``start``.  Returns (weights, out)."""
+    out = torch.zeros(origin.shape, dtype=torch.bool, device=origin.device)
+    cl = []
+    for p in elems:
+        out = out | (p < 0) | (p >= n)
+        cl.append(p.clamp(0, n - 1))
+    if start is None:
+        start = torch.minimum(torch.minimum(cl[0], cl[1]),
+                              torch.minimum(cl[2], cl[3])).clamp(0, max(n - 4, 0))
+    else:
+        start = start.clamp(0, max(n - 4, 0))
+    a = _basis(origin - cl[1].to(origin.dtype))
+    zero = torch.zeros((), dtype=origin.dtype, device=origin.device)
+    w = [torch.zeros_like(origin) for _ in range(4)]
+    for ai, pi in zip(a, cl):
+        rel = (pi - start).clamp(0, 3)
+        for k in range(4):
+            w[k] = w[k] + torch.where(rel == k, ai, zero)
+    return start, w, out
+
+
+def _sample_weights(ny: int, nx: int, uu, vv):
+    """Window starts (wy, wx), per-axis window weights and the out flag."""
+    sx = torch.where(uu < 0, -1, 1).to(torch.int64)
+    sy = torch.where(vv < 0, -1, 1).to(torch.int64)
+    iu = _trunc(uu)
+    iv = _trunc(vv)
+    wx, wxs, ox = _window_weights(
+        [iu - sx, iu, iu + sx, iu + 2 * sx],
+        torch.where(sx > 0, iu - 1, iu - 2), nx, uu)
+    # sic: the row stencil's 'm' element steps by sx (bicubic_interpolation.c:159)
+    wy, wys, oy = _window_weights(
+        [iv - sx, iv, iv + sy, iv + 2 * sy], None, ny, vv)
+    return wy, wx, wys, wxs, ox | oy
+
+
+def bicubic_sample_plain(planes: torch.Tensor, uu: torch.Tensor,
+                         vv: torch.Tensor, border_out: bool) -> torch.Tensor:
+    """Plain PyTorch twin of K4: sample the (C, H, W) ``planes`` at (x=uu,
+    y=vv) of any shape; returns (C, *uu.shape)."""
+    c, ny, nx = planes.shape
+    shape = uu.shape
+    uu = uu.reshape(-1)
+    vv = vv.reshape(-1)
+    wy, wx, wys, wxs, out = _sample_weights(ny, nx, uu, vv)
+    flat = planes.reshape(c, ny * nx)
+    r = torch.zeros((c, uu.shape[0]), dtype=planes.dtype, device=planes.device)
+    base = wy * nx + wx
+    for l in range(4):
+        col = torch.zeros_like(r)
+        for k in range(4):
+            col = _fma(wys[k], flat[:, base + k * nx + l], col)
+        r = _fma(col, wxs[l], r)
+    if border_out:
+        r = torch.where(out, torch.zeros((), dtype=r.dtype, device=r.device), r)
+    return r.reshape((c,) + tuple(shape))
+
+
+def bicubic_sample(planes: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
+                   border_out: bool) -> torch.Tensor:
+    """K4: bicubic samples of the (C, H, W) ``planes`` at (uu, vv).
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise).  Replaces the XLA-lowered ``faldoi_tpu.ops.bicubic.
+    bicubic_interp_at`` / ``bicubic_window_sample*`` / ``bicubic_warp_stack``.
+    """
+    if planes.dim() != 3:
+        raise ValueError(f"planes must be (C, H, W), got {tuple(planes.shape)}")
+    if uu.shape != vv.shape:
+        raise ValueError(f"uu {tuple(uu.shape)} and vv {tuple(vv.shape)} differ")
+    c, ny, nx = planes.shape
+    if ny < 4 or nx < 4:
+        raise ValueError("bicubic sampling needs an image of at least 4x4")
+    if planes.device.type == "cpu":
+        return bicubic_sample_plain(planes, uu, vv, border_out)
+    kb.require_cuda_tensor(planes, "planes", torch.float32)
+    kb.require_cuda_tensor(uu, "uu", torch.float32, planes.device)
+    kb.require_cuda_tensor(vv, "vv", torch.float32, planes.device)
+    out = torch.empty((c,) + tuple(uu.shape), dtype=torch.float32,
+                      device=planes.device)
+    npts = uu.numel()
+    if npts == 0:
+        return out
+    code = kb.library().faldoi_bicubic_sample(
+        planes.data_ptr(), uu.data_ptr(), vv.data_ptr(), out.data_ptr(),
+        c, ny, nx, npts, int(bool(border_out)), kb.stream_ptr(planes.device))
+    kb.check(code, "bicubic_sample")
+    bicubic_sample.launches += 1
+    return out
+
+
+bicubic_sample.launches = 0   # K4 launches, raised only after a launch
+
+
+def bicubic_interp_at(img: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
+                      border_out: bool) -> torch.Tensor:
+    """Sample the (h, w) ``img`` at positions (x=uu, y=vv)."""
+    return bicubic_sample(img[None].contiguous(), uu, vv, border_out)[0]
+
+
+def warp_coords(u: torch.Tensor, v: torch.Tensor):
+    """Absolute sample coordinates (j + u, i + v) of a whole-image warp."""
+    ny, nx = u.shape
+    jj = torch.arange(nx, dtype=u.dtype, device=u.device)[None, :]
+    ii = torch.arange(ny, dtype=u.dtype, device=u.device)[:, None]
+    return (jj + u).contiguous(), (ii + v).contiguous()
+
+
+def bicubic_warp_stack(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       border_out: bool) -> torch.Tensor:
+    """Warp (C, ny, nx) planes by one flow: out[c, i, j] = planes[c](j+u, i+v)
+    (bicubic_interpolation.c:245-266), every point sampled exactly."""
+    uu, vv = warp_coords(u, v)
+    return bicubic_sample(planes.contiguous(), uu, vv, border_out)
+
+
+def bicubic_warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 border_out: bool) -> torch.Tensor:
+    """Warp one (h, w) image by the flow (u, v)."""
+    return bicubic_warp_stack(img[None], u, v, border_out)[0]

@@ -1,0 +1,278 @@
+"""The port's ops against faldoi_tpu's: stencils, normalization, Gaussian,
+prepare_pair, bicubic sampling (K4's twin), the patch gather (K0's twin),
+the Poisson fill and the PD building blocks.
+
+The same numpy inputs (from ``default_rng``) go through the JAX function and
+the port on ``device="cpu"``; float32 results must agree within 1e-5 abs
+unless stated, the patch gather exactly.  The JAX side runs in the repo's
+exact configuration (env knobs set for the whole module)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tests import ref_numpy as ref
+
+ATOL = 1e-5
+EXACT_ENV = {"FALDOI_TOPK": "exact", "FALDOI_WSCATTER": "exact",
+             "FALDOI_WSCATTER_R": "5", "FALDOI_BLOCKGATHER": "0",
+             "FALDOI_WARP_PREC": "highest"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def exact_env():
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in EXACT_ENV.items():
+            mp.setenv(k, v)
+        yield
+
+
+def T(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def close(a, b, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=atol)
+
+
+def test_image_stencils_match_jax():
+    from faldoi_tpu.ops import stencils as J
+    from faldoi_tpu_torch.ops import stencils as S
+
+    rng = np.random.default_rng(0)
+    f = rng.standard_normal((37, 53)).astype(np.float32)
+    g = rng.standard_normal((37, 53)).astype(np.float32)
+    for a, b in zip(S.forward_gradient(T(f)), J.forward_gradient(jnp.asarray(f))):
+        close(a, b)
+    for a, b in zip(S.centered_gradient(T(f)), J.centered_gradient(jnp.asarray(f))):
+        close(a, b)
+    close(S.divergence(T(f), T(g)), J.divergence(jnp.asarray(f), jnp.asarray(g)))
+    close(S.divergence(T(f), T(g)), ref.divergence(f, g))
+
+
+def test_patch_stencils_match_jax():
+    from faldoi_tpu.ops import stencils as J
+    from faldoi_tpu_torch.ops import stencils as S
+
+    rng = np.random.default_rng(1)
+    b, p = 40, 11
+    f = rng.standard_normal((b, p, p)).astype(np.float32)
+    g = rng.standard_normal((b, p, p)).astype(np.float32)
+    ph = rng.integers(1, p + 1, b).astype(np.int32)
+    pw = rng.integers(1, p + 1, b).astype(np.int32)
+    jfx, jfy = jax.vmap(J.forward_gradient_patch)(jnp.asarray(f), ph, pw)
+    fx, fy = S.forward_gradient_patch(T(f), T(ph), T(pw))
+    close(fx, jfx)
+    close(fy, jfy)
+    jd = jax.vmap(J.divergence_patch)(jnp.asarray(f), jnp.asarray(g), ph, pw)
+    close(S.divergence_patch(T(f), T(g), T(ph), T(pw)), jd)
+
+
+def test_normalization_and_gaussian_match_jax():
+    from faldoi_tpu.ops import gaussian as JG, normalize as JN
+    from faldoi_tpu_torch.ops import gaussian as SG, normalize as SN
+
+    rng = np.random.default_rng(2)
+    a, b, c = (rng.uniform(0, 255, (33, 47)).astype(np.float32) for _ in range(3))
+    for x, y in zip(SN.image_normalization(T(a), T(b)),
+                    JN.image_normalization(jnp.asarray(a), jnp.asarray(b))):
+        close(x, y)
+    for x, y in zip(SN.image_normalization_3(T(a), T(b), T(c)),
+                    JN.image_normalization_3(jnp.asarray(a), jnp.asarray(b),
+                                             jnp.asarray(c))):
+        close(x, y)
+    x = rng.uniform(0, 1, (33, 47)).astype(np.float32)
+    close(SG.gaussian_smooth(T(x), 0.9), JG.gaussian_smooth(jnp.asarray(x), 0.9))
+    close(SG.gaussian_smooth(T(x), 0.9), ref.gaussian(x, 0.9))
+    np.testing.assert_array_equal(SG.gaussian1d_weight(5), JG.gaussian1d_weight(5))
+
+
+def test_prepare_pair_matches_jax():
+    from faldoi_tpu.core.preprocess import prepare_pair as jprep
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    rng = np.random.default_rng(3)
+    i0 = rng.uniform(0, 255, (3, 31, 45)).astype(np.float32)
+    i1 = rng.uniform(0, 255, (3, 31, 45)).astype(np.float32)
+    for x, y in zip(prepare_pair(i0, i1, device="cpu"), jprep(i0, i1)):
+        close(x, y)
+
+
+def _bicubic_points(rng, ny, nx, n):
+    """Sample points in and around the domain, with every sign combination
+    (the my-row-uses-sx quirk shows only when sign(uu) != sign(vv))."""
+    uu = rng.uniform(-6, nx + 6, n).astype(np.float32)
+    vv = rng.uniform(-6, ny + 6, n).astype(np.float32)
+    uu[:40] = -rng.uniform(0, 3, 40)                 # uu < 0, vv >= 0
+    vv[40:80] = -rng.uniform(0, 3, 40)               # uu >= 0, vv < 0
+    uu[80:90] = np.arange(10, dtype=np.float32) - 0.0  # integers, -0 sign
+    vv[90:100] = ny - 1 + rng.uniform(0, 2, 10)
+    return uu, vv
+
+
+@pytest.mark.parametrize("border_out", [True, False])
+def test_bicubic_matches_jax_and_c_oracle(border_out):
+    from faldoi_tpu.ops.bicubic import bicubic_interp_at as jinterp
+    from faldoi_tpu_torch.ops.bicubic import bicubic_interp_at, bicubic_sample
+
+    rng = np.random.default_rng(4)
+    ny, nx = 29, 41
+    img = rng.uniform(0, 1, (ny, nx)).astype(np.float32)
+    uu, vv = _bicubic_points(rng, ny, nx, 600)
+    got = bicubic_interp_at(T(img), T(uu), T(vv), border_out).numpy()
+    close(got, jinterp(jnp.asarray(img), jnp.asarray(uu), jnp.asarray(vv),
+                       border_out))
+    # the C transliteration (float64) near the domain, where |t| stays small
+    near = (uu > -2) & (uu < nx + 1) & (vv > -2) & (vv < ny + 1)
+    want = np.array([ref.bicubic_at(img, u, v, border_out)
+                     for u, v in zip(uu[near], vv[near])])
+    close(got[near], want, atol=2e-5)
+    # shared weights across planes equal per-plane sampling
+    planes = np.stack([img, 2 * img, img * img])
+    multi = bicubic_sample(T(planes), T(uu), T(vv), border_out).numpy()
+    for c in range(3):
+        close(multi[c], bicubic_interp_at(T(planes[c]), T(uu), T(vv),
+                                          border_out))
+
+
+def test_bicubic_warp_stack_matches_jax():
+    from faldoi_tpu.ops.bicubic import bicubic_warp as jwarp1
+    from faldoi_tpu.ops.bicubic import bicubic_warp_stack as jwarp
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp, bicubic_warp_stack
+
+    rng = np.random.default_rng(5)
+    ny, nx = 38, 70
+    planes = rng.uniform(0, 1, (3, ny, nx)).astype(np.float32)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    u = (4 * np.sin(xx / 9.0) + rng.uniform(-1, 1, (ny, nx))).astype(np.float32)
+    v = (3 * np.cos(yy / 7.0) - 2).astype(np.float32)
+    got = bicubic_warp_stack(T(planes), T(u), T(v), True)
+    close(got, jwarp(jnp.asarray(planes), jnp.asarray(u), jnp.asarray(v), True))
+    for border_out in (True, False):
+        close(bicubic_warp(T(planes[0]), T(u), T(v), border_out),
+              jwarp1(jnp.asarray(planes[0]), jnp.asarray(u), jnp.asarray(v),
+                     border_out))
+
+
+def test_bicubic_patch_warp_matches_window_sample():
+    """The patch solver's warp: per-point K4 twin vs JAX's windowed one-hot
+    sample (``_warp3`` with FALDOI_BLOCKGATHER=0), border_out=False."""
+    from faldoi_tpu.ops.bicubic import bicubic_window_sample
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample
+
+    rng = np.random.default_rng(6)
+    planes = rng.uniform(0, 1, (3, 40, 56)).astype(np.float32)
+    rows, cols = np.mgrid[0:11, 0:11]
+    for oy, ox in ((0, 0), (29, 45), (12, 20), (35, 50)):
+        uu = (ox + cols + rng.uniform(-6, 6, (11, 11))).astype(np.float32)
+        vv = (oy + rows + rng.uniform(-5, 5, (11, 11))).astype(np.float32)
+        want = bicubic_window_sample(jnp.asarray(planes), jnp.asarray(uu),
+                                     jnp.asarray(vv), False, win=32)
+        close(bicubic_sample(T(planes), T(uu), T(vv), False), want)
+
+
+@pytest.mark.parametrize("p,c", [(11, 5), (3, 1)])
+def test_gather_patches_is_dynamic_slice(p, c):
+    from faldoi_tpu.ops.pallas_sweep import _xla_gather_patches
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches
+
+    rng = np.random.default_rng(7)
+    h, w = 23, 29
+    stack = rng.standard_normal((h + 11, w + 11, c)).astype(np.float32)
+    stack[rng.random(stack.shape) < 0.1] = np.nan
+    n = h * w
+    b = 64
+    oy = rng.integers(-4, h + 15, b).astype(np.int32)
+    ox = rng.integers(-4, w + 15, b).astype(np.int32)
+    oy[:2], ox[:2] = h - 5, 0          # the dump lane's origin (idx = n)
+    oy[2], ox[2] = n // w - 1, n % w   # clamped starts
+    got = gather_patches(T(stack), T(oy), T(ox), p).numpy()
+    want = np.asarray(_xla_gather_patches(jnp.asarray(stack), jnp.asarray(oy),
+                                          jnp.asarray(ox), p))
+    assert got.shape == (p, p, c, b)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_poisson_fill_matches_jax(exact):
+    from faldoi_tpu.ops.poisson import poisson_fill_canvas as jfill
+    from faldoi_tpu_torch.ops.poisson import poisson_fill_canvas
+
+    rng = np.random.default_rng(8)
+    for p in (11, 3):
+        b = 48
+        x = rng.uniform(-3, 3, (b, p, p)).astype(np.float32)
+        x[rng.random(x.shape) < 0.8] = np.nan
+        x[0] = np.nan
+        x[0, p // 2, p // 2] = 1.5                      # a lone centre
+        ph = rng.integers(1, p + 1, b).astype(np.int32)
+        pw = rng.integers(1, p + 1, b).astype(np.int32)
+        ph[:4], pw[:4] = p, p
+        want = jax.vmap(lambda c, a, d: jfill(c, a, d, exact=exact))(
+            jnp.asarray(x), ph, pw)
+        got = poisson_fill_canvas(T(x), T(ph), T(pw), exact=exact)
+        close(got, want)
+        if exact:
+            for k in range(4):
+                close(got[k].numpy(),
+                      ref.elap_recursive(x[k].copy(), 0.4, 3, 7), atol=1e-5)
+
+
+def test_pd_common_matches_jax():
+    from faldoi_tpu.core import pd_common as J
+    from faldoi_tpu_torch.core import pd_common as S
+
+    rng = np.random.default_rng(9)
+    a = [rng.standard_normal((21, 33)).astype(np.float32) for _ in range(8)]
+    a[5] = a[5] * 1e-5                                 # grad near zero
+    a[5][:3] = 0.0
+    l_t = np.float32(40.0) * np.float32(0.3)
+    for x, y in zip(S.tvl1_threshold(*map(T, a[:6]), float(l_t)),
+                    J.tvl1_threshold(*map(jnp.asarray, a[:6]), l_t)):
+        close(x, y)
+    for x, y in zip(S.tvl2_getD(*map(T, a), 0.125),
+                    J.tvl2_getD(*map(jnp.asarray, a), np.float32(0.125))):
+        close(x, y)
+    for x, y in zip(S.tvl2_getP(*map(T, a[:6]), 0.3, 0.125),
+                    J.tvl2_getP(*map(jnp.asarray, a[:6]), np.float32(0.3),
+                                np.float32(0.125))):
+        close(x, y)
+    for x, y in zip(S.warp_constants(*map(T, a[:6])),
+                    J.warp_constants(*map(jnp.asarray, a[:6]))):
+        close(x, y)
+
+
+def test_cpu_tensors_take_the_twins():
+    """On the CPU each kernel wrapper returns its plain twin's result and
+    counts no launch (the kernels themselves run in tests/test_torch_card.py)."""
+    from faldoi_tpu_torch.core.global_step import (
+        global_pd_iteration, global_pd_iteration_plain,
+    )
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample, bicubic_sample_plain
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_patches, gather_patches_plain,
+    )
+
+    rng = np.random.default_rng(10)
+    counts = (gather_patches.launches, bicubic_sample.launches,
+              global_pd_iteration.launches)
+    stack = T(rng.standard_normal((20, 24, 2)).astype(np.float32))
+    oy = T(rng.integers(-3, 20, 30).astype(np.int32))
+    ox = T(rng.integers(-3, 24, 30).astype(np.int32))
+    assert torch.equal(gather_patches(stack, oy, ox, 5),
+                       gather_patches_plain(stack, oy, ox, 5))
+    planes = T(rng.uniform(0, 1, (2, 20, 24)).astype(np.float32))
+    uu, vv = (T(x) for x in _bicubic_points(rng, 20, 24, 200))
+    assert torch.equal(bicubic_sample(planes, uu, vv, True),
+                       bicubic_sample_plain(planes, uu, vv, True))
+    st = [T(rng.standard_normal((9, 11)).astype(np.float32)) for _ in range(12)]
+    st2 = [x.clone() for x in st]
+    e1, e2 = torch.empty(1), torch.empty(1)
+    global_pd_iteration(*st, e1, 12.0, 0.3, 0.125)
+    global_pd_iteration_plain(*st2, e2, 12.0, 0.3, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(st + [e1], st2 + [e2]))
+    assert (gather_patches.launches, bicubic_sample.launches,
+            global_pd_iteration.launches) == counts

@@ -4,13 +4,22 @@
     python3 chip_smoke.py
 
 Runs from a checkout of the repo on a machine with one CUDA card and needs no
-network.  It builds the hand-written kernels from ``faldoi_tpu_torch/csrc``,
-holds each against its plain PyTorch twin at main-path shapes, runs a crop of
-the synthetic pair through the port on the CPU (the twins, which the tests
-hold against JAX) and on the card, and then drives the whole main path at
-436x1024 — seeds -> local growing -> global refinement — on a SYNTHETIC
-textured pair with a known two-layer flow, seeded at the positions of the
-golden DeepMatching seeds (``tests/golden/deep_mt_{1,2}.flo``).
+network.  It builds the hand-written kernels from ``faldoi_tpu_torch/csrc``
+(one nvcc per source, in parallel), holds each against its plain PyTorch
+twin at its path's shapes, runs crops of the synthetic pair through the port
+on the CPU (the twins, which the tests hold against JAX) and on the card —
+method 0 with the warm requeue, and method 1 with the cold requeue — and
+then drives three paths, each with the kernels' launch counts set to 0 just
+before it and read just after:
+
+* the m0 main path at 436x1024 — seeds -> local growing -> global
+  refinement — on a SYNTHETIC textured pair with a known two-layer flow,
+  seeded at the positions of the golden DeepMatching seeds
+  (``tests/golden/deep_mt_{1,2}.flo``);
+* the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
+* the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
+  on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
+  seeds, the weighted TV-L1 growing and the global step, on the card.
 
 Every phase prints its own lines; any failure raises (non-zero exit, no
 result line).  The line before the last is the kernels' JSON record; the last
@@ -24,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,25 +44,12 @@ H, W = 436, 1024             # the Sintel frame size the golden seeds are on
 BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
+# keys of a kernel's record printed beside the required ones
+EXTRA = ("launches_m0", "shape", "gbps", "wrapper_ms")
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def card_line():
@@ -64,6 +61,7 @@ def card_line():
 
 def check_k0(dev, rng):
     """K0 at the sweep's crop shape, including edge, dump and clamped lanes."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
     from faldoi_tpu_torch.core.local_step import patch_geometry
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_plain
 
@@ -98,6 +96,7 @@ def check_k0(dev, rng):
 def check_k4(dev, rng):
     """K4 on 3 planes at 436x1024 with flows reaching out of the domain, both
     border modes; and at the patch solver's call shape."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
     from faldoi_tpu_torch.ops.bicubic import (
         bicubic_sample, bicubic_sample_plain, warp_coords,
     )
@@ -141,6 +140,7 @@ def check_k4(dev, rng):
 
 def check_k5(dev, rng, a, b, gf):
     """K5 for one iteration from one state, and a whole tvl2_global."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
     from faldoi_tpu_torch.core.global_step import (
         global_pd_iteration, global_pd_iteration_plain, tvl2_global,
     )
@@ -194,8 +194,9 @@ def check_k5(dev, rng, a, b, gf):
                 max_abs_err=worst, ms=ms, plain_ms=plain)
 
 
-def run_slice(i0, i1, go, ba, device, stats):
-    """The port's main path: prepare_pair -> match_growing -> tvl2_global."""
+def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
+    """The port's main path: prepare_pair -> match_growing -> tvl2_global
+    (the global step of methods 0 and 1)."""
     from faldoi_tpu_torch import params as P
     from faldoi_tpu_torch.core.global_step import tvl2_global
     from faldoi_tpu_torch.core.match_growing import match_growing
@@ -204,7 +205,10 @@ def run_slice(i0, i1, go, ba, device, stats):
     dev = torch.device(device)
     t0 = time.perf_counter()
     a, b = prepare_pair(i0, i1, device=device)
-    flow, _ = match_growing(go, ba, a, b, P.Parameters(), bsz=BSZ, stats=stats)
+    prm = P.Parameters()
+    prm.val_method = method
+    flow, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
+                            warm_band=warm_band)
     t1 = time.perf_counter()
     u1, u2 = tvl2_global(a, b, flow[..., 0].contiguous(), flow[..., 1].contiguous(),
                          stats=stats)
@@ -213,6 +217,56 @@ def run_slice(i0, i1, go, ba, device, stats):
     stats["seconds"]["global"] = time.perf_counter() - t1
     stats["seconds"]["total"] = time.perf_counter() - t0
     return flow.cpu().numpy(), torch.stack([u1, u2], -1).cpu().numpy()
+
+
+def run_sift_path(i0, i1, gf, wrappers):
+    """``faldoi_sift -vm 1 -device cuda`` on the pair written as ``.npy``
+    frames; checks the final flow and returns the launches of ``wrappers``
+    on this path."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.cli import faldoi_sift
+    from faldoi_tpu_torch.io.flo import read_flo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        names = []
+        for k, im in enumerate((i0, i1)):
+            names.append(os.path.join(tmp, f"frame_{k}.npy"))
+            np.save(names[-1], np.round(im).astype(np.uint8).transpose(1, 2, 0))
+        with open(os.path.join(tmp, "ims.txt"), "w") as fh:
+            fh.write("\n".join(names) + "\n")
+        res = os.path.join(tmp, "out") + os.sep
+        for fn in wrappers:
+            fn.launches = 0
+        st = {}
+        t0 = time.perf_counter()
+        rc = faldoi_sift.main([os.path.join(tmp, "ims.txt"), "-vm", "1",
+                               "-device", "cuda", "-bsz", str(BSZ),
+                               "-res_path", res], stats=st)
+        secs = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        if rc != 0:
+            raise AssertionError(f"faldoi_sift exited {rc}")
+        rg = read_flo(res + "frame_0_sift_rg.flo")
+        var = read_flo(res + "frame_0_sift_var.flo")
+    fill = float(np.isfinite(rg).all(-1).mean())
+    stages = {k: round(v, 3) for k, v in st["stages"].items()}
+    grow = {k: round(v, 3) for k, v in st["seconds"].items()}
+    log(f"faldoi_sift -vm 1 {H}x{W} SYNTHETIC .npy frames, bsz {BSZ}: "
+        f"{secs:.2f} s; matcher {st['matcher']}; matches fwd/bwd "
+        f"{st['matches']}")
+    log(f"faldoi_sift stage seconds: {json.dumps(stages)}")
+    log(f"faldoi_sift growing seconds: {json.dumps(grow)}")
+    log(f"faldoi_sift sweeps per drain: {json.dumps(st['sweeps'])}")
+    log(f"faldoi_sift global PD iterations per warp: {st['global_iters']}")
+    log(f"launches on the faldoi_sift path: {json.dumps(launches)}")
+    log(f"faldoi_sift fill {100 * fill:.3f}%  rg EPE vs known flow "
+        f"{syn.epe(rg, gf):.4f} px  var EPE vs known flow "
+        f"{syn.epe(var, gf):.4f} px (synthetic)")
+    if fill < 1.0:
+        raise AssertionError(f"faldoi_sift growing filled {100 * fill:.3f}% < 100%")
+    if not np.isfinite(var).all():
+        raise AssertionError("non-finite values in faldoi_sift's final flow")
+    return launches
 
 
 def main():
@@ -237,7 +291,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # phase 2: build the kernels from the checkout's sources
+    # phase 2: build the kernels from the checkout's sources (in parallel)
     t0 = time.perf_counter()
     path = kb.build(verbose=True)
     kb.library()
@@ -255,55 +309,91 @@ def main():
         f"bg {syn.BG_FLOW} / rect {syn.FG_FLOW}; seeds at the golden positions: "
         f"{len(pos_f)} fwd, {len(pos_b)} bwd, 5% perturbed 3-6 px")
 
-    # phase 3: each kernel against its twin on the card
+    # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [check_k0(dev, rng), check_k4(dev, rng), check_k5(dev, rng, a, b, gf)]
 
-    # phase 4: one crop through the CPU twins and through the card
+    # phase 3b: the probe kernels P1-P3 against their twins
+    from faldoi_tpu_torch.cli import kernel_probe as kp
+
+    probe_recs = kp.run_probes(dev, np.random.default_rng(SEED))
+    for r in probe_recs:
+        log(kp.describe(r))
+
+    # phase 4: crops through the CPU twins and through the card, m0 with the
+    # warm requeue and m1 with the cold one
     ch, cw = CROP
     cut = (slice(0, ch), slice(0, cw))
     crop = (i0[:, :ch, :cw], i1[:, :ch, :cw], go[cut], ba[cut])
-    res = {}
-    for device in ("cpu", "cuda"):
-        st = {}
-        t0 = time.perf_counter()
-        res[device] = run_slice(*crop, device, st)
-        log(f"crop {ch}x{cw} on {device}: {time.perf_counter() - t0:.2f} s, "
-            f"sweeps {[s['sweeps'] for s in st['sweeps']]}")
-    e_rg = syn.epe(res["cuda"][0], res["cpu"][0])
-    e_var = syn.epe(res["cuda"][1], res["cpu"][1])
-    log(f"crop card vs CPU twins: rg EPE {e_rg:.3e} px, final (var) EPE "
-        f"{e_var:.3e} px (bound 0.01)")
-    if not e_var <= 0.01:
-        raise AssertionError(f"crop card vs CPU: final EPE {e_var} > 0.01")
+    for method, band in ((0, 10), (1, 0)):
+        res = {}
+        for device in ("cpu", "cuda"):
+            st = {}
+            t0 = time.perf_counter()
+            res[device] = run_slice(*crop, device, st, method, band)
+            log(f"crop {ch}x{cw} m{method} warm_band {band} on {device}: "
+                f"{time.perf_counter() - t0:.2f} s, "
+                f"sweeps {[s['sweeps'] for s in st['sweeps']]}")
+        e_rg = syn.epe(res["cuda"][0], res["cpu"][0])
+        e_var = syn.epe(res["cuda"][1], res["cpu"][1])
+        log(f"crop m{method} warm_band {band} card vs CPU twins: rg EPE "
+            f"{e_rg:.3e} px, final (var) EPE {e_var:.3e} px (bound 0.01)")
+        if not e_var <= 0.01:
+            raise AssertionError(f"crop m{method} card vs CPU: final EPE "
+                                 f"{e_var} > 0.01")
 
-    # phase 5: the full main path on the card, counting launches
+    # phase 5: the full m0 main path on the card, counting launches
     wrappers = (gather_patches, bicubic_sample, global_pd_iteration)
     for fn in wrappers:
         fn.launches = 0
     st = {}
     rg, var = run_slice(i0, i1, go, ba, "cuda", st)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches_m0 = {fn.__name__: fn.launches for fn in wrappers}
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = {k: round(v, 3) for k, v in st["seconds"].items()}
-    log(f"full {H}x{W} SYNTHETIC main path, bsz {BSZ}: seconds {json.dumps(secs)}")
+    log(f"full {H}x{W} SYNTHETIC main path (m0), bsz {BSZ}: seconds "
+        f"{json.dumps(secs)}")
     log(f"sweeps per drain: {json.dumps(st['sweeps'])}")
     log(f"global PD iterations per warp: {st['global_iters']}")
-    log(f"launches on the main path: {json.dumps(launches)}")
+    log(f"launches on the m0 main path: {json.dumps(launches_m0)}")
     log(f"fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
         f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
-    for k in kernels:
-        k["launches"] = int(launches.get(k["name"], 0))
-        if k["launches"] <= 0:
-            raise AssertionError(f"kernel {k['name']} never launched on the main path")
     if fill < 1.0:
         raise AssertionError(f"growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
         raise AssertionError("non-finite values in the final flow")
 
+    # phase 6: the probe path (its entry point), counting launches
+    from faldoi_tpu_torch.ops import probes
+
+    probe_wrappers = (probes.probe_axpy, probes.probe_roll4,
+                      probes.probe_window_fetch)
+    for fn in probe_wrappers:
+        fn.launches = 0
+    if kp.main([]) != 0:
+        raise AssertionError("kernel_probe failed")
+    launches_probe = {fn.__name__: fn.launches for fn in probe_wrappers}
+    log(f"launches on the probe path: {json.dumps(launches_probe)}")
+
+    # phase 7: frames to flow, faldoi_sift -vm 1 at full width, counting
+    # launches
+    launches_sift = run_sift_path(i0, i1, gf, wrappers)
+
+    kernels = [dict(k, launches=launches_sift[k["name"]],
+                    launches_m0=launches_m0[k["name"]]) for k in kernels]
+    p3 = [r for r in probe_recs if r["name"] == "probe_window_fetch"][-1]
+    for r in [r for r in probe_recs if r["name"] != "probe_window_fetch"] + [p3]:
+        kernels.append(dict(r, launches=launches_probe[r["name"]]))
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} never launched on its path")
+        if k.get("launches_m0", 1) <= 0:
+            raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
+
     print(json.dumps({"kernels": [
         {k: d[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")} for d in kernels]}))
+                           "max_abs_err", "ms", "plain_ms") + EXTRA if k in d}
+        for d in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

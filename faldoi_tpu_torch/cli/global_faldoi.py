@@ -6,7 +6,8 @@
         [occl_input.png occl_out.png] [-m method] [-w warps] [-p params_file] \
         [-glb_iters iters] [-verbose v] [-device cuda|cpu]
 
-Only method 0 (TV-L1) is ported; other methods exit with an error.
+Methods 0 (TV-L1) and 1 (weighted TV-L1, whose global step is the TV-L1 one)
+are ported; other methods exit with code 2.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import numpy as np
 import torch
 
 from faldoi_tpu_torch import params as P
+
+# the methods this slice of the port runs
+PORTED_METHODS = (P.M_TVL1, P.M_TVL1_W)
 
 
 def pick_option(args, name, default):
@@ -31,7 +35,9 @@ def pick_option(args, name, default):
     return default
 
 
-def main(argv=None):
+def main(argv=None, stats=None):
+    """Run the CLI; ``stats`` (a dict, optional) receives the global step's
+    counters (``tvl2_global(stats=)``)."""
     from faldoi_tpu_torch.core.preprocess import prepare_triple, read_frame_list
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.io.image import read_image_split
@@ -71,9 +77,9 @@ def main(argv=None):
         print("Since only two images given, method is changed to TV-l2 coupled",
               file=sys.stderr)
         method = P.M_TVL1
-    if method != P.M_TVL1:
-        print(f"ERROR: method {method} not ported yet (the port runs method 0, "
-              "TV-L1)", file=sys.stderr)
+    if method not in PORTED_METHODS:
+        print(f"ERROR: method {method} not ported yet (the port runs methods "
+              "0, TV-L1, and 1, weighted TV-L1)", file=sys.stderr)
         return 2
 
     prm = P.init_params(file_params, P.GLOBAL_STEP)
@@ -92,7 +98,7 @@ def main(argv=None):
     u1 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 0]), device=dev)
     u2 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 1]), device=dev)
     t0 = time.time()
-    u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm)
+    u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm, stats=stats)
     out = torch.stack([u1, u2], dim=-1).cpu().numpy()
     if verbose:
         print(f"(global) solve took {time.time() - t0:.3f}s on {dev}",

@@ -5,9 +5,13 @@
         out.flo sim_map.tiff [occlusions.png] [sal0.tiff sal1.tiff] \
         [-m method] [-wr radius] [-p params] [-loc_it n] [-max_pch_it n] \
         [-split_img 0/1] [-h_parts n] [-v_parts n] [-fb_thresh eps] \
-        [-partial_res v] [-verbose v] [-device cuda|cpu]
+        [-partial_res v] [-verbose v] [-device cuda|cpu] [-bsz n]
 
-Only method 0 (TV-L1) is ported; other methods exit with an error.
+Methods 0 (TV-L1) and 1 (weighted TV-L1) are ported; other methods exit
+with code 2.  ``-partial_res 1`` writes the forward growing's snapshots to
+``partial_results/partial_fwd_{30,70,80,95}_iter_{it}.flo`` under the working
+directory, as the JAX CLI does.  ``-bsz`` is the growing's batch size (the
+counterpart of JAX's ``FALDOI_GROW_BSZ``; default 4096, as there).
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import time
 import numpy as np
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.cli.global_faldoi import pick_option
+from faldoi_tpu_torch.cli.global_faldoi import PORTED_METHODS, pick_option
 
 
-def main(argv=None):
+def main(argv=None, stats=None):
+    """Run the CLI; ``stats`` (a dict, optional) receives the growing's
+    counters (``match_growing(stats=)``)."""
     from faldoi_tpu_torch.core.preprocess import prepare_pair, read_frame_list
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.io.image import (
@@ -41,6 +47,7 @@ def main(argv=None):
     partial_res = int(pick_option(args, "partial_res", "0"))
     verbose = pick_option(args, "verbose", "0") not in ("0", "false", "False")
     device = pick_option(args, "device", "cuda")
+    bsz = int(pick_option(args, "bsz", "4096"))
 
     if len(args) < 5 or len(args) > 8:
         print(__doc__, file=sys.stderr)
@@ -64,9 +71,9 @@ def main(argv=None):
         print("Since only two images given, method is changed to TV-l2 coupled",
               file=sys.stderr)
         method = P.M_TVL1
-    if method != P.M_TVL1:
-        print(f"ERROR: method {method} not ported yet (the port runs method 0, "
-              "TV-L1)", file=sys.stderr)
+    if method not in PORTED_METHODS:
+        print(f"ERROR: method {method} not ported yet (the port runs methods "
+              "0, TV-L1, and 1, weighted TV-L1)", file=sys.stderr)
         return 2
 
     prm = P.init_params(file_params, P.LOCAL_STEP)
@@ -103,7 +110,9 @@ def main(argv=None):
 
     t0 = time.time()
     i0n, i1n = prepare_pair(planes[0], planes[1], device=device)
-    flow, ene = match_growing(go, ba, i0n, i1n, prm, sal[0], sal[1])
+    flow, ene = match_growing(
+        go, ba, i0n, i1n, prm, sal[0], sal[1], bsz=bsz, stats=stats,
+        snapshot_dir="partial_results" if partial_res else None)
     flow, ene = flow.cpu().numpy(), ene.cpu().numpy()
     if verbose:
         print(f"(local) match growing took {time.time() - t0:.2f}s on "

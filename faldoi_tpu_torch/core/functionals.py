@@ -1,7 +1,8 @@
-"""Batched canvas patch solver for method 0 (TV-L1).
+"""Batched canvas patch solvers for methods 0 (TV-L1) and 1 (weighted TV-L1).
 
-Port of ``faldoi_tpu/core/functionals.py::_solve_tvl1_family`` (unweighted;
-reference ``tvl2_model.cpp:174-435``), run on B patches at once.  Every patch
+Port of ``faldoi_tpu/core/functionals.py::_solve_tvl1_family`` (reference
+``tvl2_model.cpp:174-435``, ``tvl2w_model.cpp``), run on B patches at once.
+Every patch
 lives on a fixed (P, P) canvas with a valid box [0, ph) x [0, pw) whose
 origin in the image is (oy, ox):
 
@@ -13,20 +14,26 @@ origin in the image is (oy, ox):
   ``err <= tol^2``;
 * the energy is ``eval_tvl2coupled``'s patch mean of data + coupling + TV.
 
+Method 1 weights the data term by a Gaussian window centred on the patch's
+centre pixel: ``l_t`` becomes ``l_t * W`` per cell in the threshold, and the
+eval's data term is multiplied by ``W`` (tvl2w_model.cpp:227, 374+).
+
 The patch PD arithmetic is plain PyTorch in this slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.core.pd_common import (
     sqrt_rn, tvl1_threshold, tvl2_getD, tvl2_getP,
 )
 from faldoi_tpu_torch.ops.bicubic import bicubic_sample
+from faldoi_tpu_torch.ops.gaussian import gaussian1d_weight
 from faldoi_tpu_torch.ops.patch_gather import gather_patches
 from faldoi_tpu_torch.ops.stencils import (
     canvas_ids, centered_gradient, divergence_patch, forward_gradient_patch,
@@ -34,7 +41,7 @@ from faldoi_tpu_torch.ops.stencils import (
 
 
 class SolverConsts(NamedTuple):
-    """Per-growing constants of the m0 patch solver."""
+    """Per-growing constants of the patch solvers."""
 
     i0pad: torch.Tensor      # (h+P, w+P) source frame, edge-padded bottom/right
     i1: torch.Tensor         # (h, w) target frame
@@ -44,6 +51,7 @@ class SolverConsts(NamedTuple):
     theta: torch.Tensor
     tau: torch.Tensor
     tol: torch.Tensor
+    w1d: Optional[torch.Tensor] = None   # (2wr+1,) window of method 1
 
 
 def pad_for_crops(img: torch.Tensor, p: int) -> torch.Tensor:
@@ -60,12 +68,17 @@ def _scalar(x, dev):
 
 
 def make_solver_consts(i0: torch.Tensor, i1: torch.Tensor, lam, theta, tau,
-                       tol, p: int) -> SolverConsts:
-    """SolverConsts of one growing direction (source i0, target i1)."""
+                       tol, p: int, method: int = P.M_TVL1) -> SolverConsts:
+    """SolverConsts of one growing direction (source i0, target i1); method 1
+    adds the window ``gaussian1d_weight(p // 2)``."""
+    solver_for(method)
     i1x, i1y = centered_gradient(i1)
     dev = i0.device
+    w1d = (torch.as_tensor(gaussian1d_weight(p // 2), device=dev)
+           if method == P.M_TVL1_W else None)
     return SolverConsts(pad_for_crops(i0, p), i1, i1x, i1y, _scalar(lam, dev),
-                        _scalar(theta, dev), _scalar(tau, dev), _scalar(tol, dev))
+                        _scalar(theta, dev), _scalar(tau, dev), _scalar(tol, dev),
+                        w1d)
 
 
 def solver_consts_from_numpy(sc, device) -> SolverConsts:
@@ -77,7 +90,7 @@ def solver_consts_from_numpy(sc, device) -> SolverConsts:
 
     return SolverConsts(t(sc.i0pad).contiguous(), t(sc.i1), t(sc.i1x),
                         t(sc.i1y), t(sc.lambda_), t(sc.theta), t(sc.tau),
-                        t(sc.tol))
+                        t(sc.tol), None if sc.w1d is None else t(sc.w1d))
 
 
 def canvas_sum(x: torch.Tensor) -> torch.Tensor:
@@ -100,14 +113,26 @@ def _warp(sc: SolverConsts, planes, gx, gy, u1, u2, inbox):
     return bicubic_sample(planes, uu, vv, False)
 
 
-def solve_tvl1(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
-               warps: int, max_iters: int):
-    """Solve B m0 patches.
+def _weight2d(w1d, rows, cols, oy, ox, cj, ci, wr):
+    """Gaussian-window weight of every canvas cell (tvl2w_model.cpp:227):
+    W = w1d[row - cj + wr] * w1d[col - ci + wr] in global coordinates, the
+    indices clipped to [0, 2wr] (so clamped boxes at the image edge keep the
+    window centred on the patch's centre pixel).  (B,) -> (B, P, P)."""
+    ridx = (oy[:, None, None] + rows - cj[:, None, None] + wr).clamp(0, 2 * wr)
+    cidx = (ox[:, None, None] + cols - ci[:, None, None] + wr).clamp(0, 2 * wr)
+    return w1d[ridx] * w1d[cidx]
+
+
+def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
+                       p: int, warps: int, max_iters: int, weighted: bool):
+    """Solve B TV-L1 patches, weighted (method 1) or not (method 0).
 
     ci, cj, oy, ox, ph, pw: (B,) int tensors (centre, canvas origin, valid
     box); u1, u2: (B, P, P) init canvases (zero outside the box).  Returns
     (u1, u2, ener): the solved canvases (zero outside the box) and the (B,)
-    patch energies."""
+    patch energies.  The window radius is p // 2, as JAX passes it: the seed
+    insertion's 3x3 solves of method 1 therefore read w1d[0..2], the tail
+    of the 11-tap window (``seed_batch`` passes wr=1)."""
     dev = u1.device
     rows, cols = canvas_ids(p, dev)
     ph3, pw3 = ph[:, None, None], pw[:, None, None]
@@ -119,6 +144,9 @@ def solve_tvl1(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
     i0_patch = gather_patches(sc.i0pad[:, :, None], oy32, ox32, p)[:, :, 0, :]
     i0_patch = i0_patch.permute(2, 0, 1)                        # (B, P, P)
     l_t = sc.lambda_ * sc.theta
+    if weighted:
+        w2d = _weight2d(sc.w1d, rows, cols, oy, ox, cj, ci, p // 2)
+        l_t = l_t * w2d
     tol2 = sc.tol * sc.tol
     i1_stack = torch.stack([sc.i1, sc.i1x, sc.i1y]).contiguous()
 
@@ -160,9 +188,39 @@ def solve_tvl1(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
     u2x, u2y = forward_gradient_patch(u2, ph, pw)
     i1w = _warp(sc, sc.i1[None], gx, gy, u1, u2, inbox)[0]
     dt = sc.lambda_ * torch.abs(i1w - i0_patch)
+    if weighted:
+        dt = dt * w2d
     e1 = u1 - v1
     e2 = u2 - v2
     dc = (1.0 / (2.0 * sc.theta)) * (e1 * e1 + e2 * e2)
     g = sqrt_rn(u1x * u1x + u1y * u1y + u2x * u2x + u2y * u2y)
     ener = canvas_sum(torch.where(inbox, dc + dt + g, zero)) / (ph * pw).to(u1.dtype)
     return u1, u2, ener
+
+
+def solve_tvl1(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+               warps: int, max_iters: int):
+    """Solve B method-0 (TV-L1) patches; see ``_solve_tvl1_family``."""
+    return _solve_tvl1_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=False)
+
+
+def solve_tvl1_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                 warps: int, max_iters: int):
+    """Solve B method-1 (Gaussian-weighted TV-L1) patches; ``sc.w1d`` must
+    hold the window."""
+    if sc.w1d is None:
+        raise ValueError("solve_tvl1_w needs SolverConsts.w1d (method 1 consts)")
+    return _solve_tvl1_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=True)
+
+
+# method -> patch solver (JAX's ``functionals.SOLVERS``, the ported part)
+SOLVERS = {P.M_TVL1: solve_tvl1, P.M_TVL1_W: solve_tvl1_w}
+
+
+def solver_for(method: int):
+    """The patch solver of ``method``; methods not ported yet raise."""
+    if method not in SOLVERS:
+        raise NotImplementedError(f"method {method} not ported yet")
+    return SOLVERS[method]

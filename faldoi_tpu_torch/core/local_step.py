@@ -4,11 +4,11 @@ Port of ``faldoi_tpu/core/local_step.py`` in its strict mode (the CPU
 ``mode="fused"`` semantics that ``match_growing`` runs by default): per sweep
 the ``bsz`` lowest-energy unfixed candidates are selected, those inside the
 delta band or under the queue-adaptive rank floor are fixed, their 11x11
-patches are cropped (K0), Poisson-filled, solved (the m0 patch solver, with
-K4 warps) and the results are scattered: min-energy wins for the 4-neighbour
-candidates and the donations to pixels accepted in the same sweep, the centre
-update when its energy improves, and max-energy wins for the persistent
-working flow over the whole patch.
+patches are cropped (K0), Poisson-filled, solved (the method's patch
+solver, with K4 warps) and the results are scattered: min-energy wins for the
+4-neighbour candidates and the donations to pixels accepted in the same
+sweep, the centre update when its energy improves, and max-energy wins for
+the persistent working flow over the whole patch.
 
 State layout: flat (h*w+1,) planes; the extra slot is the dump for masked
 writes, as in JAX.
@@ -32,8 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.core.functionals import (
-    SolverConsts, pad_for_crops, solve_tvl1,
+    SolverConsts, pad_for_crops, solver_for,
 )
 from faldoi_tpu_torch.ops.patch_gather import gather_patches
 from faldoi_tpu_torch.ops.poisson import poisson_fill_canvas
@@ -196,11 +197,12 @@ def _fill_pair(u, v, ph, pw, exact):
 
 def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
-               max_iters: int, floor_scale: int):
+               max_iters: int, floor_scale: int, method: int = P.M_TVL1):
     """One strict-mode wavefront sweep (``_sweep_body`` with relax=False,
     fill="patch_rb", block=0, delta/delta_rel/floor at match_growing's
-    defaults, exact working-flow scatter of radius wr).
-    Returns (new state, n_accepted)."""
+    defaults, exact working-flow scatter of radius wr), solving with
+    ``method``'s patch solver.  Returns (new state, n_accepted)."""
+    solver = solver_for(method)
     n = h * w
     dump = n
     p = 2 * wr + 1
@@ -264,8 +266,8 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     v_init = torch.where(inbox, torch.where(uf, fill_v, alt_v), zero)
 
     # --- batched patch solve
-    su, sv, ener = solve_tvl1(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
-                              p, warps, max_iters)
+    su, sv, ener = solver(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
+                          p, warps, max_iters)
 
     # --- 4-neighbour candidates and same-sweep donations (:497-537)
     q4, inb4, e4, nu4, nv4 = _neighbour_candidates(su, sv, ener, i, j, oy, ox,
@@ -296,10 +298,11 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
 
 def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
                sconsts: SolverConsts, sal, h: int, w: int, warps: int,
-               max_iters: int) -> GrowState:
+               max_iters: int, method: int = P.M_TVL1) -> GrowState:
     """insert_initial_seeds (:748-796): 3x3 solves around each seed with only
     the seed fixed (exact raster Gauss-Seidel fill), 4-neighbour candidates,
     and the working-flow scatter.  Every lane here is a real seed."""
+    solver = solver_for(method)
     n = h * w
     dump = n
     wr, p = 1, 3
@@ -316,8 +319,8 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
                         ph, pw, exact=True)
     u_init = torch.where(inbox, fu, zero)
     v_init = torch.where(inbox, fv, zero)
-    su, sv, ener = solve_tvl1(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
-                              p, warps, max_iters)
+    su, sv, ener = solver(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
+                          p, warps, max_iters)
 
     q4, inb4, e4, nu4, nv4 = _neighbour_candidates(su, sv, ener, i, j, oy, ox,
                                                    sal, h, w, p)
@@ -345,8 +348,8 @@ def refix_seeds(state: GrowState, idx, su, sv) -> GrowState:
 
 
 def insert_seeds(state: GrowState, seeds: np.ndarray, sconsts: SolverConsts,
-                 sal, warps: int, max_iters: int,
-                 seed_bsz: int = 2048) -> GrowState:
+                 sal, warps: int, max_iters: int, seed_bsz: int = 2048,
+                 method: int = P.M_TVL1) -> GrowState:
     """Seed insertion from an (h, w, 2) NaN-sparse field, in chunks of
     ``seed_bsz`` seeds as ``LocalSolver.insert_seeds`` does (each chunk's
     working-flow scatter starts from a fresh key plane, so chunking is part
@@ -362,20 +365,32 @@ def insert_seeds(state: GrowState, seeds: np.ndarray, sconsts: SolverConsts,
     for k0 in range(0, len(pos), seed_bsz):
         sl = slice(k0, k0 + seed_bsz)
         state = seed_batch(state, pos_t[sl], su_t[sl], sv_t[sl], sconsts, sal,
-                           h, w, warps, max_iters)
+                           h, w, warps, max_iters, method)
     return refix_seeds(state, pos_t, su_t, sv_t)
+
+
+# sweeps between the sync points of JAX's chunked ``grow``
+CHUNK = 64
 
 
 def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
           iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
-          max_iters: int, floor_scale: int):
+          max_iters: int, floor_scale: int, method: int = P.M_TVL1,
+          on_chunk=None):
     """Sweep until a sweep accepts nothing (``grow_to_completion``).
     Returns (state, sweeps); the count includes the final empty sweep, as
-    JAX's does."""
+    JAX's does.
+
+    ``on_chunk(state)``, if given, is called after every ``CHUNK`` sweeps
+    and after the last one: the sync points of JAX's chunked ``grow``
+    (local_step.py:1219-1236), where the partial-results snapshots are
+    taken."""
     sweeps = 0
     while True:
         state, k = sweep_body(state, sconsts, trust2d, sal, iteration, h, w,
-                              wr, bsz, warps, max_iters, floor_scale)
+                              wr, bsz, warps, max_iters, floor_scale, method)
         sweeps += 1
+        if on_chunk is not None and (k == 0 or sweeps % CHUNK == 0):
+            on_chunk(state)
         if k == 0:
             return state, sweeps

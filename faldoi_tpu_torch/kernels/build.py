@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (``faldoi_tpu_torch/csrc``).
 
 nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a`` only, at first use::
+interface, for ``sm_90a`` only, at first use: one nvcc per source, all
+started together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \
-        -shared -Xcompiler -fPIC -o <build>/libfaldoi_kernels_<hash>.so csrc/*.cu
+        -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu     # each, at once
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+        -o <build>/libfaldoi_kernels_<hash>.so <tmp>/*.o
 
 The library goes into ``faldoi_tpu_torch/_build/`` (gitignored), named by a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -33,10 +36,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+                           "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +53,12 @@ _SIGNATURES = {
     # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c err,
     # h, w, l_t, theta, tau, stream
     "faldoi_global_pd_iteration": (_P,) * 13 + (_I, _I, _F, _F, _F, _P),
+    # x, y, out, n, stream
+    "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
+    # x, out, rows, cols, lanes, stream
+    "faldoi_probe_roll4": (_P, _P, _I, _I, _I, _P),
+    # planes, oy8, cb, out, c, h, w, b, stream
+    "faldoi_probe_window_fetch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _state = {"lib": None}
@@ -75,7 +83,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -88,21 +96,41 @@ def build(verbose: bool = False) -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources()]
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        try:
+            for src in sources():
+                obj = str(Path(tmp) / f"{src.stem}.o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                       str(src)]
+                if verbose:
+                    cmd.insert(1, "-Xptxas=-v")
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            for cmd, proc in procs:
+                _finish(cmd, proc.communicate()[0], proc.returncode, verbose)
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_out), *cu]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_out), *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        if verbose and (res.stdout or res.stderr):
-            print(res.stdout + res.stderr)
+        _finish(cmd, res.stdout + res.stderr, res.returncode, verbose)
         os.replace(tmp_out, out)
     return out
+
+
+def _finish(cmd, output: str, code: int, verbose: bool) -> None:
+    """Raise with nvcc's output if it failed; print it when verbose."""
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{output}")
+    if verbose and output:
+        print(output)
 
 
 def library() -> ctypes.CDLL:

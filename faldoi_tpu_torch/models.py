@@ -1,8 +1,11 @@
-"""Functional registry of the port — method 0 (TV-L1) only in this slice.
+"""Functional registry of the port — methods 0 (TV-L1) and 1 (weighted
+TV-L1) in this slice.
 
 Port of ``faldoi_tpu/models/__init__.py``: the per-method hardcoded
-(lambda, theta, tau) of the local step (energy_model.cpp:704-800) and the
-dispatch of the global step (global_faldoi.cpp:2132-2167).
+(lambda, theta, tau) of the local step (energy_model.cpp:704-800), those of
+the global step (global_faldoi.cpp:2132-2158) and its dispatch
+(global_faldoi.cpp:2132-2167).  The weighted method's global step is the
+unweighted TV-L1 one with the params file's (lambda, theta, tau).
 """
 
 from __future__ import annotations
@@ -27,12 +30,26 @@ def method_local_params(method: int, w_radio: int = P.PAR_DEFAULT_WINSIZE):
     return lam, theta, tau
 
 
+def method_global_params(method: int, prm: P.Parameters):
+    """Per-method (lambda, theta, tau) of the GLOBAL step: the TV-L1 methods
+    take the params file; the others are hardcoded."""
+    if method in (P.M_TVL1, P.M_TVL1_W, P.M_TVL1_OCC):
+        return prm.lambda_, prm.theta, prm.tau
+    if method in (P.M_NLTVCSAD, P.M_NLTVCSAD_W, P.M_NLTVL1, P.M_NLTVL1_W):
+        lam = 2.0 if method in (P.M_NLTVL1, P.M_NLTVL1_W) else 0.85
+        return lam, 0.3, 0.1
+    if method in (P.M_TVCSAD, P.M_TVCSAD_W):
+        return 0.85, 0.3, 0.125
+    raise ValueError(f"unknown method {method}")
+
+
 def global_refine(method: int, i0n, i1n, u1, u2, prm: P.Parameters,
                   stats=None):
     """Dispatch the global step; returns the refined (u1, u2)."""
-    if method != P.M_TVL1:
+    if method not in (P.M_TVL1, P.M_TVL1_W):
         raise NotImplementedError(f"method {method} not ported yet")
     from faldoi_tpu_torch.core.global_step import tvl2_global
 
-    return tvl2_global(i0n, i1n, u1, u2, prm.lambda_, prm.theta, prm.tau,
-                       prm.tol_OF, prm.warps, stats=stats)
+    lam, theta, tau = method_global_params(method, prm)
+    return tvl2_global(i0n, i1n, u1, u2, lam, theta, tau, prm.tol_OF,
+                       prm.warps, stats=stats)

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (K0, K4, K5) against their plain twins, on
-the card.
+"""The hand-written CUDA kernels (K0, K4, K5, the probes P1-P3) against their
+plain twins, on the card, and the weighted patch solver on the card against
+its CPU run.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -7,9 +8,10 @@ only PyTorch:
 
     python -m pytest tests/test_torch_card.py --noconftest -q
 
-K0 must equal its twin bit for bit; K4 and K5 within 1e-5 abs (the kernels
-are built with --fmad=false and contract exactly where the twins do, so the
-usual difference is 0)."""
+K0, P1 and P2 must equal their twins bit for bit; K4 and K5 within 1e-5 abs
+(the kernels are built with --fmad=false and contract exactly where the
+twins do, so the usual difference is 0); P3 within relative 1e-5 (another
+summation order)."""
 
 import numpy as np
 import pytest
@@ -109,3 +111,56 @@ def test_wrappers_raise_on_bad_card_tensors(dev):
     uu = torch.zeros((4, 4), device=dev).t()        # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         bicubic_sample(planes, uu, uu, True)
+
+
+def test_probes_match_twins_on_card(dev):
+    from faldoi_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.standard_normal((1000, 37)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((1000, 37)).astype(np.float32))
+    before = probes.probe_axpy.launches
+    got = probes.probe_axpy(x.to(dev), y.to(dev))
+    assert probes.probe_axpy.launches == before + 1
+    assert torch.equal(got.cpu(), probes.probe_axpy_plain(x, y))
+    # an odd offset: the scalar path of the kernel
+    got = probes.probe_axpy(x.to(dev).view(-1)[1:], y.to(dev).view(-1)[1:])
+    assert torch.equal(got.cpu(), probes.probe_axpy_plain(x.view(-1)[1:],
+                                                          y.view(-1)[1:]))
+    r = torch.as_tensor(rng.standard_normal((11, 11, 384)).astype(np.float32))
+    assert torch.equal(probes.probe_roll4(r.to(dev)).cpu(),
+                       probes.probe_roll4_plain(r))
+    planes = torch.as_tensor(rng.uniform(0, 1, (3, 440, 1024)).astype(np.float32))
+    oy8 = torch.as_tensor((rng.integers(0, 50, 300) * 8).astype(np.int32))
+    cb = torch.as_tensor((rng.integers(0, 7, 300) * 128).astype(np.int32))
+    want = probes.probe_window_fetch_plain(planes, oy8, cb)
+    got = probes.probe_window_fetch(planes.to(dev), oy8.to(dev), cb.to(dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_window_fetch(planes.to(dev), (oy8 + 1).to(dev), cb.to(dev))
+
+
+def test_weighted_solver_on_card_matches_cpu(dev):
+    from faldoi_tpu_torch.core.functionals import make_solver_consts, solve_tvl1_w
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.models import method_local_params
+
+    h, w = 40, 56
+    i0, i1, _, _ = syn.make_pair(h, w, seed=14)
+    a, b = prepare_pair(i0, i1, device="cpu")
+    lam, theta, tau = method_local_params(1, 5)
+    rng = np.random.default_rng(15)
+    idx = torch.as_tensor(rng.choice(h * w, 200, replace=False))
+    idx[:4] = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w])
+    for p in (11, 3):
+        geo = patch_geometry(idx, h, w, p // 2)
+        u0 = torch.as_tensor(rng.normal(2.6, 1.0, (200, p, p)).astype(np.float32))
+        v0 = torch.as_tensor(rng.normal(-1.4, 1.0, (200, p, p)).astype(np.float32))
+        outs = []
+        for d in ("cpu", dev):
+            sc = make_solver_consts(a.to(d), b.to(d), lam, theta, tau, 0.01, p, 1)
+            outs.append(solve_tvl1_w(sc, *(g.to(d) for g in geo), u0.to(d),
+                                     v0.to(d), p, 1, 4))
+        for x, y in zip(outs[1], outs[0]):
+            assert (x.cpu() - y).abs().max().item() <= ATOL

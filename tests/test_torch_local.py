@@ -20,6 +20,11 @@ import jax.numpy as jnp
 
 from faldoi_tpu_torch import synthetic as syn
 
+# pytest-xdist runs several workers on few cores; torch's intra-op
+# threads would oversubscribe them (their spin-waits make the small ops
+# of the port's CPU path tens of times slower)
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 EXACT_ENV = {"FALDOI_TOPK": "exact", "FALDOI_WSCATTER": "exact",
              "FALDOI_WSCATTER_R": "5", "FALDOI_BLOCKGATHER": "0",

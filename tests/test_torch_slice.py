@@ -21,6 +21,11 @@ import jax.numpy as jnp
 from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch import synthetic as syn
 
+# pytest-xdist runs several workers on few cores; torch's intra-op
+# threads would oversubscribe them (their spin-waits make the small ops
+# of the port's CPU path tens of times slower)
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 EXACT_ENV = {"FALDOI_TOPK": "exact", "FALDOI_WSCATTER": "exact",
              "FALDOI_WSCATTER_R": "5", "FALDOI_BLOCKGATHER": "0",

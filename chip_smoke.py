@@ -21,9 +21,14 @@ before it and read just after:
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
   seeds, the weighted TV-L1 growing and the global step, on the card.
 
-Every phase prints its own lines; any failure raises (non-zero exit, no
-result line).  The line before the last is the kernels' JSON record; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+Every kernel's record carries its time, its twin's, its bound (the larger
+of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
+counted from this run's inputs) and, where one PyTorch call computes the
+same function (K0: one ``aten::index``; P1: ``torch.add``), that call's
+time as a yardstick the port never calls.  Every phase prints its own
+lines; any failure raises (non-zero exit, no result line).  The line before
+the last is the kernels' JSON record; the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits
 non-zero at once.
 """
 
@@ -45,7 +50,15 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "shape", "gbps", "wrapper_ms")
+EXTRA = ("launches_m0", "shape", "eager_ms", "gbps", "wrapper_ms", "per_iter_us",
+         "point_ms", "point_glue_ms")
+KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")
+# PD iterations per global warp, identical on the CPU twins and the card
+# (the m0 path's since PR 1; every warp of the SIFT-seeded m1 flow hits the
+# 400-iteration cap)
+ITERS_M0 = [400, 111, 133, 115, 160]
+ITERS_SIFT = [400] * 5
 
 
 def log(msg):
@@ -60,15 +73,16 @@ def card_line():
 
 
 def check_k0(dev, rng):
-    """K0 at the sweep's crop shape, including edge, dump and clamped lanes."""
-    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    """K0 at the sweep's crop shape, including edge, dump and clamped lanes;
+    its yardstick is one ``aten::index`` call with prebuilt indices."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms, touched
     from faldoi_tpu_torch.core.local_step import patch_geometry
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_plain
 
-    p, wr = 11, 5
-    stack = torch.as_tensor(rng.standard_normal((H + p, W + p, 5)).astype(np.float32),
+    p, wr, c = 11, 5, 5
+    stack = torch.as_tensor(rng.standard_normal((H + p, W + p, c)).astype(np.float32),
                             device=dev)
-    stack[torch.as_tensor(rng.random((H + p, W + p, 5)) < 0.05, device=dev)] = float("nan")
+    stack[torch.as_tensor(rng.random((H + p, W + p, c)) < 0.05, device=dev)] = float("nan")
     idx = torch.as_tensor(rng.integers(0, H * W, BSZ), device=dev)
     idx[:8] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W, H * W,
                                H * W - 2, 5 * W], device=dev)   # corners + dump
@@ -83,115 +97,264 @@ def check_k0(dev, rng):
         torch.equal(got.isnan(), want.isnan())
     if not same:
         raise AssertionError("K0 gather_patches differs from its twin")
-    ms = cuda_ms(lambda: gather_patches(stack, oy, ox, p))
+    ms = cuda_ms(lambda: gather_patches(stack, oy, ox, p), graph=True)
     plain = cuda_ms(lambda: gather_patches_plain(stack, oy, ox, p))
+    # the yardstick: the twin's index with its indices built beforehand
+    hp, wp = H + p, W + p
+    ar = torch.arange(p, device=dev)
+    oyl, oxl = oy.long(), ox.long()
+    rows = torch.where(oyl < 0, oyl + hp, oyl).clamp(0, hp - p)[:, None] + ar
+    cols = torch.where(oxl < 0, oxl + wp, oxl).clamp(0, wp - p)[:, None] + ar
+    ri, ci = rows[:, :, None], cols[:, None, :]
+    lib = cuda_ms(lambda: stack[ri, ci, :], graph=True)
+    least = bound(touched((hp, wp), rows, cols) * c * 4 + BSZ * p * p * c * 4
+                  + 2 * BSZ * 4)
     log(f"K0 gather_patches (447,1035,5) p=11 B=8192: max_abs_err 0.0 (bit-exact) "
-        f"kernel {ms:.4f} ms  twin {plain:.4f} ms")
+        f"kernel {ms:.4f} ms  twin {plain:.4f} ms  one "
+        f"aten::index {lib:.4f} ms  bound {least['bound_ms']:.4f} ms "
+        f"({least['bound_by']})")
     return dict(name="gather_patches", route="cuda",
                 source="faldoi_tpu_torch/csrc/patch_gather.cu",
-                replaces="faldoi_tpu/ops/pallas_sweep.py:49",
-                max_abs_err=0.0, ms=ms, plain_ms=plain)
+                replaces="faldoi_tpu/ops/pallas_sweep.py:49", shape="(447,1035,5) p 11 B 8192",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib, **least)
+
+
+def window_cells(ny, nx, uu, vv):
+    """Distinct pixels that bicubic samples at (uu, vv) read (4x4 windows)."""
+    from faldoi_tpu_torch.cli.kernel_probe import touched
+    from faldoi_tpu_torch.ops.bicubic import _sample_weights
+
+    wy, wx = _sample_weights(ny, nx, uu.reshape(-1), vv.reshape(-1))[:2]
+    ar = torch.arange(4, device=uu.device)
+    return touched((ny, nx), wy[:, None] + ar, wx[:, None] + ar)
+
+
+def smooth_flow(rng, noise=2.0):
+    """A smooth (H, W) flow pair reaching out of the domain, plus noise."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    u = 14 * np.sin(xx / 37.0) + 9 * np.cos(yy / 23.0) + rng.normal(0, noise, (H, W))
+    v = 11 * np.cos(xx / 29.0) - 8 * np.sin(yy / 41.0) + rng.normal(0, noise, (H, W))
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+# K4's float operations a point: ~40 for the two axes' weights, then 16
+# FMAs (32 operations) a plane
+K4_OPS_POINT, K4_OPS_PLANE = 40, 32
 
 
 def check_k4(dev, rng):
-    """K4 on 3 planes at 436x1024 with flows reaching out of the domain, both
-    border modes; and at the patch solver's call shape."""
-    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    """K4's point form on 3 planes at 436x1024 (the whole-image warp of the
+    global step) with flows reaching out of the domain, both border modes."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.ops.bicubic import (
         bicubic_sample, bicubic_sample_plain, warp_coords,
     )
 
     planes = torch.as_tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
                              device=dev)
-    yy, xx = np.mgrid[0:H, 0:W]
-    u = 14 * np.sin(xx / 37.0) + 9 * np.cos(yy / 23.0) + rng.normal(0, 2, (H, W))
-    v = 11 * np.cos(xx / 29.0) - 8 * np.sin(yy / 41.0) + rng.normal(0, 2, (H, W))
-    uu, vv = warp_coords(torch.as_tensor(u.astype(np.float32), device=dev),
-                         torch.as_tensor(v.astype(np.float32), device=dev))
+    u, v = smooth_flow(rng)
+    uu, vv = warp_coords(torch.as_tensor(u, device=dev), torch.as_tensor(v, device=dev))
     if not ((uu < 0).any() and (vv < 0).any() and (uu >= W).any() and (vv >= H).any()):
         raise AssertionError("K4 test flow does not leave the domain")
-    bound = 1e-5 * float(planes.abs().max())
+    bound_err = 1e-5 * float(planes.abs().max())
     worst = 0.0
     for border_out in (True, False):
         d = (bicubic_sample(planes, uu, vv, border_out)
              - bicubic_sample_plain(planes, uu, vv, border_out)).abs().max().item()
         worst = max(worst, d)
-        if not d <= bound:
-            raise AssertionError(f"K4 border_out={border_out}: {d} > {bound}")
-    ms = cuda_ms(lambda: bicubic_sample(planes, uu, vv, True))
+        if not d <= bound_err:
+            raise AssertionError(f"K4 border_out={border_out}: {d} > {bound_err}")
+    ms = cuda_ms(lambda: bicubic_sample(planes, uu, vv, True), graph=True)
     plain = cuda_ms(lambda: bicubic_sample_plain(planes, uu, vv, True), reps=5)
-    pu = (torch.rand((BSZ, 11, 11), device=dev) * (W - 1)).contiguous()
-    pv = (torch.rand((BSZ, 11, 11), device=dev) * (H - 1)).contiguous()
-    d = (bicubic_sample(planes, pu, pv, False)
-         - bicubic_sample_plain(planes, pu, pv, False)).abs().max().item()
-    if not d <= bound:
-        raise AssertionError(f"K4 patch shape: {d} > {bound}")
-    worst = max(worst, d)
-    pms = cuda_ms(lambda: bicubic_sample(planes, pu, pv, False))
-    pplain = cuda_ms(lambda: bicubic_sample_plain(planes, pu, pv, False), reps=5)
-    log(f"K4 bicubic_sample 3x436x1024 image warp: max_abs_err {worst:.3e} "
-        f"(bound {bound:.3e}) kernel {ms:.4f} ms  twin {plain:.4f} ms; "
-        f"patch warp 3x(8192x11x11): kernel {pms:.4f} ms  twin {pplain:.4f} ms")
+    npts = H * W
+    least = bound(window_cells(H, W, uu, vv) * 3 * 4 + npts * (2 + 3) * 4,
+                  npts * (K4_OPS_POINT + 3 * K4_OPS_PLANE))
+    log(f"K4 bicubic_sample (point form) 3x436x1024 image warp: max_abs_err "
+        f"{worst:.3e} (bound {bound_err:.3e}) kernel {ms:.4f} ms  twin {plain:.4f} ms  "
+        f"bound {least['bound_ms']:.4f} ms ({least['bound_by']})")
     return dict(name="bicubic_sample", route="cuda",
                 source="faldoi_tpu_torch/csrc/bicubic.cu",
-                replaces="faldoi_tpu/ops/bicubic.py:120",
-                max_abs_err=worst, ms=ms, plain_ms=plain)
+                replaces="faldoi_tpu/ops/bicubic.py:122", shape="3x436x1024",
+                max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=None, **least)
+
+
+def solver_patches(dev, rng, b, p=11):
+    """The patch solver's call at B patches: boxes from ``patch_geometry`` of
+    random candidate indices (corners and the dump index first), canvases
+    of a smooth flow sampled at the cells (zero outside the box), and a
+    motion edge of 30 px inside 2% of the patches."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
+    idx[:5] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W], device=dev)
+    _, _, oy, ox, ph, pw = patch_geometry(idx, H, W, p // 2)
+    u, v = smooth_flow(rng, noise=0.3)
+    ar = torch.arange(p, device=dev)
+    rr = (oy[:, None, None] + ar[None, :, None]).clamp(max=H - 1)
+    cc = (ox[:, None, None] + ar[None, None, :]).clamp(max=W - 1)
+    inbox = (ar[None, :, None] < ph[:, None, None]) & (ar[None, None, :] < pw[:, None, None])
+    zero = torch.zeros((), device=dev)
+    u1 = torch.where(inbox, torch.as_tensor(u, device=dev)[rr, cc], zero)
+    u2 = torch.where(inbox, torch.as_tensor(v, device=dev)[rr, cc], zero)
+    edge = torch.as_tensor(rng.random(b) < 0.02, device=dev)[:, None, None] & \
+        (ar[None, None, :] > p // 2)
+    u1 = torch.where(edge & inbox, u1 + 30.0, u1).contiguous()
+    return [x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw)] + [u1, u2.contiguous()]
+
+
+def check_k4_patches(dev, rng):
+    """K4's patch form at the solver's call (3 planes, P 11) for B 8192 and
+    1900, bit for bit against its twin and against the point form at the
+    same points; timed beside the point form alone and with the glue the
+    solver ran before it.  The record is B 8192's; B 1900 is logged."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.bicubic import (
+        _patch_points, bicubic_sample, bicubic_sample_patches,
+        bicubic_sample_patches_plain,
+    )
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    planes = torch.as_tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
+                             device=dev)
+    rec = None
+    for b in (BSZ, 1900):
+        geo = solver_patches(dev, rng, b)
+        oy, ox, ph, pw, u1, u2 = geo
+        got = bicubic_sample_patches(planes, *geo, 3)
+        want = bicubic_sample_patches_plain(planes, *geo, 3)
+        uu, vv = _patch_points(*geo)
+        point = bicubic_sample(planes, uu.contiguous(), vv.contiguous(), False)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, point)):
+            d = (got - want).abs().max().item()
+            raise AssertionError(f"K4 patch form B={b} differs from its twin "
+                                 f"(max abs {d}) or from the point form")
+        # the solver's former warp: its glue (where, add, where, add), then
+        # the point form; the boxes' cells were built once per solve
+        rows, cols = canvas_ids(11, dev)
+        inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+        gx = (ox[:, None, None] + cols).float()
+        gy = (oy[:, None, None] + rows).float()
+        zero = torch.zeros((), device=dev)
+
+        def old_warp():
+            return bicubic_sample(planes, (gx + torch.where(inbox, u1, zero)).contiguous(),
+                                  (gy + torch.where(inbox, u2, zero)).contiguous(), False)
+
+        uu, vv = uu.contiguous(), vv.contiguous()
+        ms = cuda_ms(lambda: bicubic_sample_patches(planes, *geo, 3), graph=True)
+        point_ms = cuda_ms(lambda: bicubic_sample(planes, uu, vv, False), graph=True)
+        glue_ms = cuda_ms(old_warp, graph=True)
+        npts = b * 121
+        least = bound(window_cells(H, W, uu, vv) * 3 * 4 + npts * (2 + 3) * 4 + b * 16,
+                      npts * (2 + K4_OPS_POINT + 3 * K4_OPS_PLANE))
+        log(f"K4 bicubic_sample_patches 3x(B={b}x11x11) at the solver's points: "
+            f"bit-exact; patch form {ms:.4f} ms  point form {point_ms:.4f} ms  point "
+            f"form with the solver's former glue {glue_ms:.4f} ms  bound "
+            f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
+        if rec is None:
+            plain = cuda_ms(lambda: bicubic_sample_patches_plain(planes, *geo, 3), reps=5)
+            rec = dict(name="bicubic_sample_patches", route="cuda",
+                       source="faldoi_tpu_torch/csrc/bicubic.cu",
+                       replaces="faldoi_tpu/core/functionals.py:180",
+                       shape=f"3x({b}x11x11)", max_abs_err=0.0, ms=ms,
+                       plain_ms=plain, library_ms=None, point_ms=point_ms,
+                       point_glue_ms=glue_ms, **least)
+    return rec
+
+
+# K5's float operations a pixel an iteration: ~24 in the dual phase, ~41 in
+# the primal phase (threshold, divergence, getP, over-relaxation, u_n)
+K5_OPS = 65
+K5_PLANES = 20     # 12 planes read once and 8 written once a launch
+
+
+def warp_state(dev, a, b, flow):
+    """A warp's PD state and constants, as tvl2_global builds them."""
+    from faldoi_tpu_torch.core.pd_common import warp_constants
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
+    from faldoi_tpu_torch.ops.stencils import centered_gradient
+
+    u1, u2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    i1x, i1y = centered_gradient(b)
+    i1w, i1wx, i1wy = bicubic_warp_stack(torch.stack([b, i1x, i1y]), u1, u2, True)
+    grad, rho_c = warp_constants(a, i1w, i1wx, i1wy, u1, u2)
+    xi = [torch.zeros_like(u1) for _ in range(4)]
+    return [u1, u2, u1.clone(), u2.clone(), *xi, i1wx.contiguous(),
+            i1wy.contiguous(), grad.contiguous(), rho_c.contiguous()]
 
 
 def check_k5(dev, rng, a, b, gf):
-    """K5 for one iteration from one state, and a whole tvl2_global."""
-    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    """The K5 loop: one iteration from a random state, a whole warp from a
+    real one (the same iteration count as the twin loop), timed at the
+    400-iteration cap, and a whole tvl2_global against the CPU twins."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.global_step import (
-        global_pd_iteration, global_pd_iteration_plain, tvl2_global,
+        global_pd_iteration_plain, global_pd_loop, global_pd_loop_plain,
+        tvl2_global,
     )
     from faldoi_tpu_torch.synthetic import epe
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev).contiguous()
 
+    l_t, theta, tau = float(np.float32(40) * np.float32(0.3)), 0.3, 0.125
+    tol2 = float(np.float32(0.01) * np.float32(0.01))
     st = [gf[..., 0], gf[..., 1], gf[..., 0] + rng.normal(0, 0.1, (H, W)),
           gf[..., 1] + rng.normal(0, 0.1, (H, W))]
     st += [rng.uniform(-0.9, 0.9, (H, W)) for _ in range(4)]
     gx, gy = rng.normal(0, 0.05, (H, W)), rng.normal(0, 0.05, (H, W))
     consts = [t(gx), t(gy), t(gx * gx + gy * gy), t(rng.normal(0, 0.1, (H, W)))]
-    l_t, theta, tau = float(np.float32(40) * np.float32(0.3)), 0.3, 0.125
     ka = [t(x) for x in st]
     kb_ = [x.clone() for x in ka]
-    ea = torch.empty(1, device=dev)
-    eb = torch.empty(1, device=dev)
-    global_pd_iteration(*ka, *consts, ea, l_t, theta, tau)
-    global_pd_iteration_plain(*kb_, *consts, eb, l_t, theta, tau)
-    worst = max((x - y).abs().max().item() for x, y in zip(ka + [ea], kb_ + [eb]))
-    if not worst <= 1e-5:
-        raise AssertionError(f"K5 one iteration: max abs diff {worst} > 1e-5")
-    ms = cuda_ms(lambda: global_pd_iteration(*ka, *consts, ea, l_t, theta, tau), reps=50)
-    plain = cuda_ms(lambda: global_pd_iteration_plain(*kb_, *consts, eb, l_t, theta,
-                                                      tau), reps=20)
-
-    def synced():      # what tvl2_global does: read err after every iteration
-        global_pd_iteration(*ka, *consts, ea, l_t, theta, tau)
-        ea.item()
-
-    synced_ms = cuda_ms(synced, reps=50)
+    if global_pd_loop(*ka, *consts, l_t, theta, tau, tol2, 1) != 1:
+        raise AssertionError("K5 loop with max_iters 1 ran another count")
+    global_pd_iteration_plain(*kb_, *consts, torch.empty(1, device=dev), l_t, theta, tau)
+    worst = max((x - y).abs().max().item() for x, y in zip(ka, kb_))
+    # a whole warp from the state tvl2_global builds: same count, same planes
+    flow = t(gf + rng.normal(0, 0.5, gf.shape))
+    ws = warp_state(dev, a, b, flow)
+    wt = [x.clone() for x in ws]
+    n = global_pd_loop(*ws, l_t, theta, tau, tol2, 400)
+    n_twin = global_pd_loop_plain(*wt, l_t, theta, tau, tol2, 400)
+    worst = max([worst] + [(x - y).abs().max().item() for x, y in zip(ws, wt)])
+    if n != n_twin or not worst <= 1e-5:
+        raise AssertionError(f"K5 loop: {n} iterations against the twin's "
+                             f"{n_twin}, max abs diff {worst} (bound 1e-5)")
+    # at the cap: tol2 < 0 never stops a loop early
+    ms = cuda_ms(lambda: global_pd_loop(*ws, l_t, theta, tau, -1.0, 400), reps=5, warmup=1)
+    plain = cuda_ms(lambda: global_pd_loop_plain(*wt, l_t, theta, tau, -1.0, 400),
+                    reps=1, warmup=1)
+    least = bound(K5_PLANES * H * W * 4, K5_OPS * H * W * 400)
     # a whole tvl2_global: kernels vs the same run on the twins (CPU)
     f0 = t(gf + rng.normal(0, 0.3, gf.shape))
+    st_card, st_cpu = {}, {}
     t0 = time.perf_counter()
-    u1, u2 = tvl2_global(a, b, f0[..., 0].contiguous(), f0[..., 1].contiguous())
+    u1, u2 = tvl2_global(a, b, f0[..., 0].contiguous(), f0[..., 1].contiguous(),
+                         stats=st_card)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     c1, c2 = tvl2_global(a.cpu(), b.cpu(), f0[..., 0].cpu().contiguous(),
-                         f0[..., 1].cpu().contiguous())
+                         f0[..., 1].cpu().contiguous(), stats=st_cpu)
     e = epe(torch.stack([u1, u2], -1).cpu().numpy(), torch.stack([c1, c2], -1).numpy())
-    if not e <= 1e-3:
-        raise AssertionError(f"tvl2_global card vs CPU twins: EPE {e} > 1e-3")
-    log(f"K5 global_pd_iteration 436x1024: max_abs_err {worst:.3e} kernel {ms:.4f} "
-        f"ms  twin {plain:.4f} ms; with the host's read of err after each "
-        f"iteration {synced_ms:.4f} ms; tvl2_global card vs CPU twins EPE "
-        f"{e:.3e} px ({secs:.2f} s on the card)")
-    return dict(name="global_pd_iteration", route="cuda",
+    if st_card["global_iters"] != st_cpu["global_iters"] or not e <= 1e-3:
+        raise AssertionError(f"tvl2_global card vs CPU twins: iterations "
+                             f"{st_card['global_iters']} vs {st_cpu['global_iters']}, "
+                             f"EPE {e} (bound 1e-3)")
+    log(f"K5 global_pd_loop 436x1024: max_abs_err {worst:.3e}; a warp from a real "
+        f"state {n} iterations (twin loop {n_twin}); at the 400-iteration cap kernel "
+        f"{ms:.4f} ms a launch = {ms / 400 * 1e3:.2f} us an iteration, twin loop "
+        f"{plain:.4f} ms; bound {least['bound_ms']:.4f} ms a launch "
+        f"({least['bound_by']}; bytes alone {bound(K5_PLANES * H * W * 4)['bound_ms']:.4f} "
+        f"ms); "
+        f"tvl2_global card vs CPU twins EPE {e:.3e} px, iterations "
+        f"{st_card['global_iters']} on both ({secs:.3f} s on the card)")
+    return dict(name="global_pd_loop", route="cuda",
                 source="faldoi_tpu_torch/csrc/global_pd.cu",
                 replaces="faldoi_tpu/core/global_step.py:74",
-                max_abs_err=worst, ms=ms, plain_ms=plain)
+                shape="436x1024, 400 iterations a launch", max_abs_err=worst,
+                ms=ms, plain_ms=plain, library_ms=None, per_iter_us=ms / 400 * 1e3,
+                **least)
 
 
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
@@ -266,6 +429,9 @@ def run_sift_path(i0, i1, gf, wrappers):
         raise AssertionError(f"faldoi_sift growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
         raise AssertionError("non-finite values in faldoi_sift's final flow")
+    if st["global_iters"] != ITERS_SIFT:
+        raise AssertionError(f"faldoi_sift global iterations {st['global_iters']}, "
+                             f"expected {ITERS_SIFT}")
     return launches
 
 
@@ -276,11 +442,11 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from faldoi_tpu_torch import synthetic as syn
-    from faldoi_tpu_torch.core.global_step import global_pd_iteration
+    from faldoi_tpu_torch.core.global_step import global_pd_loop
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.io.flo import read_flo
     from faldoi_tpu_torch.kernels import build as kb
-    from faldoi_tpu_torch.ops.bicubic import bicubic_sample
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample, bicubic_sample_patches
     from faldoi_tpu_torch.ops.patch_gather import gather_patches
 
     dev = torch.device("cuda")
@@ -311,7 +477,8 @@ def main():
 
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
-    kernels = [check_k0(dev, rng), check_k4(dev, rng), check_k5(dev, rng, a, b, gf)]
+    kernels = [check_k0(dev, rng), check_k4(dev, rng), check_k4_patches(dev, rng),
+               check_k5(dev, rng, a, b, gf)]
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -343,7 +510,7 @@ def main():
                                  f"{e_var} > 0.01")
 
     # phase 5: the full m0 main path on the card, counting launches
-    wrappers = (gather_patches, bicubic_sample, global_pd_iteration)
+    wrappers = (gather_patches, bicubic_sample, bicubic_sample_patches, global_pd_loop)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -362,6 +529,9 @@ def main():
         raise AssertionError(f"growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
         raise AssertionError("non-finite values in the final flow")
+    if st["global_iters"] != ITERS_M0:
+        raise AssertionError(f"global iterations {st['global_iters']}, expected "
+                             f"{ITERS_M0}")
 
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
@@ -391,9 +561,7 @@ def main():
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 
     print(json.dumps({"kernels": [
-        {k: d[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms") + EXTRA if k in d}
-        for d in kernels]}))
+        {k: d[k] for k in KEYS + EXTRA if k in d} for d in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,11 +9,13 @@ It builds the kernels, runs P1 (``2x + y``, (256, 256)), P2 (the roll loop,
 (11, 11, 1024)) and P3 (the window fetch, planes (3, 440, 1024), B = 1024,
 the probe's default, and B = 8192, the sweep's batch) at the scripts'
 shapes, checks each against its twin (P1 and P2 bit for bit, P3 within
-relative 1e-5) and prints the kernel's and the twin's milliseconds per call
-(CUDA events, after a warm-up; each call goes through ctypes, so P1 and P2
-are bound by the host's launch rate), and GB/s for P3 (its kernel alone,
-then with the wrapper's origin check, which reads a flag back from the
-card).  It needs a CUDA card.
+relative 1e-5) and prints milliseconds per call (CUDA events, after a
+warm-up): the kernel's from a CUDA graph of 20 calls (the card's time) and
+called eagerly (each call goes through ctypes, so P1 and P2 then measure
+the host's launch rate), the twin's, the bound (bytes over 3.35 TB/s or
+float32 operations over 67 TFLOP/s) and, for P1, one ``torch.add``; and
+GB/s for P3 (its kernel alone, then with the wrapper's origin check, which
+reads a flag back from the card).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,21 +28,61 @@ import torch
 
 P3_RTOL = 1e-5
 P3_PLANES = (3, 440, 1024)     # H padded to a multiple of 8, W of 128
+# the H100 SXM's published peaks (NVIDIA's data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def cuda_ms(fn, reps=20, warmup=3, graph=False):
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events).
+
+    Called eagerly, a call whose kernels take less time than the host needs
+    to issue it measures the host.  ``graph=True`` captures ``reps`` calls
+    into one CUDA graph and times its replay: the card's time for the
+    kernels, back to back, without the host's share."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    replays = 0
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        replays = 5
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    if graph:
+        for _ in range(replays):
+            g.replay()
+    else:
+        for _ in range(reps):
+            fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * max(replays, 1))
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its float32 operations over the peak, and which of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def touched(shape, rows: torch.Tensor, cols: torch.Tensor) -> int:
+    """Distinct (row, col) cells of a ``shape`` grid that windows read:
+    rows (B, r) and cols (B, c) index each window's rows and columns."""
+    mask = torch.zeros(shape, dtype=torch.bool, device=rows.device)
+    mask[rows[:, :, None], cols[:, None, :]] = True
+    return int(mask.sum())
 
 
 def window_origins(b: int, rng, shape=P3_PLANES):
@@ -62,11 +104,15 @@ def check_p1(dev, rng):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("P1 probe_axpy differs from its twin")
+    n = x.numel()
     return dict(name="probe_axpy", route="cuda",
                 source="faldoi_tpu_torch/csrc/probes.cu",
                 replaces="scripts/tpu_pallas_probe.py:23", shape="(256, 256)",
-                max_abs_err=0.0, ms=cuda_ms(lambda: probe_axpy(x, y)),
-                plain_ms=cuda_ms(lambda: probe_axpy_plain(x, y)))
+                max_abs_err=0.0, ms=cuda_ms(lambda: probe_axpy(x, y), graph=True),
+                eager_ms=cuda_ms(lambda: probe_axpy(x, y)),
+                plain_ms=cuda_ms(lambda: probe_axpy_plain(x, y)),
+                library_ms=cuda_ms(lambda: torch.add(y, x, alpha=2), graph=True),
+                **bound(3 * n * 4, 2 * n))
 
 
 def check_p2(dev, rng):
@@ -78,11 +124,14 @@ def check_p2(dev, rng):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("P2 probe_roll4 differs from its twin")
+    n = x.numel()
     return dict(name="probe_roll4", route="cuda",
                 source="faldoi_tpu_torch/csrc/probes.cu",
                 replaces="scripts/tpu_pallas_probe.py:47", shape="(11, 11, 1024)",
-                max_abs_err=0.0, ms=cuda_ms(lambda: probe_roll4(x)),
-                plain_ms=cuda_ms(lambda: probe_roll4_plain(x)))
+                max_abs_err=0.0, ms=cuda_ms(lambda: probe_roll4(x), graph=True),
+                eager_ms=cuda_ms(lambda: probe_roll4(x)),
+                plain_ms=cuda_ms(lambda: probe_roll4_plain(x)), library_ms=None,
+                **bound(2 * n * 4, 4 * 2 * n))     # 4 steps of a mul and an add
 
 
 def check_p3(dev, rng, b):
@@ -103,16 +152,22 @@ def check_p3(dev, rng, b):
         raise AssertionError(f"P3 probe_window_fetch B={b}: relative error "
                              f"{rel} > {P3_RTOL}")
     # the kernel alone (origins checked above), and the wrapper with its check
-    ms = cuda_ms(lambda: launch_window_fetch(planes, oy8, cb))
+    ms = cuda_ms(lambda: launch_window_fetch(planes, oy8, cb), graph=True)
+    eager = cuda_ms(lambda: launch_window_fetch(planes, oy8, cb))
     wrapper = cuda_ms(lambda: probe_window_fetch(planes, oy8, cb))
     plain = cuda_ms(lambda: probe_window_fetch_plain(planes, oy8, cb), reps=5)
     nbytes = b * (P3_PLANES[0] * WIN_ROWS * WIN_COLS + WIN_COLS) * 4
+    rows = oy8.long()[:, None] + torch.arange(WIN_ROWS, device=dev)
+    cols = cb.long()[:, None] + torch.arange(WIN_COLS, device=dev)
+    cells = touched(P3_PLANES[1:], rows, cols)
+    least = bound(cells * P3_PLANES[0] * 4 + b * (2 + WIN_COLS) * 4,
+                  b * P3_PLANES[0] * WIN_ROWS * WIN_COLS)   # one add a float
     return dict(name="probe_window_fetch", route="cuda",
                 source="faldoi_tpu_torch/csrc/probes.cu",
                 replaces="scripts/tpu_pallas_gather_probe.py:76",
                 shape=f"planes {P3_PLANES}, B={b}", max_abs_err=err,
-                rel_err=rel, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
-                gbps=nbytes / ms / 1e6)
+                rel_err=rel, ms=ms, eager_ms=eager, wrapper_ms=wrapper, plain_ms=plain,
+                library_ms=None, gbps=nbytes / ms / 1e6, **least)
 
 
 def run_probes(dev, rng):
@@ -124,7 +179,11 @@ def run_probes(dev, rng):
 
 def describe(r) -> str:
     line = (f"{r['name']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
-            f"kernel {r['ms']:.4f} ms  twin {r['plain_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f})  twin "
+            f"{r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if r["library_ms"] is not None:
+        line += f"  one PyTorch call {r['library_ms']:.4f} ms"
     if "gbps" in r:
         line += (f"  {r['gbps']:.1f} GB/s (rel err {r['rel_err']:.2e}); with "
                  f"the origin check {r['wrapper_ms']:.4f} ms")

@@ -7,8 +7,9 @@ lives on a fixed (P, P) canvas with a valid box [0, ph) x [0, pw) whose
 origin in the image is (oy, ox):
 
 * the source-frame crop goes through K0 (``ops.patch_gather``);
-* the warps of (I1, I1x, I1y) and the final I1 warp go through K4
-  (``ops.bicubic``) at the cells' displaced points, ``border_out=False``;
+* the warps of (I1, I1x, I1y) and the final I1 warp go through K4's patch
+  form (``ops.bicubic.bicubic_sample_patches``) at the cells' displaced
+  points, ``border_out=False``;
 * the tol-gated PD loop is the static masked unroll of JAX's
   ``_bounded_pd_loop``: ``max_iters`` steps, and a lane freezes once its
   ``err <= tol^2``;
@@ -32,7 +33,7 @@ from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.core.pd_common import (
     sqrt_rn, tvl1_threshold, tvl2_getD, tvl2_getP,
 )
-from faldoi_tpu_torch.ops.bicubic import bicubic_sample
+from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
 from faldoi_tpu_torch.ops.gaussian import gaussian1d_weight
 from faldoi_tpu_torch.ops.patch_gather import gather_patches
 from faldoi_tpu_torch.ops.stencils import (
@@ -47,6 +48,7 @@ class SolverConsts(NamedTuple):
     i1: torch.Tensor         # (h, w) target frame
     i1x: torch.Tensor
     i1y: torch.Tensor
+    i1_stack: torch.Tensor   # (3, h, w) stacked (i1, i1x, i1y), K4's planes
     lambda_: torch.Tensor    # float32 scalars
     theta: torch.Tensor
     tau: torch.Tensor
@@ -76,9 +78,10 @@ def make_solver_consts(i0: torch.Tensor, i1: torch.Tensor, lam, theta, tau,
     dev = i0.device
     w1d = (torch.as_tensor(gaussian1d_weight(p // 2), device=dev)
            if method == P.M_TVL1_W else None)
-    return SolverConsts(pad_for_crops(i0, p), i1, i1x, i1y, _scalar(lam, dev),
-                        _scalar(theta, dev), _scalar(tau, dev), _scalar(tol, dev),
-                        w1d)
+    return SolverConsts(pad_for_crops(i0, p), i1, i1x, i1y,
+                        torch.stack([i1, i1x, i1y]).contiguous(),
+                        _scalar(lam, dev), _scalar(theta, dev), _scalar(tau, dev),
+                        _scalar(tol, dev), w1d)
 
 
 def solver_consts_from_numpy(sc, device) -> SolverConsts:
@@ -89,8 +92,9 @@ def solver_consts_from_numpy(sc, device) -> SolverConsts:
         return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
 
     return SolverConsts(t(sc.i0pad).contiguous(), t(sc.i1), t(sc.i1x),
-                        t(sc.i1y), t(sc.lambda_), t(sc.theta), t(sc.tau),
-                        t(sc.tol), None if sc.w1d is None else t(sc.w1d))
+                        t(sc.i1y), t(sc.i1_stack).contiguous(), t(sc.lambda_),
+                        t(sc.theta), t(sc.tau), t(sc.tol),
+                        None if sc.w1d is None else t(sc.w1d))
 
 
 def canvas_sum(x: torch.Tensor) -> torch.Tensor:
@@ -103,14 +107,6 @@ def canvas_sum(x: torch.Tensor) -> torch.Tensor:
     for r in range(1, x.shape[1]):
         t = t + s[:, r]
     return t
-
-
-def _warp(sc: SolverConsts, planes, gx, gy, u1, u2, inbox):
-    """Sample ``planes`` (C, h, w) at the patch cells' displaced points."""
-    zero = torch.zeros((), dtype=u1.dtype, device=u1.device)
-    uu = (gx + torch.where(inbox, u1, zero)).contiguous()
-    vv = (gy + torch.where(inbox, u2, zero)).contiguous()
-    return bicubic_sample(planes, uu, vv, False)
 
 
 def _weight2d(w1d, rows, cols, oy, ox, cj, ci, wr):
@@ -137,10 +133,10 @@ def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     rows, cols = canvas_ids(p, dev)
     ph3, pw3 = ph[:, None, None], pw[:, None, None]
     inbox = (rows < ph3) & (cols < pw3)
-    gx = (ox[:, None, None] + cols).to(u1.dtype)
-    gy = (oy[:, None, None] + rows).to(u1.dtype)
     zero = torch.zeros((), dtype=u1.dtype, device=dev)
     oy32, ox32 = oy.to(torch.int32).contiguous(), ox.to(torch.int32).contiguous()
+    ph32, pw32 = ph.to(torch.int32).contiguous(), pw.to(torch.int32).contiguous()
+    box = (oy32, ox32, ph32, pw32)
     i0_patch = gather_patches(sc.i0pad[:, :, None], oy32, ox32, p)[:, :, 0, :]
     i0_patch = i0_patch.permute(2, 0, 1)                        # (B, P, P)
     l_t = sc.lambda_ * sc.theta
@@ -148,12 +144,12 @@ def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
         w2d = _weight2d(sc.w1d, rows, cols, oy, ox, cj, ci, p // 2)
         l_t = l_t * w2d
     tol2 = sc.tol * sc.tol
-    i1_stack = torch.stack([sc.i1, sc.i1x, sc.i1y]).contiguous()
 
     xi = tuple(torch.zeros_like(u1) for _ in range(4))
     v1, v2 = u1, u2
     for _ in range(warps):
-        i1w, i1wx, i1wy = _warp(sc, i1_stack, gx, gy, u1, u2, inbox)
+        i1w, i1wx, i1wy = bicubic_sample_patches(
+            sc.i1_stack, *box, u1.contiguous(), u2.contiguous(), 3)
         grad = i1wx * i1wx + i1wy * i1wy
         rho_c = i1w - i1wx * u1 - i1wy * u2 - i0_patch
         st = (u1, u2, u1, u2, *xi, v1, v2,
@@ -186,7 +182,7 @@ def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     v2 = torch.where(inbox, v2, zero)
     u1x, u1y = forward_gradient_patch(u1, ph, pw)
     u2x, u2y = forward_gradient_patch(u2, ph, pw)
-    i1w = _warp(sc, sc.i1[None], gx, gy, u1, u2, inbox)[0]
+    i1w = bicubic_sample_patches(sc.i1_stack, *box, u1, u2, 1)[0]
     dt = sc.lambda_ * torch.abs(i1w - i0_patch)
     if weighted:
         dt = dt * w2d

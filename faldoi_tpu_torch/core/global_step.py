@@ -1,4 +1,4 @@
-"""Global (whole-image) TV-L1 refinement, with kernel K5 for the PD iteration.
+"""Global (whole-image) TV-L1 refinement, with kernel K5 for the PD loop.
 
 Port of ``faldoi_tpu/core/global_step.py::tvl2_global`` (``tvl2OF``,
 global_faldoi.cpp:556-882):
@@ -9,15 +9,15 @@ global_faldoi.cpp:556-882):
 * the PD loop starts with ``err = inf`` (so it runs at least once) and stops
   at ``err <= tol^2`` or after ``max_iters`` (400) iterations.
 
-One iteration (global_step.py:74-89) is kernel K5 (``csrc/global_pd.cu``):
-threshold, forward gradients of u_bar, ``getD``, divergence of the NEW xi,
-``getP``, over-relaxation, and ``err = max(u_n)`` written to a device scalar.
-The divergence at (r, c) reads the new xi at (r, c-1) and (r-1, c), which
-other threads write, so K5 is two launches: one updates xi in place, the
-next reads it and updates u, u_bar and err in place.  Each iteration moves
-~19 float planes (~33 MB at 436x1024), so it is bound by device-memory
-bandwidth; the host reads ``err`` after every iteration (one sync each, up to
-``warps * max_iters``), which keeps the JAX iteration rule exactly.
+The PD loop of one warp (global_step.py:74-93) is kernel K5
+(``csrc/global_pd.cu``), one cooperative launch: per iteration threshold,
+forward gradients of u_bar, ``getD``, divergence of the NEW xi, ``getP``,
+over-relaxation and ``err = max(u_n)``, with a grid barrier after the dual
+and after the primal phase; every block tests ``err > tol^2`` on the card,
+as JAX's ``lax.while_loop`` does, and the host reads only the iteration
+count, once per warp.  A launch reads 12 planes and writes 8 (35.7 MB at
+436x1024) and does ~65 float operations a pixel an iteration, so a warp
+at the 400-iteration cap is bound by operations; the barriers set its pace.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from faldoi_tpu_torch.ops.stencils import (
 
 def global_pd_iteration_plain(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22,
                               i1wx, i1wy, grad, rho_c, err, l_t, theta, tau):
-    """Plain twin of K5: one PD iteration, updating the state in place and
+    """One PD iteration of K5's plain twin, updating the state in place and
     writing max(u_n) into the one-element ``err``.  theta divides as a tensor:
     PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
     which rounds differently from the kernel's (and the CPU's) division."""
@@ -59,31 +59,52 @@ def global_pd_iteration_plain(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22,
     return err
 
 
-def global_pd_iteration(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22,
-                        i1wx, i1wy, grad, rho_c, err, l_t, theta, tau):
-    """K5: one TV-L1 PD iteration of ``tvl2_global`` on (h, w) float32 planes,
-    in place; ``err`` (a one-element tensor) receives max(u_n).
+def global_pd_loop_plain(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22,
+                         i1wx, i1wy, grad, rho_c, l_t, theta, tau, tol2,
+                         max_iters: int) -> int:
+    """Plain twin of K5: the PD loop of one warp on the host, reading err
+    after every iteration.  Returns the iteration count."""
+    err = torch.empty(1, dtype=torch.float32, device=u1.device)
+    e, n = float("inf"), 0
+    while e > tol2 and n < max_iters:
+        global_pd_iteration_plain(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22,
+                                  i1wx, i1wy, grad, rho_c, err, l_t, theta, tau)
+        e = float(err.item())
+        n += 1
+    return n
 
-    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
-    raise)."""
+
+def global_pd_loop(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, i1wx, i1wy,
+                   grad, rho_c, l_t, theta, tau, tol2, max_iters: int) -> int:
+    """K5: the TV-L1 PD loop of one warp of ``tvl2_global`` on (h, w) float32
+    planes, in place: iterate while ``max(u_n) > tol2`` (float32) and fewer
+    than ``max_iters`` iterations ran.  Returns the iteration count.
+
+    CPU tensors go to the plain twin; CUDA tensors make one cooperative
+    launch that loops on the card, and the host reads only the count (or
+    the wrapper raises)."""
     planes = (u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, i1wx, i1wy, grad, rho_c)
     if u1.device.type == "cpu":
-        return global_pd_iteration_plain(*planes, err, l_t, theta, tau)
+        return global_pd_loop_plain(*planes, l_t, theta, tau, tol2, max_iters)
+    if u1.dim() != 2 or u1.numel() == 0:
+        raise ValueError(f"u1 must be a non-empty (h, w) plane, got "
+                         f"{tuple(u1.shape)}")
     h, w = u1.shape
     names = ("u1", "u2", "u1_", "u2_", "xi11", "xi12", "xi21", "xi22",
              "i1wx", "i1wy", "grad", "rho_c")
     for name, t in zip(names, planes):
         kb.require_cuda_tensor(t, name, torch.float32, u1.device, (h, w))
-    kb.require_cuda_tensor(err, "err", torch.float32, u1.device, (1,))
-    code = kb.library().faldoi_global_pd_iteration(
-        *(t.data_ptr() for t in planes), err.data_ptr(), h, w,
-        float(l_t), float(theta), float(tau), kb.stream_ptr(u1.device))
-    kb.check(code, "global_pd_iteration")
-    global_pd_iteration.launches += 1
-    return err
+    scratch = torch.empty(4, dtype=torch.int32, device=u1.device)
+    code = kb.library().faldoi_global_pd_loop(
+        *(t.data_ptr() for t in planes), scratch.data_ptr(), h, w,
+        float(l_t), float(theta), float(tau), float(tol2), int(max_iters),
+        kb.stream_ptr(u1.device))
+    kb.check(code, "global_pd_loop")
+    global_pd_loop.launches += 1
+    return int(scratch[3].item())
 
 
-global_pd_iteration.launches = 0   # K5 launches, raised only after a launch
+global_pd_loop.launches = 0   # K5 launches, raised only after a launch
 
 
 def tvl2_global(i0: torch.Tensor, i1: torch.Tensor, u1: torch.Tensor,
@@ -103,20 +124,14 @@ def tvl2_global(i0: torch.Tensor, i1: torch.Tensor, u1: torch.Tensor,
     u1 = u1.clone().contiguous()
     u2 = u2.clone().contiguous()
     xi = [torch.zeros_like(u1) for _ in range(4)]
-    err = torch.empty(1, dtype=torch.float32, device=u1.device)
     iters = []
     for _ in range(warps):
         i1w, i1wx, i1wy = bicubic_warp_stack(i1_stack, u1, u2, True)
         grad, rho_c = warp_constants(i0, i1w, i1wx, i1wy, u1, u2)
         i1wx, i1wy = i1wx.contiguous(), i1wy.contiguous()
         u1_, u2_ = u1.clone(), u2.clone()
-        e, n = float("inf"), 0
-        while e > tol2 and n < max_iters:
-            global_pd_iteration(u1, u2, u1_, u2_, *xi, i1wx, i1wy, grad,
-                                rho_c, err, l_t, theta, tau)
-            e = float(err.item())
-            n += 1
-        iters.append(n)
+        iters.append(global_pd_loop(u1, u2, u1_, u2_, *xi, i1wx, i1wy, grad,
+                                    rho_c, l_t, theta, tau, tol2, max_iters))
     if stats is not None:
         stats["global_iters"] = iters
     return u1, u2

@@ -1,4 +1,4 @@
-// K4: per-point bicubic sampling with the reference's C semantics.
+// K4: bicubic sampling with the reference's C semantics.
 //
 // Replaces the XLA-lowered faldoi_tpu/ops/bicubic.py::bicubic_interp_at and
 // its windowed one-hot forms (bicubic_window_sample*, the tiled
@@ -15,9 +15,18 @@
 // (faldoi_tpu_torch/ops/bicubic.py::bicubic_sample_plain); --fmad=false keeps
 // nvcc from contracting anything else.
 //
-// One thread per sample point; the weights are computed once and shared by
-// the C planes.  Bound by the 16 scattered reads per point and plane, which
-// neighbouring threads mostly share through L1/L2.
+// Two forms, one thread per sample point each:
+// * the point form (bicubic_sample_kernel, the whole-image warps of the
+//   global step and the FB check) samples given points;
+// * the patch form (bicubic_patches_kernel, the patch solver's warps of
+//   faldoi_tpu/core/functionals.py::_warp3/_warp1) forms its cells' points
+//   itself from the patch boxes and flow canvases, so the solver runs no
+//   glue ops before it.
+// Both share the weights across the C planes and are bound by the 16
+// scattered reads per point and plane, which neighbouring threads mostly
+// share through L1/L2.  A patch form staging each patch's source tile in
+// shared memory was slower on the H100 than reading through L1 (PERF.md,
+// Findings).
 
 #include <cuda_runtime.h>
 
@@ -55,14 +64,50 @@ __device__ __forceinline__ bool axis_weights(const int el[4], int given,
   st = min(max(st, 0), max(n - 4, 0));
   float a[4];
   basis(origin - (float)cl[1], a);
+  // every offset adds the coefficient or 0, as the twin does: a constant
+  // index keeps w in registers (w[rel] += a[e] put it in local memory)
   w[0] = w[1] = w[2] = w[3] = 0.0f;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int rel = min(max(cl[e] - st, 0), 3);
-    w[rel] = w[rel] + a[e];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = w[r] + (rel == r ? a[e] : 0.0f);
   }
   *start = st;
   return out;
+}
+
+// The 4x4 window start (wx0, wy0), the per-axis window weights and the
+// out-of-domain flag of one sample point (uu, vv).
+__device__ __forceinline__ bool point_weights(float u, float v, int h, int w,
+                                              int* wx0, int* wy0, float wx[4],
+                                              float wy[4]) {
+  const int sx = u < 0.0f ? -1 : 1;
+  const int sy = v < 0.0f ? -1 : 1;
+  const int iu = trunc_int(u);
+  const int iv = trunc_int(v);
+  const int ex[4] = {iu - sx, iu, iu + sx, iu + 2 * sx};
+  const int ey[4] = {iv - sx, iv, iv + sy, iv + 2 * sy};  // sic: sx
+  bool o = axis_weights(ex, sx > 0 ? iu - 1 : iu - 2, true, w, u, wx0, wx);
+  o = axis_weights(ey, 0, false, h, v, wy0, wy) || o;
+  return o;
+}
+
+// Contract the 4x4 window at ``win`` (rows ``stride`` floats apart) over
+// rows, then over columns, with fmaf.
+__device__ __forceinline__ float contract(const float* win, int stride,
+                                          const float wy[4],
+                                          const float wx[4]) {
+  float r = 0.0f;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    float col = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      col = fmaf(wy[k], win[(long long)k * stride + l], col);
+    r = fmaf(col, wx[l], r);
+  }
+  return r;
 }
 
 __global__ void bicubic_sample_kernel(const float* __restrict__ planes,
@@ -73,33 +118,47 @@ __global__ void bicubic_sample_kernel(const float* __restrict__ planes,
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < npts; idx += step) {
-    const float u = uu[idx];
-    const float v = vv[idx];
-    const int sx = u < 0.0f ? -1 : 1;
-    const int sy = v < 0.0f ? -1 : 1;
-    const int iu = trunc_int(u);
-    const int iv = trunc_int(v);
-    const int ex[4] = {iu - sx, iu, iu + sx, iu + 2 * sx};
-    const int ey[4] = {iv - sx, iv, iv + sy, iv + 2 * sy};  // sic: sx
     int wx0, wy0;
     float wx[4], wy[4];
-    bool o = axis_weights(ex, sx > 0 ? iu - 1 : iu - 2, true, w, u, &wx0, wx);
-    o = axis_weights(ey, 0, false, h, v, &wy0, wy) || o;
+    const bool o = point_weights(uu[idx], vv[idx], h, w, &wx0, &wy0, wx, wy);
     const long long plane = (long long)h * w;
     for (int ch = 0; ch < c; ++ch) {
-      const float* img = planes + ch * plane;
-      const float* win = img + (long long)wy0 * w + wx0;
-      float r = 0.0f;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        float col = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) col = fmaf(wy[k], win[(long long)k * w + l], col);
-        r = fmaf(col, wx[l], r);
-      }
+      float r = contract(planes + ch * plane + (long long)wy0 * w + wx0, w, wy,
+                         wx);
       if (border_out && o) r = 0.0f;
       out[ch * npts + idx] = r;
     }
+  }
+}
+
+// The patch form: one thread per canvas cell of the B patches.  Each
+// thread forms its cell's point as the patch solver does (cell + flow inside
+// the valid box, the bare cell outside it) and samples it exactly as
+// bicubic_sample_kernel does with border_out off.
+__global__ void bicubic_patches_kernel(
+    const float* __restrict__ planes, const int* __restrict__ oy,
+    const int* __restrict__ ox, const int* __restrict__ ph,
+    const int* __restrict__ pw, const float* __restrict__ u1,
+    const float* __restrict__ u2, float* __restrict__ out, int c, int h, int w,
+    int b, int p) {
+  const long long pp = (long long)p * p;
+  const long long nout = (long long)b * pp;
+  const long long plane = (long long)h * w;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < nout; idx += step) {
+    const int k = (int)(idx / pp);
+    const int cell = (int)(idx - k * pp);
+    const int row = cell / p, col = cell - (cell / p) * p;
+    const bool inbox = row < ph[k] && col < pw[k];
+    const float uu = (float)(ox[k] + col) + (inbox ? u1[idx] : 0.0f);
+    const float vv = (float)(oy[k] + row) + (inbox ? u2[idx] : 0.0f);
+    int wx0, wy0;
+    float wx[4], wy[4];
+    point_weights(uu, vv, h, w, &wx0, &wy0, wx, wy);
+    for (int ch = 0; ch < c; ++ch)
+      out[ch * nout + idx] = contract(
+          planes + ch * plane + (long long)wy0 * w + wx0, w, wy, wx);
   }
 }
 
@@ -116,5 +175,20 @@ extern "C" int faldoi_bicubic_sample(const float* planes, const float* uu,
   bicubic_sample_kernel<<<(unsigned)blocks, threads, 0,
                           (cudaStream_t)stream>>>(planes, uu, vv, out, c, h, w,
                                                   npts, border_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int faldoi_bicubic_sample_patches(
+    const float* planes, const int* oy, const int* ox, const int* ph,
+    const int* pw, const float* u1, const float* u2, float* out, int c, int h,
+    int w, int b, int p, void* stream) {
+  if (b <= 0) return 0;
+  if (c < 1 || p < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  long long blocks = ((long long)b * p * p + threads - 1) / threads;
+  if (blocks > 1048576) blocks = 1048576;
+  bicubic_patches_kernel<<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(planes, oy, ox, ph, pw, u1,
+                                                   u2, out, c, h, w, b, p);
   return (int)cudaGetLastError();
 }

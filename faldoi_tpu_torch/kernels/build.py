@@ -50,9 +50,11 @@ _SIGNATURES = {
     "faldoi_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # planes, uu, vv, out, c, h, w, npts, border_out, stream
     "faldoi_bicubic_sample": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
-    # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c err,
-    # h, w, l_t, theta, tau, stream
-    "faldoi_global_pd_iteration": (_P,) * 13 + (_I, _I, _F, _F, _F, _P),
+    # planes, oy, ox, ph, pw, u1, u2, out, c, h, w, b, p, stream
+    "faldoi_bicubic_sample_patches": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c scratch,
+    # h, w, l_t, theta, tau, tol2, max_iters, stream
+    "faldoi_global_pd_loop": (_P,) * 13 + (_I, _I, _F, _F, _F, _F, _I, _P),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

@@ -22,11 +22,17 @@ samples every point exactly: it does not carry over the JAX package's
 windowed one-hot forms (``bicubic_window_sample*``, the tiled
 ``bicubic_warp_stack``), which clamp samples beyond their window.
 
-K4 (``csrc/bicubic.cu``) runs one thread per sample point and shares the 16
-weights across the C planes.  On the card it is bound by the 16 scattered
-4-byte reads per point and plane (each a 32-byte sector): ~0.1 GB of sector
-traffic for a 3-plane 436x1024 warp, mostly hitting L2 because neighbouring
-threads read neighbouring windows.
+K4 (``csrc/bicubic.cu``) has two forms, one thread per sample point each,
+the weights shared across the C planes, bound by the 16 scattered 4-byte
+reads per point and plane (each a 32-byte sector), which neighbouring
+threads mostly share through L1/L2:
+
+* ``bicubic_sample``, the point form for the whole-image warps (global step,
+  FB check), at given points;
+* ``bicubic_sample_patches``, the patch form for the patch solver: the
+  caller passes the patch boxes and flow canvases, not points, and each
+  thread forms its cell's point as the solver did (``cell + flow`` inside
+  the valid box).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from faldoi_tpu_torch.kernels import build as kb
+from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 
 def _basis(t):
@@ -153,7 +160,76 @@ def bicubic_sample(planes: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
     return out
 
 
-bicubic_sample.launches = 0   # K4 launches, raised only after a launch
+bicubic_sample.launches = 0   # launches of K4's point form, raised after a launch
+
+
+def _patch_points(oy, ox, ph, pw, u1, u2):
+    """The patch solver's sample points: cell (ox + col, oy + row) plus the
+    flow inside the valid box [0, ph) x [0, pw), the bare cell outside it."""
+    rows, cols = canvas_ids(u1.shape[-1], u1.device)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    zero = torch.zeros((), dtype=u1.dtype, device=u1.device)
+    gx = (ox[:, None, None] + cols).to(u1.dtype)
+    gy = (oy[:, None, None] + rows).to(u1.dtype)
+    return gx + torch.where(inbox, u1, zero), gy + torch.where(inbox, u2, zero)
+
+
+def bicubic_sample_patches_plain(stack, oy, ox, ph, pw, u1, u2,
+                                 nplanes: int) -> torch.Tensor:
+    """Plain twin of K4's patch form: the first ``nplanes`` planes of
+    ``stack`` sampled at the patch points, ``border_out=False``."""
+    uu, vv = _patch_points(oy, ox, ph, pw, u1, u2)
+    return bicubic_sample_plain(stack[:nplanes], uu, vv, False)
+
+
+def bicubic_sample_patches(stack: torch.Tensor, oy: torch.Tensor,
+                           ox: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
+                           u1: torch.Tensor, u2: torch.Tensor,
+                           nplanes: int) -> torch.Tensor:
+    """K4, patch form: sample the first ``nplanes`` planes of the
+    (C, H, W) ``stack`` at the points of B patch canvases — cell (ox + col,
+    oy + row) plus (u1, u2) inside the valid box [0, ph) x [0, pw), the bare
+    cell outside it — with ``border_out=False``.  oy, ox, ph, pw: (B,) int32;
+    u1, u2: (B, P, P) float32.  Returns (nplanes, B, P, P).
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise).  Replaces the solver's ``_warp3``/``_warp1`` windowed samples of
+    ``faldoi_tpu/core/functionals.py``."""
+    if stack.dim() != 3:
+        raise ValueError(f"stack must be (C, H, W), got {tuple(stack.shape)}")
+    c, ny, nx = stack.shape
+    if ny < 4 or nx < 4:
+        raise ValueError("bicubic sampling needs an image of at least 4x4")
+    if not 1 <= nplanes <= c:
+        raise ValueError(f"nplanes {nplanes} must lie in [1, {c}]")
+    if u1.dim() != 3 or u1.shape[1] != u1.shape[2] or u2.shape != u1.shape:
+        raise ValueError(f"u1 {tuple(u1.shape)} and u2 {tuple(u2.shape)} must "
+                         "be one (B, P, P) shape")
+    b, p = u1.shape[0], u1.shape[1]
+    for name, t in (("oy", oy), ("ox", ox), ("ph", ph), ("pw", pw)):
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected ({b},)")
+    if stack.device.type == "cpu":
+        return bicubic_sample_patches_plain(stack, oy, ox, ph, pw, u1, u2, nplanes)
+    kb.require_cuda_tensor(stack, "stack", torch.float32)
+    for name, t in (("oy", oy), ("ox", ox), ("ph", ph), ("pw", pw)):
+        kb.require_cuda_tensor(t, name, torch.int32, stack.device)
+    kb.require_cuda_tensor(u1, "u1", torch.float32, stack.device)
+    kb.require_cuda_tensor(u2, "u2", torch.float32, stack.device)
+    out = torch.empty((nplanes, b, p, p), dtype=torch.float32,
+                      device=stack.device)
+    if b == 0:
+        return out
+    code = kb.library().faldoi_bicubic_sample_patches(
+        stack.data_ptr(), oy.data_ptr(), ox.data_ptr(), ph.data_ptr(),
+        pw.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(), nplanes,
+        ny, nx, b, p, kb.stream_ptr(stack.device))
+    kb.check(code, "bicubic_sample_patches")
+    bicubic_sample_patches.launches += 1
+    return out
+
+
+bicubic_sample_patches.launches = 0   # launches of K4's patch form
 
 
 def bicubic_interp_at(img: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (K0, K4, K5, the probes P1-P3) against their
-plain twins, on the card, and the weighted patch solver on the card against
-its CPU run.
+"""The hand-written CUDA kernels (K0, K4 in its point and patch forms, the K5
+loop, the probes P1-P3) against their plain twins, on the card, and the
+weighted patch solver on the card against its CPU run.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -8,9 +8,10 @@ only PyTorch:
 
     python -m pytest tests/test_torch_card.py --noconftest -q
 
-K0, P1 and P2 must equal their twins bit for bit; K4 and K5 within 1e-5 abs
-(the kernels are built with --fmad=false and contract exactly where the
-twins do, so the usual difference is 0); P3 within relative 1e-5 (another
+K0, P1, P2 and K4's patch form must equal their twins bit for bit; K4's
+point form and K5 within 1e-5 abs (the kernels are built with --fmad=false
+and contract exactly where the twins do, so the usual difference is 0), K5
+with the twin loop's iteration count; P3 within relative 1e-5 (another
 summation order)."""
 
 import numpy as np
@@ -66,9 +67,54 @@ def test_k4_matches_twin_on_card(dev):
         assert (got.cpu() - want).abs().max().item() <= ATOL
 
 
+def _pd_state(h, w, seed, dev):
+    """A warp's PD state and constants on the card, as tvl2_global builds
+    them from a synthetic pair and a noisy known flow."""
+    from faldoi_tpu_torch.core.pd_common import warp_constants
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
+    from faldoi_tpu_torch.ops.stencils import centered_gradient
+
+    i0, i1, gf, _ = syn.make_pair(h, w, seed=seed)
+    a, b = prepare_pair(i0, i1, device=dev)
+    rng = np.random.default_rng(seed)
+    f = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
+                        device=dev)
+    u1, u2 = f[..., 0].contiguous(), f[..., 1].contiguous()
+    i1x, i1y = centered_gradient(b)
+    i1w, i1wx, i1wy = bicubic_warp_stack(torch.stack([b, i1x, i1y]), u1, u2, True)
+    grad, rho_c = warp_constants(a, i1w, i1wx, i1wy, u1, u2)
+    xi = [torch.zeros_like(u1) for _ in range(4)]
+    return [u1, u2, u1.clone(), u2.clone(), *xi, i1wx.contiguous(),
+            i1wy.contiguous(), grad.contiguous(), rho_c.contiguous()]
+
+
+L_T = float(np.float32(40.0) * np.float32(0.3))
+
+
+@pytest.mark.parametrize("h,w,tol,max_iters", [
+    (436, 1024, 0.01, 400), (97, 131, 0.01, 400),   # err <= tol^2 ends them
+    (97, 131, 0.0, 37),                              # the cap ends it
+])
+def test_k5_loop_matches_twin_loop_on_card(dev, h, w, tol, max_iters):
+    from faldoi_tpu_torch.core.global_step import global_pd_loop, global_pd_loop_plain
+
+    st = _pd_state(h, w, 12, dev)
+    twin = [x.clone() for x in st]
+    tol2 = float(np.float32(tol) * np.float32(tol))
+    before = global_pd_loop.launches
+    n = global_pd_loop(*st, L_T, 0.3, 0.125, tol2, max_iters)
+    assert global_pd_loop.launches == before + 1
+    n_twin = global_pd_loop_plain(*twin, L_T, 0.3, 0.125, tol2, max_iters)
+    assert n == n_twin
+    assert (n == max_iters) == (tol == 0.0) and n > 1
+    for a, b in zip(st, twin):
+        assert (a - b).abs().max().item() <= ATOL
+
+
 def test_k5_matches_twin_on_card(dev):
     from faldoi_tpu_torch.core.global_step import (
-        global_pd_iteration, global_pd_iteration_plain, tvl2_global,
+        global_pd_iteration_plain, global_pd_loop, tvl2_global,
     )
     from faldoi_tpu_torch.core.preprocess import prepare_pair
 
@@ -80,22 +126,53 @@ def test_k5_matches_twin_on_card(dev):
     consts = [gx, gy, gx * gx + gy * gy, rng.normal(0, 0.5, (h, w))]
     cpu = [torch.as_tensor(np.asarray(x, np.float32)) for x in st + consts]
     card = [x.to(dev) for x in cpu]
-    e_cpu, e_card = torch.empty(1), torch.empty(1, device=dev)
-    l_t = float(np.float32(40.0) * np.float32(0.3))
-    global_pd_iteration_plain(*cpu, e_cpu, l_t, 0.3, 0.125)
-    global_pd_iteration(*card, e_card, l_t, 0.3, 0.125)
-    for a, b in zip(card + [e_card], cpu + [e_cpu]):
+    e_cpu = torch.empty(1)
+    global_pd_iteration_plain(*cpu, e_cpu, L_T, 0.3, 0.125)
+    assert global_pd_loop(*card, L_T, 0.3, 0.125, 0.0, 1) == 1   # one iteration
+    for a, b in zip(card, cpu):
         assert (a.cpu() - b).abs().max().item() <= ATOL
 
     i0, i1, gf, _ = syn.make_pair(h, w, seed=11, full_shape=(80, 100))
     a, b = prepare_pair(i0, i1, device="cpu")
     flow = torch.as_tensor(gf + rng.normal(0, 0.3, gf.shape).astype(np.float32))
+    st_cpu, st_card = {}, {}
     want = tvl2_global(a, b, flow[..., 0].contiguous(), flow[..., 1].contiguous(),
-                       warps=2)
+                       warps=2, stats=st_cpu)
     got = tvl2_global(a.to(dev), b.to(dev), flow[..., 0].contiguous().to(dev),
-                      flow[..., 1].contiguous().to(dev), warps=2)
+                      flow[..., 1].contiguous().to(dev), warps=2, stats=st_card)
+    assert st_card["global_iters"] == st_cpu["global_iters"]
     for x, y in zip(got, want):
         assert (x.cpu() - y).abs().max().item() <= ATOL
+
+
+def test_k4_patch_form_matches_twin_on_card(dev):
+    """Bit for bit, at the solver's call shapes, on clamped edge boxes, the
+    dump lane, NaN cells and wide-span patches (a motion edge inside)."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample_patches, bicubic_sample_patches_plain,
+    )
+
+    rng = np.random.default_rng(16)
+    ny, nx = 60, 90
+    planes = torch.as_tensor(rng.uniform(0, 1, (3, ny, nx)).astype(np.float32))
+    for p, b in ((11, 700), (3, 300)):
+        idx = torch.as_tensor(rng.integers(0, ny * nx, b))
+        idx[:5] = torch.as_tensor([0, nx - 1, ny * nx - 1, (ny - 1) * nx, ny * nx])
+        _, _, oy, ox, ph, pw = patch_geometry(idx, ny, nx, p // 2)
+        box = [x.to(torch.int32) for x in (oy, ox, ph, pw)]
+        u1 = rng.normal(2.6, 1.0, (b, p, p)).astype(np.float32)
+        u2 = rng.normal(-1.4, 1.0, (b, p, p)).astype(np.float32)
+        u1[5:60, :, p // 2:] += 40.0
+        u1[60, 0, 0] = np.nan
+        u1, u2 = torch.as_tensor(u1), torch.as_tensor(u2)
+        for nplanes in (3, 1):
+            want = bicubic_sample_patches_plain(planes, *box, u1, u2, nplanes)
+            before = bicubic_sample_patches.launches
+            got = bicubic_sample_patches(planes.to(dev), *(x.to(dev) for x in box),
+                                         u1.to(dev), u2.to(dev), nplanes).cpu()
+            assert bicubic_sample_patches.launches == before + 1
+            assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
 
 
 def test_wrappers_raise_on_bad_card_tensors(dev):
@@ -111,6 +188,20 @@ def test_wrappers_raise_on_bad_card_tensors(dev):
     uu = torch.zeros((4, 4), device=dev).t()        # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         bicubic_sample(planes, uu, uu, True)
+    from faldoi_tpu_torch.core.global_step import global_pd_loop
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+
+    box = torch.zeros(4, dtype=torch.int64, device=dev)
+    can = torch.zeros((4, 3, 3), device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        bicubic_sample_patches(planes, box, box, box, box, can, can, 1)
+    st = [torch.zeros((5, 6), device=dev) for _ in range(12)]
+    st[3] = torch.zeros((6, 5), device=dev).t()      # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        global_pd_loop(*st, 12.0, 0.3, 0.125, 1e-4, 5)
+    empty = [torch.zeros((0, 6), device=dev) for _ in range(12)]
+    with pytest.raises(ValueError, match="non-empty"):
+        global_pd_loop(*empty, 12.0, 0.3, 0.125, 1e-4, 5)
 
 
 def test_probes_match_twins_on_card(dev):

@@ -1,7 +1,8 @@
 """The port's global step and FB pruning against faldoi_tpu's.
 
 ``tvl2_global`` (K5's twin inside, K4's twin for the warps) at 40x56 with two
-warps, one PD iteration of K5's twin, ``fb_consistency_check`` and ``prune``:
+warps, one PD iteration of K5's twin, K5's loop twin against JAX's loop rule,
+``fb_consistency_check`` and ``prune``:
 the same numpy inputs through JAX and the port on ``device="cpu"``, float32
 agreement within 1e-5 abs, trust masks equal."""
 
@@ -73,7 +74,7 @@ def test_global_pd_iteration_twin_matches_jax_body(frames):
     JAX loop body's arithmetic."""
     from faldoi_tpu.core import pd_common as J
     from faldoi_tpu.ops import stencils as JS
-    from faldoi_tpu_torch.core.global_step import global_pd_iteration
+    from faldoi_tpu_torch.core.global_step import global_pd_iteration_plain
 
     a, b, flow, _ = frames
     rng = np.random.default_rng(13)
@@ -91,8 +92,8 @@ def test_global_pd_iteration_twin_matches_jax_body(frames):
 
     tst = [T(x).clone() for x in st]
     err = torch.empty(1)
-    global_pd_iteration(*tst, *map(T, consts), err, float(l_t), float(theta),
-                        float(tau))
+    global_pd_iteration_plain(*tst, *map(T, consts), err, float(l_t),
+                              float(theta), float(tau))
 
     u1, u2, u1_, u2_, x11, x12, x21, x22 = map(jnp.asarray, st)
     i1wx, i1wy, grad, rho_c = map(jnp.asarray, consts)
@@ -106,6 +107,84 @@ def test_global_pd_iteration_twin_matches_jax_body(frames):
     for got, ref in zip(tst, want):
         close(got, ref)
     close(err[0], jnp.max(u_n))
+
+
+def _warp_state(frames, seed):
+    """A warp's PD state and constants, as ``tvl2_global`` builds them."""
+    from faldoi_tpu_torch.core.pd_common import warp_constants
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
+    from faldoi_tpu_torch.ops.stencils import centered_gradient
+
+    a, b, flow, _ = frames
+    rng = np.random.default_rng(seed)
+    u1 = T(flow[..., 0] + rng.normal(0, 0.5, (H, W)).astype(np.float32))
+    u2 = T(flow[..., 1] + rng.normal(0, 0.5, (H, W)).astype(np.float32))
+    i1x, i1y = centered_gradient(T(b))
+    i1w, i1wx, i1wy = bicubic_warp_stack(torch.stack([T(b), i1x, i1y]), u1, u2,
+                                         True)
+    grad, rho_c = warp_constants(T(a), i1w, i1wx, i1wy, u1, u2)
+    xi = [T(rng.uniform(-0.5, 0.5, (H, W)).astype(np.float32)) for _ in range(4)]
+    return [u1, u2, u1.clone(), u2.clone(), *xi, i1wx.contiguous(),
+            i1wy.contiguous(), grad, rho_c]
+
+
+@pytest.mark.parametrize("tol,max_iters,nan", [
+    (0.01, 400, False),      # stops at err <= tol^2
+    (0.0, 9, False),         # runs to the cap
+    (1e6, 400, False),       # one iteration (err starts at inf)
+    (0.01, 400, True),       # a NaN err stops the loop
+])
+def test_global_pd_loop_twin_matches_jax_loop(frames, tol, max_iters, nan):
+    """K5's loop (its twin on the CPU) equals the host loop of one-iteration
+    twins that tvl2_global ran before (same count, same planes bit for bit),
+    and JAX's while-loop rule on the JAX body (same count, planes within
+    1e-5)."""
+    from faldoi_tpu.core import pd_common as J
+    from faldoi_tpu.ops import stencils as JS
+    from faldoi_tpu_torch.core.global_step import (
+        global_pd_iteration_plain, global_pd_loop,
+    )
+
+    st = _warp_state(frames, 15)
+    if nan:
+        st[9][7, 9] = float("nan")                      # i1wy
+    l_t = float(np.float32(40.0) * np.float32(0.3))
+    tol2 = float(np.float32(tol) * np.float32(tol))
+    old = [x.clone() for x in st]
+    err = torch.empty(1)
+    e, n_old = float("inf"), 0
+    while e > tol2 and n_old < max_iters:
+        global_pd_iteration_plain(*old, err, l_t, 0.3, 0.125)
+        e = float(err.item())
+        n_old += 1
+    n = global_pd_loop(*st, l_t, 0.3, 0.125, tol2, max_iters)
+    assert n == n_old
+    assert all(torch.equal(x.nan_to_num(9.0), y.nan_to_num(9.0))
+               for x, y in zip(st, old))
+    if nan:
+        assert n == 1
+    else:
+        assert (n == 1) == (tol > 1) and (n == max_iters) == (tol == 0.0)
+
+    # JAX's rule: while err > tol^2 and n < max_iters, on its loop body
+    u1, u2, u1_, u2_, x11, x12, x21, x22, i1wx, i1wy, grad, rho_c = (
+        jnp.asarray(x.numpy()) for x in _warp_state(frames, 15))
+    if nan:
+        i1wy = i1wy.at[7, 9].set(jnp.nan)
+    theta, tau = np.float32(0.3), np.float32(0.125)
+    je, jn = jnp.float32(jnp.inf), 0
+    while bool(je > np.float32(tol2)) and jn < max_iters:
+        v1, v2 = J.tvl1_threshold(u1, u2, rho_c, i1wx, i1wy, grad, np.float32(l_t))
+        g = [*JS.forward_gradient(u1_), *JS.forward_gradient(u2_)]
+        x11, x12, x21, x22 = J.tvl2_getD(x11, x12, x21, x22, *g, tau)
+        nu1, nu2, u_n = J.tvl2_getP(u1, u2, v1, v2, JS.divergence(x11, x12),
+                                    JS.divergence(x21, x22), theta, tau)
+        je, jn = jnp.max(u_n), jn + 1
+        u1_, u2_, u1, u2 = 2.0 * nu1 - u1, 2.0 * nu2 - u2, nu1, nu2
+    assert jn == n
+    if not nan:
+        for got, ref_ in zip(st[:8], (u1, u2, u1_, u2_, x11, x12, x21, x22)):
+            close(got, ref_)
 
 
 def test_fb_check_and_prune_match_jax(frames):

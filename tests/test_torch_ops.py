@@ -250,20 +250,84 @@ def test_pd_common_matches_jax():
         close(x, y)
 
 
+def _old_solver_warp(planes, oy, ox, ph, pw, u1, u2):
+    """The patch solver's warp before K4's patch form: the points composed
+    in PyTorch, then K4's point form (its twin here)."""
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    rows, cols = canvas_ids(u1.shape[-1], u1.device)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    gx = (ox[:, None, None] + cols).to(u1.dtype)
+    gy = (oy[:, None, None] + rows).to(u1.dtype)
+    zero = torch.zeros((), dtype=u1.dtype)
+    uu = (gx + torch.where(inbox, u1, zero)).contiguous()
+    vv = (gy + torch.where(inbox, u2, zero)).contiguous()
+    return bicubic_sample(planes, uu, vv, False)
+
+
+def _solver_patches(rng, ny, nx, p, b):
+    """Patch boxes of the solver (patch_geometry of candidate indices: the
+    corners, every edge, the dump index ny*nx) and flow canvases: smooth,
+    a motion edge of 40 px inside some patches, NaN and far-out cells."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    idx = rng.integers(0, ny * nx, b)
+    idx[:7] = [0, nx - 1, ny * nx - 1, (ny - 1) * nx, 3, 2 * nx, ny * nx]
+    _, _, oy, ox, ph, pw = patch_geometry(T(idx), ny, nx, p // 2)
+    u1 = rng.normal(2.6, 0.8, (b, p, p)).astype(np.float32)
+    u2 = rng.normal(-1.4, 0.8, (b, p, p)).astype(np.float32)
+    u1[7:15, :, p // 2:] += 40.0                       # a motion edge
+    u2[15:20, p // 2:, :] -= 35.0
+    u1[20, 0, 0] = np.nan
+    u2[21, 1, 1] = -1e12
+    return [x.to(torch.int32) for x in (oy, ox, ph, pw)] + [T(u1), T(u2)]
+
+
+@pytest.mark.parametrize("p,nplanes", [(11, 3), (11, 1), (3, 3), (3, 1)])
+def test_patch_form_twin_equals_solver_warp(p, nplanes):
+    """K4's patch form (its twin) equals the solver's former warp bit for
+    bit on clamped edge boxes, the dump lane, wide-span and NaN patches, and
+    JAX's exact per-point sample within 1e-5."""
+    from faldoi_tpu.ops.bicubic import bicubic_interp_at as jinterp
+    from faldoi_tpu_torch.ops.bicubic import _patch_points, bicubic_sample_patches
+
+    rng = np.random.default_rng(11 + p + nplanes)
+    ny, nx = 37, 53
+    planes = T(rng.uniform(0, 1, (3, ny, nx)).astype(np.float32))
+    geo = _solver_patches(rng, ny, nx, p, 60)
+    assert (geo[2] < p).any() and (geo[3] < p).any()    # clamped boxes
+    got = bicubic_sample_patches(planes, *geo, nplanes)
+    assert got.shape == (nplanes, 60, p, p)
+    want = _old_solver_warp(planes[:nplanes], *geo)
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    uu, vv = _patch_points(*geo)
+    ok = torch.isfinite(uu) & torch.isfinite(vv) & (uu.abs() < 1e6) & (vv.abs() < 1e6)
+    for c in range(nplanes):
+        ref_c = np.asarray(jinterp(jnp.asarray(planes[c].numpy()),
+                                   jnp.asarray(uu.numpy()), jnp.asarray(vv.numpy()),
+                                   False))
+        close(got[c][ok], ref_c[ok.numpy()])
+
+
 def test_cpu_tensors_take_the_twins():
     """On the CPU each kernel wrapper returns its plain twin's result and
     counts no launch (the kernels themselves run in tests/test_torch_card.py)."""
     from faldoi_tpu_torch.core.global_step import (
-        global_pd_iteration, global_pd_iteration_plain,
+        global_pd_loop, global_pd_loop_plain,
     )
-    from faldoi_tpu_torch.ops.bicubic import bicubic_sample, bicubic_sample_plain
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample, bicubic_sample_patches, bicubic_sample_patches_plain,
+        bicubic_sample_plain,
+    )
     from faldoi_tpu_torch.ops.patch_gather import (
         gather_patches, gather_patches_plain,
     )
 
     rng = np.random.default_rng(10)
-    counts = (gather_patches.launches, bicubic_sample.launches,
-              global_pd_iteration.launches)
+    wrappers = (gather_patches, bicubic_sample, bicubic_sample_patches,
+                global_pd_loop)
+    counts = tuple(fn.launches for fn in wrappers)
     stack = T(rng.standard_normal((20, 24, 2)).astype(np.float32))
     oy = T(rng.integers(-3, 20, 30).astype(np.int32))
     ox = T(rng.integers(-3, 24, 30).astype(np.int32))
@@ -273,11 +337,12 @@ def test_cpu_tensors_take_the_twins():
     uu, vv = (T(x) for x in _bicubic_points(rng, 20, 24, 200))
     assert torch.equal(bicubic_sample(planes, uu, vv, True),
                        bicubic_sample_plain(planes, uu, vv, True))
+    geo = _solver_patches(rng, 20, 24, 5, 30)
+    assert torch.equal(bicubic_sample_patches(planes, *geo, 2).nan_to_num(7.0),
+                       bicubic_sample_patches_plain(planes, *geo, 2).nan_to_num(7.0))
     st = [T(rng.standard_normal((9, 11)).astype(np.float32)) for _ in range(12)]
     st2 = [x.clone() for x in st]
-    e1, e2 = torch.empty(1), torch.empty(1)
-    global_pd_iteration(*st, e1, 12.0, 0.3, 0.125)
-    global_pd_iteration_plain(*st2, e2, 12.0, 0.3, 0.125)
-    assert all(torch.equal(a, b) for a, b in zip(st + [e1], st2 + [e2]))
-    assert (gather_patches.launches, bicubic_sample.launches,
-            global_pd_iteration.launches) == counts
+    n1 = global_pd_loop(*st, 12.0, 0.3, 0.125, 1e-4, 6)
+    n2 = global_pd_loop_plain(*st2, 12.0, 0.3, 0.125, 1e-4, 6)
+    assert n1 == n2 and all(torch.equal(a, b) for a, b in zip(st, st2))
+    assert tuple(fn.launches for fn in wrappers) == counts

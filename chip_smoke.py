@@ -24,8 +24,10 @@ before it and read just after:
 Every kernel's record carries its time, its twin's, its bound (the larger
 of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
 counted from this run's inputs) and, where one PyTorch call computes the
-same function (K0: one ``aten::index``; P1: ``torch.add``), that call's
-time as a yardstick the port never calls.  Every phase prints its own
+same function (K0's two forms: one ``aten::index``; P1: ``torch.add``), that
+call's time as a yardstick the port never calls.  K0 is checked and timed at
+every shape the paths launch (a record's ``shapes``), its planes form also
+beside the crop stage it replaced.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
 the last is the kernels' JSON record; the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits
@@ -51,7 +53,8 @@ CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
 EXTRA = ("launches_m0", "shape", "eager_ms", "gbps", "wrapper_ms", "per_iter_us",
-         "point_ms", "point_glue_ms")
+         "point_ms", "point_glue_ms", "former_ms", "ms_spread", "library_spread",
+         "shapes")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -72,51 +75,140 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def check_k0(dev, rng):
-    """K0 at the sweep's crop shape, including edge, dump and clamped lanes;
-    its yardstick is one ``aten::index`` call with prebuilt indices."""
-    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms, touched
-    from faldoi_tpu_torch.core.local_step import patch_geometry
-    from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_plain
+def same_bits(a, b):
+    """Equal bit for bit (NaN payloads included)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
 
-    p, wr, c = 11, 5, 5
-    stack = torch.as_tensor(rng.standard_normal((H + p, W + p, c)).astype(np.float32),
-                            device=dev)
-    stack[torch.as_tensor(rng.random((H + p, W + p, c)) < 0.05, device=dev)] = float("nan")
-    idx = torch.as_tensor(rng.integers(0, H * W, BSZ), device=dev)
+
+def crop_origins(dev, rng, b, p):
+    """(B,) int64 window origins as the sweep forms them: ``patch_geometry``
+    of random candidate indices, with the corners and the dump index first,
+    then starts that are negative and past the end."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
     idx[:8] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W, H * W,
                                H * W - 2, 5 * W], device=dev)   # corners + dump
-    _, _, oy, ox, _, _ = patch_geometry(idx, H, W, wr)
-    oy, ox = oy.to(torch.int32), ox.to(torch.int32)
-    oy[8:12] = torch.as_tensor([-3, H + 50, 0, 2 * H], dtype=torch.int32, device=dev)
-    ox[8:12] = torch.as_tensor([W + 40, -7, -1, 0], dtype=torch.int32, device=dev)
-    got = gather_patches(stack, oy, ox, p)
-    want = gather_patches_plain(stack, oy, ox, p)
-    torch.cuda.synchronize()
-    same = torch.equal(got.nan_to_num(1234.5), want.nan_to_num(1234.5)) and \
-        torch.equal(got.isnan(), want.isnan())
-    if not same:
-        raise AssertionError("K0 gather_patches differs from its twin")
-    ms = cuda_ms(lambda: gather_patches(stack, oy, ox, p), graph=True)
-    plain = cuda_ms(lambda: gather_patches_plain(stack, oy, ox, p))
-    # the yardstick: the twin's index with its indices built beforehand
-    hp, wp = H + p, W + p
-    ar = torch.arange(p, device=dev)
-    oyl, oxl = oy.long(), ox.long()
-    rows = torch.where(oyl < 0, oyl + hp, oyl).clamp(0, hp - p)[:, None] + ar
-    cols = torch.where(oxl < 0, oxl + wp, oxl).clamp(0, wp - p)[:, None] + ar
-    ri, ci = rows[:, :, None], cols[:, None, :]
-    lib = cuda_ms(lambda: stack[ri, ci, :], graph=True)
-    least = bound(touched((hp, wp), rows, cols) * c * 4 + BSZ * p * p * c * 4
-                  + 2 * BSZ * 4)
-    log(f"K0 gather_patches (447,1035,5) p=11 B=8192: max_abs_err 0.0 (bit-exact) "
-        f"kernel {ms:.4f} ms  twin {plain:.4f} ms  one "
-        f"aten::index {lib:.4f} ms  bound {least['bound_ms']:.4f} ms "
-        f"({least['bound_by']})")
-    return dict(name="gather_patches", route="cuda",
-                source="faldoi_tpu_torch/csrc/patch_gather.cu",
-                replaces="faldoi_tpu/ops/pallas_sweep.py:49", shape="(447,1035,5) p 11 B 8192",
-                max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib, **least)
+    _, _, oy, ox, _, _ = patch_geometry(idx, H, W, p // 2)
+    oy[8:12] = torch.as_tensor([-3, H + 50, 0, 2 * H], device=dev)
+    ox[8:12] = torch.as_tensor([W + 40, -7, -1, 0], device=dev)
+    return oy.contiguous(), ox.contiguous()
+
+
+def padded_windows(oy, ox, p, hp, wp):
+    """Rows (B, p) and columns (B, p) that ``dynamic_slice`` windows of side
+    p at the (oy, ox) starts read in an (hp, wp) padded array."""
+    ar = torch.arange(p, device=oy.device)
+    rows = torch.where(oy < 0, oy + hp, oy).clamp(0, hp - p)[:, None] + ar
+    cols = torch.where(ox < 0, ox + wp, ox).clamp(0, wp - p)[:, None] + ar
+    return rows, cols
+
+
+def check_k0(dev, rng, n_seeds):
+    """K0's two forms at every shape the paths launch, bit for bit against
+    their twins, each with its own bound and one ``aten::index`` with
+    prebuilt indices as its yardstick.
+
+    Stack form: the state stack of former trees (447, 1035, 5) p 11, the
+    solver's source crop (447, 1035, 1) p 11, both at B 8192 and 1900, and
+    the seed insertion's (447, 1035, 1) p 3 at the seed count.  Planes
+    form: five (436, 1024) planes, p 11, B 8192 and 1900, with a float32 and
+    an int32 trust map, beside the crop stage it replaced (stack, pad, casts,
+    stack form, in one CUDA graph).  Returns the two records."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms, touched
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_patches, gather_patches_plain, gather_plane_patches,
+        gather_plane_patches_plain, pad_for_crops,
+    )
+
+    n = H * W
+    flat = [torch.as_tensor(rng.standard_normal(n + 1).astype(np.float32), device=dev)
+            for _ in range(4)]
+    for pl in flat:
+        pl[torch.as_tensor(rng.random(n + 1) < 0.05, device=dev)] = float("nan")
+    trust_i = torch.as_tensor((rng.random((H, W)) > 0.02).astype(np.int32), device=dev)
+    trust_f = trust_i.to(torch.float32)
+    # every stack is padded by the sweep's patch side, 11: the seed
+    # insertion crops its 3x3 windows from the same padded source frame
+    hp, wp = H + 11, W + 11
+    st5 = pad_for_crops(torch.stack([pl[:n].view(H, W) for pl in flat] + [trust_f],
+                                    dim=-1), 11)
+    stacks = {5: st5, 1: st5[:, :, :1].contiguous()}
+
+    def former_crop(oy, ox, p):
+        """The sweep's crop stage before the planes form."""
+        st = torch.stack([pl[:n].view(H, W) for pl in flat]
+                         + [trust_f.to(torch.float32)], dim=-1)
+        oy32, ox32 = oy.to(torch.int32), ox.to(torch.int32)
+        return gather_patches(pad_for_crops(st, p), oy32, ox32, p).permute(3, 0, 1, 2)
+
+    stack_rows, plane_rows = [], []
+    for c, p, b in ((5, 11, BSZ), (5, 11, 1900), (1, 11, BSZ), (1, 11, 1900),
+                    (1, 3, n_seeds)):
+        oy, ox = crop_origins(dev, rng, b, p)
+        oy32, ox32 = oy.to(torch.int32), ox.to(torch.int32)
+        stack = stacks[c]
+        got = gather_patches(stack, oy32, ox32, p)
+        want = gather_patches_plain(stack, oy32, ox32, p)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"K0 gather_patches C={c} p={p} B={b} differs "
+                                 "from its twin")
+        rows, cols = padded_windows(oy, ox, p, hp, wp)
+        ri, ci = rows[:, :, None], cols[:, None, :]
+        row = dict(shape=f"({hp},{wp},{c}) p {p} B {b}",
+                   ms=cuda_ms(lambda: gather_patches(stack, oy32, ox32, p), graph=True),
+                   plain_ms=cuda_ms(lambda: gather_patches_plain(stack, oy32, ox32, p)),
+                   library_ms=cuda_ms(lambda: stack[ri, ci, :], graph=True),
+                   **bound(touched((hp, wp), rows, cols) * c * 4
+                           + b * p * p * c * 4 + 2 * b * 4))
+        stack_rows.append(row)
+        log(f"K0 gather_patches (stack form) {row['shape']}: bit-exact  kernel "
+            f"{row['ms']:.4f} ms  twin {row['plain_ms']:.4f} ms  one aten::index "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})")
+        if (c, p) != (5, 11):
+            continue
+        # the planes form on the same origins, against its twin (the former
+        # composition) with both trust dtypes, and against the former stage
+        for trust in (trust_f, trust_i):
+            planes = (*flat, trust)
+            got = gather_plane_patches(planes, oy, ox, p, H, W)
+            want = gather_plane_patches_plain(planes, oy, ox, p, H, W)
+            torch.cuda.synchronize()
+            if not (same_bits(got, want)
+                    and same_bits(got, former_crop(oy, ox, p).permute(3, 0, 1, 2))):
+                raise AssertionError(f"K0 gather_plane_patches B={b} trust "
+                                     f"{trust.dtype} differs from its twin")
+        planes = (*flat, trust_f)
+        crows, ccols = rows.clamp(max=H - 1), cols.clamp(max=W - 1)
+        row = dict(shape=f"5 x ({H},{W}) p {p} B {b}",
+                   ms=cuda_ms(lambda: gather_plane_patches(planes, oy, ox, p, H, W),
+                              graph=True),
+                   plain_ms=cuda_ms(lambda: gather_plane_patches_plain(
+                       planes, oy, ox, p, H, W)),
+                   library_ms=stack_rows[-1]["library_ms"],
+                   former_ms=cuda_ms(lambda: former_crop(oy, ox, p), graph=True),
+                   **bound(touched((H, W), crows, ccols) * c * 4
+                           + b * p * p * c * 4 + 2 * b * 8))
+        plane_rows.append(row)
+        log(f"K0 gather_plane_patches (planes form) {row['shape']}: bit-exact "
+            f"(float32 and int32 trust)  kernel {row['ms']:.4f} ms  the former "
+            f"stage (stack, pad, casts, stack form) {row['former_ms']:.4f} ms  "
+            f"twin {row['plain_ms']:.4f} ms  one aten::index on the prebuilt "
+            f"stack {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    common = dict(route="cuda", source="faldoi_tpu_torch/csrc/patch_gather.cu",
+                  max_abs_err=0.0)
+    # a record's own numbers are those of its most frequent launch on the
+    # path: the solver's source crop, and the state crop at B 8192
+    return [dict(common, name="gather_patches",
+                 replaces="faldoi_tpu/ops/pallas_sweep.py:49", **stack_rows[2],
+                 shapes=stack_rows),
+            dict(common, name="gather_plane_patches",
+                 replaces="faldoi_tpu/core/local_step.py:564", **plane_rows[0],
+                 shapes=plane_rows)]
 
 
 def window_cells(ny, nx, uu, vv):
@@ -447,7 +539,7 @@ def main():
     from faldoi_tpu_torch.io.flo import read_flo
     from faldoi_tpu_torch.kernels import build as kb
     from faldoi_tpu_torch.ops.bicubic import bicubic_sample, bicubic_sample_patches
-    from faldoi_tpu_torch.ops.patch_gather import gather_patches
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -477,8 +569,8 @@ def main():
 
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
-    kernels = [check_k0(dev, rng), check_k4(dev, rng), check_k4_patches(dev, rng),
-               check_k5(dev, rng, a, b, gf)]
+    kernels = [*check_k0(dev, rng, len(pos_f)), check_k4(dev, rng),
+               check_k4_patches(dev, rng), check_k5(dev, rng, a, b, gf)]
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -510,7 +602,8 @@ def main():
                                  f"{e_var} > 0.01")
 
     # phase 5: the full m0 main path on the card, counting launches
-    wrappers = (gather_patches, bicubic_sample, bicubic_sample_patches, global_pd_loop)
+    wrappers = (gather_patches, gather_plane_patches, bicubic_sample,
+                bicubic_sample_patches, global_pd_loop)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -523,6 +616,9 @@ def main():
     log(f"sweeps per drain: {json.dumps(st['sweeps'])}")
     log(f"global PD iterations per warp: {st['global_iters']}")
     log(f"launches on the m0 main path: {json.dumps(launches_m0)}")
+    chunks = sum(-(-len(pos) // 2048) for pos in (pos_f, pos_b))
+    log(f"of gather_patches' launches, {chunks} at p 3 (one a chunk of 2048 seeds, "
+        f"B {len(pos_f)} and {len(pos_b)}); the rest at p 11, one a non-empty sweep")
     log(f"fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
         f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
     if fill < 1.0:

@@ -5,7 +5,8 @@ The counterpart of ``scripts/tpu_pallas_probe.py`` and
 
     python -m faldoi_tpu_torch.cli.kernel_probe
 
-It builds the kernels, runs P1 (``2x + y``, (256, 256)), P2 (the roll loop,
+It builds the kernels, runs P1 (``2x + y``, (256, 256), and (4096, 4096)
+beside it, where the time is the kernel's and not the launch's), P2 (the roll loop,
 (11, 11, 1024)) and P3 (the window fetch, planes (3, 440, 1024), B = 1024,
 the probe's default, and B = 8192, the sweep's batch) at the scripts'
 shapes, checks each against its twin (P1 and P2 bit for bit, P3 within
@@ -95,24 +96,45 @@ def window_origins(b: int, rng, shape=P3_PLANES):
     return oy8.astype(np.int32), cb.astype(np.int32)
 
 
+# P1's shapes: the TPU probe's, and one large enough that the launch floor
+# does not hide the kernel; timings of kernel and yardstick, in turns
+P1_SHAPES = ((256, 256), (4096, 4096))
+P1_REPEATS = 5
+
+
 def check_p1(dev, rng):
+    """P1 against its twin (bit for bit) and against its yardstick, one
+    ``torch.add(y, x, alpha=2)``, at the probe's shape and at a shape large
+    enough to measure the kernel and not the launch.  Kernel and yardstick
+    are timed in turns, ``P1_REPEATS`` graph timings each: the record keeps
+    the medians and both spreads."""
     from faldoi_tpu_torch.ops.probes import probe_axpy, probe_axpy_plain
 
-    x, y = (torch.as_tensor(rng.standard_normal((256, 256)).astype(np.float32),
-                            device=dev) for _ in range(2))
-    got, want = probe_axpy(x, y), probe_axpy_plain(x, y)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("P1 probe_axpy differs from its twin")
-    n = x.numel()
+    rows = []
+    for shape in P1_SHAPES:
+        x, y = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                device=dev) for _ in range(2))
+        got, want = probe_axpy(x, y), probe_axpy_plain(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"P1 probe_axpy {shape} differs from its twin")
+        del got, want
+        ours, lib = [], []
+        for _ in range(P1_REPEATS):
+            ours.append(cuda_ms(lambda: probe_axpy(x, y), graph=True))
+            lib.append(cuda_ms(lambda: torch.add(y, x, alpha=2), graph=True))
+        n = x.numel()
+        rows.append(dict(shape=str(shape), ms=float(np.median(ours)),
+                         ms_spread=[min(ours), max(ours)],
+                         eager_ms=cuda_ms(lambda: probe_axpy(x, y)),
+                         plain_ms=cuda_ms(lambda: probe_axpy_plain(x, y)),
+                         library_ms=float(np.median(lib)),
+                         library_spread=[min(lib), max(lib)],
+                         **bound(3 * n * 4, 2 * n)))
     return dict(name="probe_axpy", route="cuda",
                 source="faldoi_tpu_torch/csrc/probes.cu",
-                replaces="scripts/tpu_pallas_probe.py:23", shape="(256, 256)",
-                max_abs_err=0.0, ms=cuda_ms(lambda: probe_axpy(x, y), graph=True),
-                eager_ms=cuda_ms(lambda: probe_axpy(x, y)),
-                plain_ms=cuda_ms(lambda: probe_axpy_plain(x, y)),
-                library_ms=cuda_ms(lambda: torch.add(y, x, alpha=2), graph=True),
-                **bound(3 * n * 4, 2 * n))
+                replaces="scripts/tpu_pallas_probe.py:23", max_abs_err=0.0,
+                **rows[0], shapes=rows)
 
 
 def check_p2(dev, rng):
@@ -178,12 +200,19 @@ def run_probes(dev, rng):
 
 
 def describe(r) -> str:
+    if "shapes" in r:       # one line a shape
+        return "\n".join(describe({k: v for k, v in dict(r, **row).items()
+                                   if k != "shapes"}) for row in r["shapes"])
     line = (f"{r['name']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
             f"kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f})  twin "
             f"{r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     if r["library_ms"] is not None:
         line += f"  one PyTorch call {r['library_ms']:.4f} ms"
+    if "ms_spread" in r:
+        line += (f"  ({P1_REPEATS} timings in turns: kernel "
+                 f"{r['ms_spread'][0]:.4f}-{r['ms_spread'][1]:.4f}, the call "
+                 f"{r['library_spread'][0]:.4f}-{r['library_spread'][1]:.4f})")
     if "gbps" in r:
         line += (f"  {r['gbps']:.1f} GB/s (rel err {r['rel_err']:.2e}); with "
                  f"the origin check {r['wrapper_ms']:.4f} ms")

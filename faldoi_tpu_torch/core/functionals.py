@@ -6,7 +6,8 @@ Every patch
 lives on a fixed (P, P) canvas with a valid box [0, ph) x [0, pw) whose
 origin in the image is (oy, ox):
 
-* the source-frame crop goes through K0 (``ops.patch_gather``);
+* the source-frame crop goes through K0's stack form
+  (``ops.patch_gather.gather_patches``, C = 1, from ``i0pad``);
 * the warps of (I1, I1x, I1y) and the final I1 warp go through K4's patch
   form (``ops.bicubic.bicubic_sample_patches``) at the cells' displaced
   points, ``border_out=False``;
@@ -35,7 +36,7 @@ from faldoi_tpu_torch.core.pd_common import (
 )
 from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
 from faldoi_tpu_torch.ops.gaussian import gaussian1d_weight
-from faldoi_tpu_torch.ops.patch_gather import gather_patches
+from faldoi_tpu_torch.ops.patch_gather import gather_patches, pad_for_crops
 from faldoi_tpu_torch.ops.stencils import (
     canvas_ids, centered_gradient, divergence_patch, forward_gradient_patch,
 )
@@ -54,15 +55,6 @@ class SolverConsts(NamedTuple):
     tau: torch.Tensor
     tol: torch.Tensor
     w1d: Optional[torch.Tensor] = None   # (2wr+1,) window of method 1
-
-
-def pad_for_crops(img: torch.Tensor, p: int) -> torch.Tensor:
-    """Edge-pad an (h, w, ...) array bottom/right by p
-    (``patch_solver.pad_for_crops``)."""
-    h, w = img.shape[:2]
-    rows = torch.arange(h + p, device=img.device).clamp(max=h - 1)
-    cols = torch.arange(w + p, device=img.device).clamp(max=w - 1)
-    return img.index_select(0, rows).index_select(1, cols).contiguous()
 
 
 def _scalar(x, dev):

@@ -4,8 +4,10 @@ Port of ``faldoi_tpu/core/local_step.py`` in its strict mode (the CPU
 ``mode="fused"`` semantics that ``match_growing`` runs by default): per sweep
 the ``bsz`` lowest-energy unfixed candidates are selected, those inside the
 delta band or under the queue-adaptive rank floor are fixed, their 11x11
-patches are cropped (K0), Poisson-filled, solved (the method's patch
-solver, with K4 warps) and the results are scattered: min-energy wins for the
+patches are cropped (K0's planes form, ``gather_plane_patches``: one launch,
+counted in ``gather_plane_patches.launches``, returning the five state
+canvases as contiguous (k, p, p) blocks), Poisson-filled, solved (the
+method's patch solver, with K4 warps) and the results are scattered: min-energy wins for the
 4-neighbour candidates and the donations to pixels accepted in the same
 sweep, the centre update when its energy improves, and max-energy wins for
 the persistent working flow over the whole patch.
@@ -33,10 +35,8 @@ import numpy as np
 import torch
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.core.functionals import (
-    SolverConsts, pad_for_crops, solver_for,
-)
-from faldoi_tpu_torch.ops.patch_gather import gather_patches
+from faldoi_tpu_torch.core.functionals import SolverConsts, solver_for
+from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
 from faldoi_tpu_torch.ops.poisson import poisson_fill_canvas
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
@@ -207,7 +207,6 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     dump = n
     p = 2 * wr + 1
     dev = state.cand_e.device
-    f32 = torch.float32
 
     # --- selection: top-bsz eligible, delta band, queue-adaptive floor
     eligible = torch.where(state.fixed[:n], torch.full((), INF, device=dev),
@@ -238,15 +237,14 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     ene = state.ene.index_put((idx,), state.cand_e[idx])
     cand_e = state.cand_e.index_put((idx,), torch.full((), INF, device=dev))
 
-    # --- per-patch init (add_neighbors :688-705): one K0 crop of 5 planes
-    planes = torch.stack([out_u[:n].view(h, w), out_v[:n].view(h, w),
-                          state.wu[:n].view(h, w), state.wv[:n].view(h, w),
-                          trust2d.to(f32)], dim=-1)
-    oy32, ox32 = oy.to(torch.int32), ox.to(torch.int32)
-    pl = gather_patches(pad_for_crops(planes, p), oy32, ox32, p).permute(3, 0, 1, 2)
+    # --- per-patch init (add_neighbors :688-705): one launch of K0's planes
+    # form crops the five state planes where they lie (the flat planes with
+    # their dump slot, the trust map in the dtype the caller holds) into
+    # five contiguous (k, p, p) canvases; the edge pad is the kernel's clamp
+    ou, ov, wu_p, wv_p, tr = gather_plane_patches(
+        (out_u, out_v, state.wu, state.wv, trust2d), oy, ox, p, h, w).unbind(0)
     rows, cols = canvas_ids(p, dev)
     inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
-    ou, ov, wu_p, wv_p, tr = (pl[..., c] for c in range(5))
     fxp = torch.isfinite(ou) & inbox
     nan = torch.full((), NAN, device=dev)
     zero = torch.zeros((), device=dev)

@@ -225,7 +225,7 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
         for lane, tr in enumerate((tg, tb)):
             trust = torch.cat([tr.reshape(-1),
                                torch.ones((1,), dtype=tr.dtype, device=dev)])
-            trust2d[lane] = tr.to(torch.float32)
+            trust2d[lane] = tr     # int32; the state crop converts it
             st[lane] = (warm_requeue(st[lane], trust, h, w, warm_band)
                         if warm_band else
                         insert_potential(delete_untrusted(st[lane], trust)))

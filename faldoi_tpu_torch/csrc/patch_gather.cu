@@ -1,42 +1,130 @@
-// K0: batched patch crop.
+// K0: batched patch crop, in two forms.
 //
 // Replaces faldoi_tpu/ops/pallas_sweep.py::_pallas_gather_patches (the
 // Pallas kernel Mosaic rejected) and its live XLA form, the vmapped
-// lax.dynamic_slice of _xla_gather_patches.
+// lax.dynamic_slice of _xla_gather_patches, and for the sweep's state crop
+// the jnp.stack + jnp.pad(mode="edge") + dynamic_slice of
+// faldoi_tpu/core/local_step.py:564-577.
 //
-// out[r, c, ch, k] = stack[y0(k) + r, x0(k) + c, ch], with the start taken
-// as lax.dynamic_slice takes it: a negative start counts from the end, then
-// y0 = clamp(oy[k], 0, hp - p), x0 = clamp(ox[k], 0, wp - p).  A pure copy:
-// bit-identical to the twin.
+// Both forms take a window's start as lax.dynamic_slice takes it on the
+// edge-padded array: a negative start counts from the padded end, then it is
+// clamped so that the window fits.  Both are pure copies: bit-identical to
+// their twins, NaN payloads included.  Both are bound by device-memory
+// traffic (the output written once, the touched input read once) and, at the
+// small shapes, by launch latency.
 //
-// Bound: device-memory traffic and launch latency.  One thread per output
-// element, the batch index fastest, so a warp writes 128 contiguous bytes;
-// the reads of one window row are p*C contiguous floats of the stack.
+// Stack form (gather_patches): out[r, c, ch, k] = stack[y0(k) + r,
+// x0(k) + c, ch] from a padded (H', W', C) stack into (p, p, C, B).  The
+// output wants the lane index k fastest, so a warp's 32 threads are 32
+// lanes and its stores are 128 contiguous bytes; the input is contiguous
+// along a window row (p*C floats), so a thread copies one whole row of its
+// lane's window: each 32-byte sector it touches comes from L2 once and
+// serves the thread's next seven loads from L1.  (One thread an element, as
+// the first version had it, fetched a sector for every float; its chain of
+// 64-bit divisions was not what held it back.)  The origins are loaded once
+// a thread and the row's offsets need no division.
+//
+// Planes form (gather_plane_patches): the C state planes are read where
+// they lie, as separate (h, w) arrays with no stack and no pad; the edge pad
+// is the clamp min(y, h - 1), min(x, w - 1) in the kernel.  The output is
+// (C, B, p, p), lane-major, so every plane's canvases come out as one
+// contiguous block and nothing is transposed.  A thread takes four cells of
+// the flat (B, p, p) index space, 256 apart: a warp's loads run along window
+// rows (p contiguous floats of a plane) and its stores are 128 contiguous,
+// aligned bytes.  A cell's offset is computed once and shared by the C
+// planes, and a thread's four loads of a plane are in flight together.  A
+// plane may be int32 (the trust map after pruning): it is converted on the
+// way.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void gather_patches_kernel(const float* __restrict__ stack,
-                                      const int* __restrict__ oy,
-                                      const int* __restrict__ ox,
-                                      float* __restrict__ out, int hp, int wp,
-                                      int c, int b, int p) {
-  const long long total = (long long)p * p * c * b;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += step) {
-    const int lane = (int)(e % b);
-    long long rest = e / b;
-    const int ch = (int)(rest % c);
-    rest /= c;
-    const int col = (int)(rest % p);
-    const int row = (int)(rest / p);
-    const int sy = oy[lane] < 0 ? oy[lane] + hp : oy[lane];
-    const int sx = ox[lane] < 0 ? ox[lane] + wp : ox[lane];
-    const int y0 = min(max(sy, 0), hp - p);
-    const int x0 = min(max(sx, 0), wp - p);
-    out[e] = stack[((long long)(y0 + row) * wp + (x0 + col)) * c + ch];
+// lax.dynamic_slice's start on an axis of n + p padded cells: a negative
+// start counts from the end, then clamp into [0, n].
+__device__ __forceinline__ int slice_start(long long o, int n, int p) {
+  if (o < 0) o += n + p;
+  return (int)min(max(o, 0LL), (long long)n);
+}
+
+// ---------------------------------------------------------------------------
+// stack form
+
+constexpr int kStackThreads = 128;
+
+__global__ void __launch_bounds__(kStackThreads)
+    gather_patches_kernel(const float* __restrict__ stack,
+                          const int* __restrict__ oy,
+                          const int* __restrict__ ox, float* __restrict__ out,
+                          int hp, int wp, int c, int b, int p) {
+  const int k = blockIdx.x * kStackThreads + threadIdx.x;
+  if (k >= b) return;
+  const int pc = p * c;
+  const int y0 = slice_start(oy[k], hp - p, p);
+  const int x0 = slice_start(ox[k], wp - p, p);
+  for (int row = blockIdx.y; row < p; row += gridDim.y) {
+    const float* src = stack + ((long long)(y0 + row) * wp + x0) * c;
+    float* dst = out + (long long)row * pc * b + k;
+    for (int j = 0; j < pc; ++j) dst[(long long)j * b] = src[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// planes form
+
+constexpr int kMaxPlanes = 8;
+constexpr int kPlaneThreads = 256;
+constexpr int kPlaneCells = 4;  // cells a thread, kPlaneThreads apart
+
+struct PlaneSet {
+  const void* ptr[kMaxPlanes];
+};
+
+__device__ __forceinline__ float load_plane(const PlaneSet& planes, int ch,
+                                            unsigned int_mask, int off) {
+  if ((int_mask >> ch) & 1u)
+    return (float)static_cast<const int*>(planes.ptr[ch])[off];
+  return static_cast<const float*>(planes.ptr[ch])[off];
+}
+
+// P > 0: the patch side at compile time (the divisions become multiplies).
+template <int P>
+__global__ void __launch_bounds__(kPlaneThreads)
+    gather_plane_patches_kernel(PlaneSet planes, int nc, unsigned int_mask,
+                                const long long* __restrict__ oy,
+                                const long long* __restrict__ ox,
+                                float* __restrict__ out, int h, int w, int b,
+                                int p_rt) {
+  const int p = P > 0 ? P : p_rt;
+  const int pp = p * p;
+  const int total = b * pp;
+  const int e0 = blockIdx.x * (kPlaneThreads * kPlaneCells) + threadIdx.x;
+  int off[kPlaneCells];
+#pragma unroll
+  for (int i = 0; i < kPlaneCells; ++i) {
+    const int e = e0 + kPlaneThreads * i;
+    off[i] = 0;
+    if (e < total) {
+      const int k = e / pp;
+      const int cell = e - k * pp;
+      const int r = cell / p;
+      const int y0 = slice_start(oy[k], h, p);
+      const int x0 = slice_start(ox[k], w, p);
+      off[i] = min(y0 + r, h - 1) * w + min(x0 + (cell - r * p), w - 1);
+    }
+  }
+#pragma unroll
+  for (int ch = 0; ch < kMaxPlanes; ++ch) {
+    if (ch < nc) {
+      float v[kPlaneCells];
+#pragma unroll
+      for (int i = 0; i < kPlaneCells; ++i)
+        v[i] = load_plane(planes, ch, int_mask, off[i]);
+      float* dst = out + (long long)ch * total;
+#pragma unroll
+      for (int i = 0; i < kPlaneCells; ++i)
+        if (e0 + kPlaneThreads * i < total) dst[e0 + kPlaneThreads * i] = v[i];
+    }
   }
 }
 
@@ -46,13 +134,37 @@ extern "C" int faldoi_gather_patches(const float* stack, const int* oy,
                                      const int* ox, float* out, int hp,
                                      int wp, int c, int b, int p,
                                      void* stream) {
-  const long long total = (long long)p * p * c * b;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 1048576) blocks = 1048576;  // grid-stride loop covers the rest
-  gather_patches_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(stack, oy, ox, out, hp, wp,
-                                                  c, b, p);
+  if (p <= 0 || c <= 0 || b <= 0) return 0;
+  const dim3 grid((unsigned)((b + kStackThreads - 1) / kStackThreads),
+                  (unsigned)(p < 65535 ? p : 65535));
+  gather_patches_kernel<<<grid, kStackThreads, 0, (cudaStream_t)stream>>>(
+      stack, oy, ox, out, hp, wp, c, b, p);
+  return (int)cudaGetLastError();
+}
+
+// planes: a host array of nc device pointers; bit ch of int_mask says that
+// plane ch holds int32.  b * p * p must be below 2^31 (the wrapper checks).
+extern "C" int faldoi_gather_plane_patches(const void* const* planes, int nc,
+                                           unsigned int_mask,
+                                           const long long* oy,
+                                           const long long* ox, float* out,
+                                           int h, int w, int b, int p,
+                                           void* stream) {
+  if (nc < 1 || nc > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || p <= 0) return 0;
+  PlaneSet set;
+  for (int ch = 0; ch < kMaxPlanes; ++ch) set.ptr[ch] = planes[ch < nc ? ch : 0];
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long per = kPlaneThreads * kPlaneCells;
+  const unsigned grid = (unsigned)(((long long)b * p * p + per - 1) / per);
+  if (p == 11)
+    gather_plane_patches_kernel<11><<<grid, kPlaneThreads, 0, st>>>(
+        set, nc, int_mask, oy, ox, out, h, w, b, p);
+  else if (p == 3)
+    gather_plane_patches_kernel<3><<<grid, kPlaneThreads, 0, st>>>(
+        set, nc, int_mask, oy, ox, out, h, w, b, p);
+  else
+    gather_plane_patches_kernel<0><<<grid, kPlaneThreads, 0, st>>>(
+        set, nc, int_mask, oy, ox, out, h, w, b, p);
   return (int)cudaGetLastError();
 }

@@ -20,36 +20,68 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // P1: out = 2x + y.  Bound by device-memory traffic (12 bytes per element,
-// no reuse): one thread per 4 elements with 16-byte (float4) loads and
-// stores when all three pointers are 16-byte aligned, a scalar loop for the
-// tail or unaligned pointers.
+// no reuse) and, at the probe's (256, 256), by launch latency.  One launch
+// whatever the size and alignment: blocks of 128 threads (the probe's 16,384
+// float4s spread over 128 of the card's 132 SMs), a grid that covers the
+// array so no thread loops, 32-bit indices below 2^31 elements, one 16-byte
+// load of x and of y per thread (two or four in flight per thread measured
+// level at (4096, 4096), where the kernel runs at its memory rate), and the
+// ragged tail (n % 4 elements) done by the first threads of block 0 in the
+// same launch.  Pointers that are not all 16-byte aligned take the scalar
+// kernel, four independent elements a thread.
 
-__global__ void probe_axpy_vec(const float4* __restrict__ x,
-                               const float4* __restrict__ y,
-                               float4* __restrict__ out, long long n4) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += step) {
-    const float4 a = x[i];
-    const float4 b = y[i];
+constexpr int kAxpyThreads = 128;
+
+template <typename Index>
+__global__ void __launch_bounds__(kAxpyThreads)
+    probe_axpy_vec(const float* __restrict__ x, const float* __restrict__ y,
+                   float* __restrict__ out, Index n) {
+  const Index n4 = n / 4;
+  const Index i = (Index)blockIdx.x * kAxpyThreads + threadIdx.x;
+  if (i < n4) {
+    const float4 a = reinterpret_cast<const float4*>(x)[i];
+    const float4 b = reinterpret_cast<const float4*>(y)[i];
     float4 r;
     r.x = a.x * 2.0f + b.x;
     r.y = a.y * 2.0f + b.y;
     r.z = a.z * 2.0f + b.z;
     r.w = a.w * 2.0f + b.w;
-    out[i] = r;
+    reinterpret_cast<float4*>(out)[i] = r;
+  }
+  const Index t = n4 * 4 + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) out[t] = x[t] * 2.0f + y[t];
+}
+
+template <typename Index>
+__global__ void __launch_bounds__(kAxpyThreads)
+    probe_axpy_scalar(const float* __restrict__ x, const float* __restrict__ y,
+                      float* __restrict__ out, Index n) {
+  const Index i0 = (Index)blockIdx.x * (kAxpyThreads * 4) + threadIdx.x;
+  float a[4], b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Index i = i0 + j * kAxpyThreads;
+    if (i < n) {
+      a[j] = x[i];
+      b[j] = y[i];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Index i = i0 + j * kAxpyThreads;
+    if (i < n) out[i] = a[j] * 2.0f + b[j];
   }
 }
 
-__global__ void probe_axpy_scalar(const float* __restrict__ x,
-                                  const float* __restrict__ y,
-                                  float* __restrict__ out, long long start,
-                                  long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = start + (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += step) {
-    out[i] = x[i] * 2.0f + y[i];
-  }
+template <typename Index>
+void launch_axpy(const float* x, const float* y, float* out, long long n,
+                 bool aligned, cudaStream_t st) {
+  const long long per = kAxpyThreads * 4;   // elements a block, both kernels
+  const unsigned grid = (unsigned)((n + per - 1) / per);
+  if (aligned)
+    probe_axpy_vec<Index><<<grid, kAxpyThreads, 0, st>>>(x, y, out, (Index)n);
+  else
+    probe_axpy_scalar<Index><<<grid, kAxpyThreads, 0, st>>>(x, y, out, (Index)n);
 }
 
 // ---------------------------------------------------------------------------
@@ -157,21 +189,14 @@ unsigned grid_for(long long work, int threads) {
 extern "C" int faldoi_probe_axpy(const float* x, const float* y, float* out,
                                  long long n, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
+  if (n > (1LL << 40)) return (int)cudaErrorInvalidValue;  // the grid's reach
   cudaStream_t st = (cudaStream_t)stream;
   const bool aligned = (((unsigned long long)x | (unsigned long long)y |
                          (unsigned long long)out) & 15ull) == 0;
-  long long done = 0;
-  if (aligned && n >= 4) {
-    const long long n4 = n / 4;
-    probe_axpy_vec<<<grid_for(n4, threads), threads, 0, st>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(y),
-        reinterpret_cast<float4*>(out), n4);
-    done = n4 * 4;
-  }
-  if (done < n)
-    probe_axpy_scalar<<<grid_for(n - done, threads), threads, 0, st>>>(
-        x, y, out, done, n);
+  if (n < (1LL << 31) - 4096)  // room for the last block's idle indices
+    launch_axpy<int>(x, y, out, n, aligned, st);
+  else
+    launch_axpy<long long>(x, y, out, n, aligned, st);
   return (int)cudaGetLastError();
 }
 

@@ -42,12 +42,16 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 # name -> argtypes of the C entry points (all return int = cudaError_t)
 _SIGNATURES = {
     # stack, oy, ox, out, hp, wp, c, b, p, stream
     "faldoi_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # planes (host array of C pointers), c, int32-plane mask, oy, ox, out,
+    # h, w, b, p, stream
+    "faldoi_gather_plane_patches": (_P, _I, _U, _P, _P, _P, _I, _I, _I, _I, _P),
     # planes, uu, vv, out, c, h, w, npts, border_out, stream
     "faldoi_bicubic_sample": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     # planes, oy, ox, ph, pw, u1, u2, out, c, h, w, b, p, stream

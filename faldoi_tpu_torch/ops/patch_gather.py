@@ -1,37 +1,59 @@
-"""Batched patch crop — kernel K0 and its plain twin.
+"""Batched patch crop — kernel K0 in its two forms, and their plain twins.
 
 Counterpart of ``faldoi_tpu/ops/pallas_sweep.py::_pallas_gather_patches``,
 the repo's one Pallas kernel: B copies of (p, p, C) windows at (oy[k], ox[k])
 from an edge-padded (H', W', C) stack into a (p, p, C, B) block.  Mosaic
 rejected it (minor-dim DMAs must be 128-aligned), so the JAX sweep crops with
 a vmapped ``lax.dynamic_slice`` (``_xla_gather_patches``).  The port puts the
-kernel where the JAX package could not: in the crop stage of every sweep
-(C = 5 state planes, p = 11), in the patch solver's source-frame crop (C = 1)
-and in the seed insertion (p = 3).
+kernel where the JAX package could not, in two forms
+(``csrc/patch_gather.cu``):
 
-Semantics are ``lax.dynamic_slice``'s: a negative start counts from the end
-(``allow_negative_indices``), then the start is clamped into
-``[0, H'-p] x [0, W'-p]``, so lanes at the dump index (whose geometry points
-below the image) crop in bounds and harmlessly.  It is a pure copy, so the
-kernel equals the twin bit for bit.
+* the **stack form** ``gather_patches``, the Pallas kernel's signature:
+  (H', W', C) -> (p, p, C, B).  It crops the patch solver's source frame
+  (C = 1, from ``SolverConsts.i0pad``; p = 11 in the sweep, p = 3 in the seed
+  insertion).  A warp's threads are 32 lanes, so its stores are contiguous;
+  a thread copies a whole window row, so its sectors are reused through L1.
+* the **planes form** ``gather_plane_patches``, the sweep's state crop
+  (``faldoi_tpu/core/local_step.py:564-577``: ``jnp.stack``, ``jnp.pad(mode=
+  "edge")``, ``dynamic_slice``): it reads the C state planes where they lie,
+  clamps to the last row and column instead of padding, and returns
+  (C, B, p, p), lane-major, so each plane's canvases are one contiguous
+  (B, p, p) block and no stack, pad or permute is dispatched.
 
-K0 (``csrc/patch_gather.cu``) runs one thread per output element, ordered
-with the batch index fastest, so the writes of a warp are coalesced; the
-reads are (p*C)-float runs per window row.  At (447, 1035, 5), p = 11,
-B = 8192 it moves 19.8 MB out and at most as much in, so it is bound by
-device-memory traffic and launch latency (a few microseconds), not compute.
+Semantics are ``lax.dynamic_slice``'s on the padded array in both forms: a
+negative start counts from the padded end (``allow_negative_indices``), then
+the start is clamped so the window fits, so lanes at the dump index (whose
+geometry points below the image) crop in bounds and harmlessly.  Both are
+pure copies, so each kernel equals its twin bit for bit.  Both are bound by
+device-memory traffic and launch latency.
+
+``gather_patches.launches`` and ``gather_plane_patches.launches`` count the
+launches of the two kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from faldoi_tpu_torch.kernels import build as kb
 
+MAX_PLANES = 8     # kMaxPlanes of csrc/patch_gather.cu
+
+
+def pad_for_crops(img: torch.Tensor, p: int) -> torch.Tensor:
+    """Edge-pad an (h, w, ...) array bottom/right by p
+    (``patch_solver.pad_for_crops``)."""
+    h, w = img.shape[:2]
+    rows = torch.arange(h + p, device=img.device).clamp(max=h - 1)
+    cols = torch.arange(w + p, device=img.device).clamp(max=w - 1)
+    return img.index_select(0, rows).index_select(1, cols).contiguous()
+
 
 def gather_patches_plain(stack: torch.Tensor, oy: torch.Tensor,
                          ox: torch.Tensor, p: int) -> torch.Tensor:
-    """Plain twin of K0: (H', W', C), (B,), (B,) -> (p, p, C, B)."""
+    """Plain twin of K0's stack form: (H', W', C), (B,), (B,) -> (p, p, C, B)."""
     hp, wp, _ = stack.shape
     ar = torch.arange(p, device=stack.device)
     oy, ox = oy.to(torch.int64), ox.to(torch.int64)
@@ -45,7 +67,8 @@ def gather_patches_plain(stack: torch.Tensor, oy: torch.Tensor,
 
 def gather_patches(stack: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                    p: int) -> torch.Tensor:
-    """K0: (H', W', C) float32, (B,) int32 origins -> (p, p, C, B) crops.
+    """K0, stack form: (H', W', C) float32, (B,) int32 origins -> (p, p, C, B)
+    crops.
 
     CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
     raise)."""
@@ -63,7 +86,7 @@ def gather_patches(stack: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
     kb.require_cuda_tensor(ox, "ox", torch.int32, stack.device)
     b = oy.shape[0]
     out = torch.empty((p, p, c, b), dtype=torch.float32, device=stack.device)
-    if b == 0:
+    if out.numel() == 0:
         return out
     code = kb.library().faldoi_gather_patches(
         stack.data_ptr(), oy.data_ptr(), ox.data_ptr(), out.data_ptr(),
@@ -73,4 +96,81 @@ def gather_patches(stack: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
     return out
 
 
-gather_patches.launches = 0   # K0 launches, raised only after a launch
+gather_patches.launches = 0   # stack-form launches, raised only after a launch
+
+
+def _check_planes(planes, h: int, w: int):
+    planes = tuple(planes)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"1 to {MAX_PLANES} planes, got {len(planes)}")
+    for c, pl in enumerate(planes):
+        if pl.numel() not in (h * w, h * w + 1):
+            raise ValueError(f"plane {c}: {pl.numel()} elements, expected "
+                             f"{h}*{w} (or one more, the dump slot)")
+        if pl.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"plane {c}: dtype {pl.dtype}, expected "
+                            "torch.float32 or torch.int32")
+        if pl.device != planes[0].device:
+            raise ValueError(f"plane {c}: on {pl.device}, expected "
+                             f"{planes[0].device}")
+        if not pl.is_contiguous():
+            raise ValueError(f"plane {c}: tensor must be contiguous")
+    return planes
+
+
+def gather_plane_patches_plain(planes, oy: torch.Tensor, ox: torch.Tensor,
+                               p: int, h: int, w: int) -> torch.Tensor:
+    """Plain twin of K0's planes form, the composition the kernel replaces:
+    stack the planes' (h, w) images, edge-pad by p, crop with the stack
+    form's twin; (C, B, p, p)."""
+    stack = torch.stack([pl.reshape(-1)[:h * w].view(h, w).to(torch.float32)
+                         for pl in planes], dim=-1)
+    out = gather_patches_plain(pad_for_crops(stack, p), oy, ox, p)
+    return out.permute(2, 3, 0, 1).contiguous()
+
+
+def gather_plane_patches(planes, oy: torch.Tensor, ox: torch.Tensor, p: int,
+                         h: int, w: int) -> torch.Tensor:
+    """K0, planes form: C planes of one (h, w) image each -> (C, B, p, p).
+
+    ``planes``: 1 to 8 contiguous float32 or int32 tensors of h*w elements
+    (or h*w + 1: the sweep's flat state planes with their dump slot, which
+    is never read); ``oy``, ``ox``: (B,) int64 window origins.  Cell (r, c)
+    of lane k is ``plane[min(y0 + r, h - 1), min(x0 + c, w - 1)]`` with
+    (y0, x0) the start ``dynamic_slice`` takes on the plane edge-padded to
+    (h + p, w + p); an int32 plane comes out as float32.  ``out[c]`` is
+    plane c's contiguous (B, p, p) canvases.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise)."""
+    planes = _check_planes(planes, h, w)
+    if p < 1 or h < 1 or w < 1 or h * w >= 2 ** 31:
+        raise ValueError(f"bad geometry: p {p}, image {h}x{w}")
+    if oy.shape != ox.shape or oy.dim() != 1:
+        raise ValueError("oy and ox must be (B,) vectors of one length")
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return gather_plane_patches_plain(planes, oy, ox, p, h, w)
+    if dev.type != "cuda":
+        raise ValueError(f"planes: expected CUDA tensors, got {dev}")
+    kb.require_cuda_tensor(oy, "oy", torch.int64, dev)
+    kb.require_cuda_tensor(ox, "ox", torch.int64, dev)
+    b = oy.shape[0]
+    if b * p * p > 2 ** 31 - 4096:
+        raise ValueError(f"{b} windows of {p}x{p} exceed the kernel's 32-bit "
+                         "cell index")
+    out = torch.empty((len(planes), b, p, p), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    ptrs = (ctypes.c_void_p * len(planes))(*(pl.data_ptr() for pl in planes))
+    int_mask = sum(1 << c for c, pl in enumerate(planes)
+                   if pl.dtype == torch.int32)
+    code = kb.library().faldoi_gather_plane_patches(
+        ptrs, len(planes), int_mask, oy.data_ptr(), ox.data_ptr(),
+        out.data_ptr(), h, w, b, p, kb.stream_ptr(dev))
+    kb.check(code, "gather_plane_patches")
+    gather_plane_patches.launches += 1
+    return out
+
+
+gather_plane_patches.launches = 0   # planes-form launches

@@ -42,7 +42,8 @@ def probe_axpy_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def probe_axpy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """P1: ``2x + y`` of two float32 tensors of one shape."""
+    """P1: ``2x + y`` of two float32 tensors of one shape (one launch,
+    whatever the size and alignment)."""
     if x.shape != y.shape:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} differ")
     if x.device.type == "cpu":

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K0, K4 in its point and patch forms, the K5
-loop, the probes P1-P3) against their plain twins, on the card, and the
+"""The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
+point and patch forms, the K5 loop, the probes P1-P3) against their plain twins, on the card, and the
 weighted patch solver on the card against its CPU run.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
@@ -53,6 +53,67 @@ def test_k0_matches_twin_on_card(dev):
     got = gather_patches(stack.to(dev), oy.to(dev), ox.to(dev), 11)
     assert gather_patches.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("c,p,b", [(1, 11, 500), (1, 3, 333), (5, 11, 1),
+                                   (2, 5, 77), (1, 3, 1)])
+def test_k0_stack_form_shapes_on_card(dev, c, p, b):
+    """The solver's source crop (C 1), the seed insertion's (p 3), B not a
+    multiple of 32 and B = 1, bit for bit (NaN payloads included)."""
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_plain
+
+    rng = np.random.default_rng(20 + c + p + b)
+    stack = rng.standard_normal((60, 70, c)).astype(np.float32)
+    stack[rng.random(stack.shape) < 0.1] = np.nan
+    stack = torch.as_tensor(stack)
+    oy = torch.as_tensor(rng.integers(-3, 70, b).astype(np.int32))
+    ox = torch.as_tensor(rng.integers(-3, 80, b).astype(np.int32))
+    want = gather_patches_plain(stack, oy, ox, p)
+    before = gather_patches.launches
+    got = gather_patches(stack.to(dev), oy.to(dev), ox.to(dev), p)
+    assert gather_patches.launches == before + 1
+    assert got.shape == (p, p, c, b)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("c,p,b,trust", [
+    (5, 11, 500, torch.float32), (5, 11, 500, torch.int32), (5, 11, 1, torch.int32),
+    (1, 3, 333, torch.float32), (8, 5, 77, torch.int32), (3, 11, 8192, torch.float32),
+])
+def test_k0_planes_form_matches_twin_on_card(dev, c, p, b, trust):
+    """The planes form against its twin (stack, edge pad, stack-form crop),
+    bit for bit: flat planes with their dump slot, an (h, w) trust map in
+    either dtype, origins at the corners, the dump lane, negative and past
+    the end."""
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_plane_patches, gather_plane_patches_plain,
+    )
+
+    rng = np.random.default_rng(30 + c + p + b)
+    h, w = 61, 83
+    planes = []
+    for _ in range(c - 1):
+        pl = rng.standard_normal(h * w + 1).astype(np.float32)
+        pl[rng.random(h * w + 1) < 0.2] = np.nan
+        planes.append(torch.as_tensor(pl))
+    planes.append(torch.as_tensor(rng.random((h, w)) > 0.2).to(trust))
+    oy = rng.integers(-4, h + 15, b)
+    ox = rng.integers(-4, w + 15, b)
+    edge = np.array([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1],
+                     [h - p // 2, 0], [-3, w + 40], [2 * h, -7]])[:b]
+    oy[:len(edge)], ox[:len(edge)] = edge[:, 0], edge[:, 1]
+    oy, ox = torch.as_tensor(oy), torch.as_tensor(ox)
+    want = gather_plane_patches_plain(planes, oy, ox, p, h, w)
+    before = gather_plane_patches.launches
+    got = gather_plane_patches([x.to(dev) for x in planes], oy.to(dev), ox.to(dev),
+                               p, h, w)
+    assert gather_plane_patches.launches == before + 1
+    assert got.shape == (c, b, p, p) and got.is_contiguous()
+    assert torch.equal(_bits(got.cpu()), _bits(want))
 
 
 def test_k4_matches_twin_on_card(dev):
@@ -184,6 +245,13 @@ def test_wrappers_raise_on_bad_card_tensors(dev):
     oy = torch.zeros(4, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError, match="int32"):
         gather_patches(stack, oy, oy, 3)
+    from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
+
+    plane = torch.zeros(20 * 20 + 1, device=dev)
+    with pytest.raises(TypeError, match="int64"):
+        gather_plane_patches([plane], oy.int(), oy.int(), 3, 20, 20)
+    with pytest.raises(ValueError, match="expected"):
+        gather_plane_patches([plane, plane.cpu()], oy, oy, 3, 20, 20)
     planes = torch.zeros((1, 8, 8), device=dev)
     uu = torch.zeros((4, 4), device=dev).t()        # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -214,10 +282,15 @@ def test_probes_match_twins_on_card(dev):
     got = probes.probe_axpy(x.to(dev), y.to(dev))
     assert probes.probe_axpy.launches == before + 1
     assert torch.equal(got.cpu(), probes.probe_axpy_plain(x, y))
-    # an odd offset: the scalar path of the kernel
-    got = probes.probe_axpy(x.to(dev).view(-1)[1:], y.to(dev).view(-1)[1:])
-    assert torch.equal(got.cpu(), probes.probe_axpy_plain(x.view(-1)[1:],
-                                                          y.view(-1)[1:]))
+    # an odd offset (the scalar kernel) and ragged sizes (the tail of the
+    # vector kernel), each one launch
+    for sl in (slice(1, None), slice(0, 36999), slice(0, 3), slice(0, 513),
+               slice(3, 36998)):
+        xs, ys = x.view(-1)[sl], y.view(-1)[sl]
+        before = probes.probe_axpy.launches
+        got = probes.probe_axpy(x.to(dev).view(-1)[sl], y.to(dev).view(-1)[sl])
+        assert probes.probe_axpy.launches == before + 1
+        assert torch.equal(got.cpu(), probes.probe_axpy_plain(xs, ys))
     r = torch.as_tensor(rng.standard_normal((11, 11, 384)).astype(np.float32))
     assert torch.equal(probes.probe_roll4(r.to(dev)).cpu(),
                        probes.probe_roll4_plain(r))

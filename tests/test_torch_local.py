@@ -221,6 +221,26 @@ def test_single_sweep_matches_jax(setup, seeded, mid_growth, iteration):
     _compare_states(pnew, jnew, n)
 
 
+def test_single_sweep_takes_the_trust_map_as_held(setup, seeded, mid_growth):
+    """The state crop converts the trust map itself: a sweep with the int32
+    map that pruning returns equals, bit for bit, the sweep with its float32
+    copy."""
+    from faldoi_tpu_torch.core.local_step import state_from_numpy, sweep_body
+
+    _, _, sal = seeded
+    trust = np.ones((H, W), np.int32)
+    trust[10:16, 20:30] = 0
+    jnp_state = jax.tree.map(np.asarray, mid_growth)
+    outs = []
+    for tr in (trust, trust.astype(np.float32)):
+        new, acc = sweep_body(state_from_numpy(jnp_state, "cpu"), setup["sc"],
+                              T(tr), T(sal), 1, H, W, 5, BSZ, 1, 4, 16)
+        outs.append((new, acc))
+    assert outs[0][1] == outs[1][1] > 0
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
 def test_warm_requeue_matches_jax(seeded):
     from faldoi_tpu.core.match_growing import _warm_requeue
     from faldoi_tpu_torch.core.local_step import state_from_numpy

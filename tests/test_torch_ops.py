@@ -1,5 +1,6 @@
 """The port's ops against faldoi_tpu's: stencils, normalization, Gaussian,
-prepare_pair, bicubic sampling (K4's twin), the patch gather (K0's twin),
+prepare_pair, bicubic sampling (K4's twin), the patch gather (the twins of
+K0's stack and planes forms),
 the Poisson fill and the PD building blocks.
 
 The same numpy inputs (from ``default_rng``) go through the JAX function and
@@ -201,6 +202,90 @@ def test_gather_patches_is_dynamic_slice(p, c):
     np.testing.assert_array_equal(got, want)
 
 
+def _state_planes(rng, h, w, c, trust_dtype):
+    """c - 1 flat float32 state planes (h*w + 1 elements: the dump slot last),
+    NaN where unfixed, and an (h, w) trust map of ``trust_dtype``."""
+    planes = []
+    for _ in range(c - 1):
+        pl = rng.standard_normal(h * w + 1).astype(np.float32)
+        pl[rng.random(h * w + 1) < 0.3] = np.nan
+        planes.append(pl)
+    planes.append((rng.random((h, w)) > 0.2).astype(trust_dtype))
+    return planes
+
+
+def _crop_origins(rng, h, w, p, b):
+    """int64 starts: the corners, the dump lane (j = h), negative starts,
+    starts past the end, and random ones around the image."""
+    wr = p // 2
+    oy = rng.integers(-4, h + 15, b)
+    ox = rng.integers(-4, w + 15, b)
+    oy[:4], ox[:4] = [0, 0, h - 1 - wr, h - 1 - wr], [0, w - 1 - wr, 0, w - 1 - wr]
+    oy[4], ox[4] = h - wr, 0                      # the dump index h*w: j = h, i = 0
+    oy[5:8], ox[5:8] = [-3, -1, -(h + p)], [-7, w + 40, 0]
+    oy[8:10], ox[8:10] = [h + 50, 2 * h], [w, 2 * w + 3]
+    return oy.astype(np.int64), ox.astype(np.int64)
+
+
+@pytest.mark.parametrize("trust_dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("p,c", [(11, 5), (11, 1), (3, 5), (3, 1)])
+def test_plane_patches_twin_is_the_stack_pad_crop(p, c, trust_dtype):
+    """K0's planes form (its twin) equals, bit for bit, the composition it
+    replaces in the sweep (stack, edge pad, the stack form's crop) and JAX's
+    ``jnp.stack`` + ``jnp.pad(mode="edge")`` + ``dynamic_slice``."""
+    from faldoi_tpu.ops.pallas_sweep import _xla_gather_patches
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_patches_plain, gather_plane_patches, pad_for_crops,
+    )
+
+    rng = np.random.default_rng(100 + p + c)
+    h, w, b = 23, 29, 64
+    planes = _state_planes(rng, h, w, c, trust_dtype)
+    oy, ox = _crop_origins(rng, h, w, p, b)
+    got = gather_plane_patches([T(x) for x in planes], T(oy), T(ox), p, h, w)
+    assert got.shape == (c, b, p, p) and got.dtype == torch.float32
+    assert got.is_contiguous()
+    imgs = [np.asarray(x).reshape(-1)[:h * w].reshape(h, w).astype(np.float32)
+            for x in planes]
+    stack = torch.stack([T(x) for x in imgs], dim=-1)
+    want = gather_patches_plain(pad_for_crops(stack, p), T(oy), T(ox), p)
+    got_pcb = got.permute(2, 3, 0, 1).numpy()             # (p, p, C, B)
+    np.testing.assert_array_equal(got_pcb, want.numpy())
+    jstack = jnp.pad(jnp.stack([jnp.asarray(x) for x in imgs], axis=-1),
+                     ((0, p), (0, p), (0, 0)), mode="edge")
+    jwant = _xla_gather_patches(jstack, jnp.asarray(oy.astype(np.int32)),
+                                jnp.asarray(ox.astype(np.int32)), p)
+    np.testing.assert_array_equal(got_pcb, np.asarray(jwant))
+    assert np.isnan(got_pcb).any() == (c > 1)
+
+
+@pytest.mark.parametrize("fault,error", [
+    ("dtype", TypeError), ("device", ValueError), ("contiguous", ValueError),
+    ("size", ValueError), ("count", ValueError), ("origins", ValueError),
+])
+def test_plane_patches_wrapper_raises(fault, error):
+    from faldoi_tpu_torch.ops.patch_gather import MAX_PLANES, gather_plane_patches
+
+    h, w, p = 12, 16, 3
+    planes = [torch.zeros(h * w + 1), torch.zeros((h, w), dtype=torch.int32)]
+    oy = torch.zeros(5, dtype=torch.int64)
+    ox = oy.clone()
+    if fault == "dtype":
+        planes[0] = planes[0].double()
+    elif fault == "device":
+        planes[1] = torch.zeros((h, w), device="meta")
+    elif fault == "contiguous":
+        planes[1] = torch.zeros((w, h)).t()
+    elif fault == "size":
+        planes[0] = torch.zeros(h * w + 2)
+    elif fault == "count":
+        planes = [planes[0]] * (MAX_PLANES + 1)
+    else:
+        ox = ox[:4]
+    with pytest.raises(error):
+        gather_plane_patches(planes, oy, ox, p, h, w)
+
+
 @pytest.mark.parametrize("exact", [True, False])
 def test_poisson_fill_matches_jax(exact):
     from faldoi_tpu.ops.poisson import poisson_fill_canvas as jfill
@@ -321,18 +406,24 @@ def test_cpu_tensors_take_the_twins():
         bicubic_sample_plain,
     )
     from faldoi_tpu_torch.ops.patch_gather import (
-        gather_patches, gather_patches_plain,
+        gather_patches, gather_patches_plain, gather_plane_patches,
+        gather_plane_patches_plain,
     )
 
     rng = np.random.default_rng(10)
-    wrappers = (gather_patches, bicubic_sample, bicubic_sample_patches,
-                global_pd_loop)
+    wrappers = (gather_patches, gather_plane_patches, bicubic_sample,
+                bicubic_sample_patches, global_pd_loop)
     counts = tuple(fn.launches for fn in wrappers)
     stack = T(rng.standard_normal((20, 24, 2)).astype(np.float32))
     oy = T(rng.integers(-3, 20, 30).astype(np.int32))
     ox = T(rng.integers(-3, 24, 30).astype(np.int32))
     assert torch.equal(gather_patches(stack, oy, ox, 5),
                        gather_patches_plain(stack, oy, ox, 5))
+    state = [T(x) for x in _state_planes(rng, 20, 24, 3, np.int32)]
+    oy64, ox64 = oy.to(torch.int64), ox.to(torch.int64)
+    assert torch.equal(
+        gather_plane_patches(state, oy64, ox64, 5, 20, 24).nan_to_num(7.0),
+        gather_plane_patches_plain(state, oy64, ox64, 5, 20, 24).nan_to_num(7.0))
     planes = T(rng.uniform(0, 1, (2, 20, 24)).astype(np.float32))
     uu, vv = (T(x) for x in _bicubic_points(rng, 20, 24, 200))
     assert torch.equal(bicubic_sample(planes, uu, vv, True),

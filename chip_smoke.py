@@ -27,7 +27,15 @@ counted from this run's inputs) and, where one PyTorch call computes the
 same function (K0's two forms: one ``aten::index``; P1: ``torch.add``), that
 call's time as a yardstick the port never calls.  K0 is checked and timed at
 every shape the paths launch (a record's ``shapes``), its planes form also
-beside the crop stage it replaced.  Every phase prints its own
+beside the crop stage it replaced.  K4's flow form (the whole-image warp) is
+held bit-equal to the point form and timed beside the stage it replaced, the
+point form alone and a device copy of the same bytes, for a noisy, a smooth,
+a constant and a torn flow, then at the pruning's shapes (C 2 and C 1 by the
+stride-2 halves of an (H, W, 2) flow) and, after the paths, on the very flows
+the m0 and ``faldoi_sift`` runs gave the FB check (its record's ``shapes``);
+the point form itself lies on no path any more: it is checked there and
+keeps a record with 0 launches.  The m0 and ``faldoi_sift`` runs print the global step's
+stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
 the last is the kernels' JSON record; the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it exits
@@ -52,9 +60,9 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "shape", "eager_ms", "gbps", "wrapper_ms", "per_iter_us",
-         "point_ms", "point_glue_ms", "former_ms", "ms_spread", "library_spread",
-         "shapes")
+EXTRA = ("launches_m0", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
+         "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
+         "ms_spread", "library_spread", "shapes")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -234,40 +242,176 @@ def smooth_flow(rng, noise=2.0):
 K4_OPS_POINT, K4_OPS_PLANE = 40, 32
 
 
-def check_k4(dev, rng):
-    """K4's point form on 3 planes at 436x1024 (the whole-image warp of the
-    global step) with flows reaching out of the domain, both border modes."""
+def k4_warp_row(planes, u, v, shape, timed=True):
+    """One call of K4's flow form as a path makes it (u, v with any strides,
+    NaNs allowed), ``border_out=True``: within 1e-5 of its twin, bit-equal to
+    the point form at the same points; timed beside the stage it replaced.
+    Returns the shape's row: its error, times and bound."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.ops.bicubic import (
-        bicubic_sample, bicubic_sample_plain, warp_coords,
+        bicubic_sample, bicubic_warp_planes, bicubic_warp_planes_plain,
+        warp_coords,
+    )
+
+    c, ny, nx = planes.shape
+    uu, vv = warp_coords(u, v)
+    got = bicubic_warp_planes(planes, u, v, True)
+    want = bicubic_warp_planes_plain(planes, u, v, True)
+    if not same_bits(got, bicubic_sample(planes, uu, vv, True)):
+        raise AssertionError(f"K4 flow form at {shape} differs from the point form")
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()):
+        raise AssertionError(f"K4 flow form at {shape}: NaNs where the twin has none")
+    err = (got - want)[~nan].abs().max().item() if not nan.all() else 0.0
+    if not err <= 1e-5 * max(float(planes.abs().max()), 1.0):
+        raise AssertionError(f"K4 flow form at {shape}: max abs err {err} > 1e-5")
+    out = ((uu < 0) | (uu >= nx) | (vv < 0) | (vv >= ny)).float().mean().item()
+    npts = ny * nx
+    row = dict(shape=shape, max_abs_err=err, flow_strides=[list(u.stride()),
+                                                           list(v.stride())],
+               flow_nan=int(u.isnan().sum() + v.isnan().sum()),
+               flow_max=float(torch.nan_to_num(torch.stack([u, v])).abs().max()),
+               out_of_domain=out,
+               **bound(window_cells(ny, nx, uu, vv) * c * 4 + npts * (2 + c) * 4,
+                       npts * (2 + K4_OPS_POINT + c * K4_OPS_PLANE)))
+    if timed:
+        row.update(
+            ms=cuda_ms(lambda: bicubic_warp_planes(planes, u, v, True), graph=True),
+            former_ms=cuda_ms(lambda: bicubic_sample(planes, *warp_coords(u, v), True),
+                              graph=True))
+    log(f"K4 flow form {shape} (strides {row['flow_strides'][0]}): bit-equal to "
+        f"the point form, max_abs_err {err:.3e}; flow NaNs {row['flow_nan']}, max "
+        f"|flow| {row['flow_max']:.1f} px, {100 * out:.2f}% of the points out of "
+        f"the domain" + (f"; flow form {row['ms']:.4f} ms  the former stage "
+                         f"{row['former_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
+                         if timed else ""))
+    return row
+
+
+class fb_warps:
+    """While active, keeps the arguments of every warp the FB check makes
+    (``core.pruning``), so that the kernel can be held to its twin on the
+    very flows a path gave it.  Launches are counted as ever."""
+
+    def __enter__(self):
+        from faldoi_tpu_torch.core import pruning
+
+        self.calls, self.inner = [], pruning.bicubic_warp_stack
+
+        def keep(planes, u, v, border_out):
+            self.calls.append((planes, u, v))
+            return self.inner(planes, u, v, border_out)
+
+        pruning.bicubic_warp_stack = keep
+        return self.calls
+
+    def __exit__(self, *exc):
+        from faldoi_tpu_torch.core import pruning
+
+        pruning.bicubic_warp_stack = self.inner
+
+
+def check_k4_path(path, calls):
+    """K4's flow form on the FB check's own calls of a path (C 2, the flow's
+    halves at stride 2): each checked, the first prune's pair and the last
+    call timed."""
+    if len(calls) != 6:
+        raise AssertionError(f"{path}: {len(calls)} FB warps kept, expected 6")
+    rows = []
+    for k, (planes, u, v) in enumerate(calls):
+        if u.stride() != (2 * W, 2) or tuple(planes.shape) != (2, H, W):
+            raise AssertionError(f"{path}: FB warp {k} is not a C 2 warp by the "
+                                 f"halves of an (H, W, 2) flow: {u.stride()}")
+        rows.append(k4_warp_row(planes, u, v, f"{path} prune {k // 2} "
+                                f"{('fwd', 'bwd')[k % 2]}, 2x{H}x{W}",
+                                timed=k in (0, 1, 5)))
+    return rows
+
+
+def check_k4_warp(dev, rng):
+    """K4's flow form on 3 planes at 436x1024 (the whole-image warp of the
+    global step) with flows reaching out of the domain, both border modes:
+    within 1e-5 of its twin and bit-equal to the point form at the same
+    points; the point form against its own twin as before.  Timed, for a
+    noisy, a smooth, a constant and a torn flow, beside the stage it
+    replaced (``warp_coords`` + point form in one graph) and the point form
+    alone, and beside a device copy of the same bytes; then at the pruning's
+    shapes.  Returns the flow form's record and the point form's."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample, bicubic_sample_plain, bicubic_warp_planes,
+        bicubic_warp_planes_plain, warp_coords,
     )
 
     planes = torch.as_tensor(rng.uniform(0, 1, (3, H, W)).astype(np.float32),
                              device=dev)
-    u, v = smooth_flow(rng)
-    uu, vv = warp_coords(torch.as_tensor(u, device=dev), torch.as_tensor(v, device=dev))
-    if not ((uu < 0).any() and (vv < 0).any() and (uu >= W).any() and (vv >= H).any()):
-        raise AssertionError("K4 test flow does not leave the domain")
+    flows = {"noisy": smooth_flow(rng), "smooth": smooth_flow(rng, noise=0.0),
+             "constant": (np.full((H, W), 2.6, np.float32),
+                          np.full((H, W), -1.4, np.float32)),
+             "torn": tuple(rng.uniform(-300, 300, (2, H, W)).astype(np.float32))}
+    flows = {k: tuple(torch.as_tensor(x, device=dev) for x in f)
+             for k, f in flows.items()}
     bound_err = 1e-5 * float(planes.abs().max())
-    worst = 0.0
-    for border_out in (True, False):
-        d = (bicubic_sample(planes, uu, vv, border_out)
-             - bicubic_sample_plain(planes, uu, vv, border_out)).abs().max().item()
-        worst = max(worst, d)
-        if not d <= bound_err:
-            raise AssertionError(f"K4 border_out={border_out}: {d} > {bound_err}")
-    ms = cuda_ms(lambda: bicubic_sample(planes, uu, vv, True), graph=True)
-    plain = cuda_ms(lambda: bicubic_sample_plain(planes, uu, vv, True), reps=5)
+    worst = worst_point = 0.0
+    times = {}
+    for name, (u, v) in flows.items():
+        uu, vv = warp_coords(u, v)
+        if name != "constant" and not ((uu < 0).any() and (vv < 0).any()
+                                       and (uu >= W).any() and (vv >= H).any()):
+            raise AssertionError(f"K4 {name} test flow does not leave the domain")
+        for border_out in (True, False):
+            point = bicubic_sample(planes, uu, vv, border_out)
+            worst_point = max(worst_point, (point - bicubic_sample_plain(
+                planes, uu, vv, border_out)).abs().max().item())
+            got = bicubic_warp_planes(planes, u, v, border_out)
+            worst = max(worst, (got - bicubic_warp_planes_plain(
+                planes, u, v, border_out)).abs().max().item())
+            torch.cuda.synchronize()
+            if not same_bits(got, point):
+                raise AssertionError(f"K4 flow form ({name} flow, border_out="
+                                     f"{border_out}) differs from the point form")
+        if not max(worst, worst_point) <= bound_err:
+            raise AssertionError(f"K4 {name} flow: flow form {worst}, point form "
+                                 f"{worst_point} > {bound_err}")
+        times[name] = dict(
+            ms=cuda_ms(lambda: bicubic_warp_planes(planes, u, v, True), graph=True),
+            former_ms=cuda_ms(lambda: bicubic_sample(planes, *warp_coords(u, v), True),
+                              graph=True),
+            point_ms=cuda_ms(lambda: bicubic_sample(planes, uu, vv, True), graph=True))
+        log(f"K4 {name} flow 3x{H}x{W}: flow form {times[name]['ms']:.4f} ms  the "
+            f"former stage (warp_coords + point form) {times[name]['former_ms']:.4f} "
+            f"ms  point form alone {times[name]['point_ms']:.4f} ms")
+    u, v = flows["noisy"]
+    uu, vv = warp_coords(u, v)
+    # the pruning's calls: C 2 (the FB check) and C 1 (the uniformity warp)
+    # with u, v the stride-2 halves of one (H, W, 2) flow, read where they lie
+    halves = torch.stack([u, v], dim=-1)
+    strided = [k4_warp_row(planes[:c], halves[..., 0], halves[..., 1],
+                           f"{c}x{H}x{W}, noisy flow as (H,W,2) halves")
+               for c in (2, 1)]
+    src, dst = torch.empty((2, 4, H, W), device=dev).unbind(0)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), graph=True)
+    plain = cuda_ms(lambda: bicubic_warp_planes_plain(planes, u, v, True), reps=5)
     npts = H * W
     least = bound(window_cells(H, W, uu, vv) * 3 * 4 + npts * (2 + 3) * 4,
-                  npts * (K4_OPS_POINT + 3 * K4_OPS_PLANE))
-    log(f"K4 bicubic_sample (point form) 3x436x1024 image warp: max_abs_err "
-        f"{worst:.3e} (bound {bound_err:.3e}) kernel {ms:.4f} ms  twin {plain:.4f} ms  "
-        f"bound {least['bound_ms']:.4f} ms ({least['bound_by']})")
-    return dict(name="bicubic_sample", route="cuda",
-                source="faldoi_tpu_torch/csrc/bicubic.cu",
-                replaces="faldoi_tpu/ops/bicubic.py:122", shape="3x436x1024",
-                max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=None, **least)
+                  npts * (2 + K4_OPS_POINT + 3 * K4_OPS_PLANE))
+    log(f"K4 bicubic_warp_planes (flow form) 3x{H}x{W} image warp, noisy flow: "
+        f"max_abs_err {worst:.3e} (point form {worst_point:.3e}; bound "
+        f"{bound_err:.3e}), bit-equal to the point form; copy of 4 planes onto 4 "
+        f"{copy_ms:.4f} ms  twin {plain:.4f} ms  bound {least['bound_ms']:.4f} ms "
+        f"({least['bound_by']})")
+    common = dict(route="cuda", source="faldoi_tpu_torch/csrc/bicubic.cu",
+                  shape="3x436x1024", library_ms=None, **least)
+    # the point form lies on no path: its record is the check above
+    return [dict(common, name="bicubic_warp_planes",
+                 replaces="faldoi_tpu/ops/bicubic.py:301", max_abs_err=worst,
+                 plain_ms=plain, copy_ms=copy_ms, flows=times,
+                 shapes=strided, **times["noisy"]),
+            dict(common, name="bicubic_sample",
+                 replaces="faldoi_tpu/ops/bicubic.py:122",
+                 max_abs_err=worst_point, ms=times["noisy"]["point_ms"],
+                 plain_ms=cuda_ms(lambda: bicubic_sample_plain(planes, uu, vv, True),
+                                  reps=5))]
 
 
 def solver_patches(dev, rng, b, p=11):
@@ -474,6 +618,18 @@ def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
     return flow.cpu().numpy(), torch.stack([u1, u2], -1).cpu().numpy()
 
 
+def log_global_ms(path, st):
+    """The global step's spans between CUDA events (``tvl2_global(stats=)``):
+    the set-up, then each stage summed over the warps, and the K5 spans."""
+    ms = st["global_ms"]
+    sums = {k: round(sum(v), 3) for k, v in ms.items() if k != "setup"}
+    log(f"{path} global step, ms between device events: setup "
+        f"{ms['setup']:.3f}; summed over {len(ms['warp'])} warps "
+        f"{json.dumps(sums)}; per warp: warp "
+        f"{[round(x, 4) for x in ms['warp']]}, pd_loop "
+        f"{[round(x, 3) for x in ms['pd_loop']]}")
+
+
 def run_sift_path(i0, i1, gf, wrappers):
     """``faldoi_sift -vm 1 -device cuda`` on the pair written as ``.npy``
     frames; checks the final flow and returns the launches of ``wrappers``
@@ -513,6 +669,9 @@ def run_sift_path(i0, i1, gf, wrappers):
     log(f"faldoi_sift growing seconds: {json.dumps(grow)}")
     log(f"faldoi_sift sweeps per drain: {json.dumps(st['sweeps'])}")
     log(f"faldoi_sift global PD iterations per warp: {st['global_iters']}")
+    log_global_ms("faldoi_sift", st)
+    log("faldoi_sift global stage, host seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in st["global_seconds"].items()}))
     log(f"launches on the faldoi_sift path: {json.dumps(launches)}")
     log(f"faldoi_sift fill {100 * fill:.3f}%  rg EPE vs known flow "
         f"{syn.epe(rg, gf):.4f} px  var EPE vs known flow "
@@ -538,7 +697,9 @@ def main():
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.io.flo import read_flo
     from faldoi_tpu_torch.kernels import build as kb
-    from faldoi_tpu_torch.ops.bicubic import bicubic_sample, bicubic_sample_patches
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample, bicubic_sample_patches, bicubic_warp_planes,
+    )
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
 
     dev = torch.device("cuda")
@@ -569,7 +730,7 @@ def main():
 
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
-    kernels = [*check_k0(dev, rng, len(pos_f)), check_k4(dev, rng),
+    kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
                check_k4_patches(dev, rng), check_k5(dev, rng, a, b, gf)]
 
     # phase 3b: the probe kernels P1-P3 against their twins
@@ -602,12 +763,15 @@ def main():
                                  f"{e_var} > 0.01")
 
     # phase 5: the full m0 main path on the card, counting launches
-    wrappers = (gather_patches, gather_plane_patches, bicubic_sample,
-                bicubic_sample_patches, global_pd_loop)
+    # K4's point form comes last: it is counted to show that no path
+    # launches it any more (the whole-image warps take the flow form)
+    wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
+                bicubic_sample_patches, global_pd_loop, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
-    rg, var = run_slice(i0, i1, go, ba, "cuda", st)
+    with fb_warps() as fb_m0:
+        rg, var = run_slice(i0, i1, go, ba, "cuda", st)
     launches_m0 = {fn.__name__: fn.launches for fn in wrappers}
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = {k: round(v, 3) for k, v in st["seconds"].items()}
@@ -615,6 +779,7 @@ def main():
         f"{json.dumps(secs)}")
     log(f"sweeps per drain: {json.dumps(st['sweeps'])}")
     log(f"global PD iterations per warp: {st['global_iters']}")
+    log_global_ms("m0 main path", st)
     log(f"launches on the m0 main path: {json.dumps(launches_m0)}")
     chunks = sum(-(-len(pos) // 2048) for pos in (pos_f, pos_b))
     log(f"of gather_patches' launches, {chunks} at p 3 (one a chunk of 2048 seeds, "
@@ -643,14 +808,26 @@ def main():
 
     # phase 7: frames to flow, faldoi_sift -vm 1 at full width, counting
     # launches
-    launches_sift = run_sift_path(i0, i1, gf, wrappers)
+    with fb_warps() as fb_sift:
+        launches_sift = run_sift_path(i0, i1, gf, wrappers)
+
+    # phase 8: K4's flow form on the flows the two paths gave the FB check
+    # (after the paths, so these launches are in no path's count)
+    flow_rec = [k for k in kernels if k["name"] == "bicubic_warp_planes"][0]
+    flow_rec["shapes"] = (flow_rec["shapes"] + check_k4_path("m0", fb_m0)
+                          + check_k4_path("faldoi_sift", fb_sift))
 
     kernels = [dict(k, launches=launches_sift[k["name"]],
                     launches_m0=launches_m0[k["name"]]) for k in kernels]
     p3 = [r for r in probe_recs if r["name"] == "probe_window_fetch"][-1]
     for r in [r for r in probe_recs if r["name"] != "probe_window_fetch"] + [p3]:
         kernels.append(dict(r, launches=launches_probe[r["name"]]))
+    if launches_m0["bicubic_sample"] or launches_sift["bicubic_sample"]:
+        raise AssertionError("K4's point form was launched on a path: a "
+                             "whole-image warp did not take the flow form")
     for k in kernels:
+        if k["name"] == "bicubic_sample":
+            continue
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
         if k.get("launches_m0", 1) <= 0:

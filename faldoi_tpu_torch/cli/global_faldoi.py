@@ -37,7 +37,9 @@ def pick_option(args, name, default):
 
 def main(argv=None, stats=None):
     """Run the CLI; ``stats`` (a dict, optional) receives the global step's
-    counters (``tvl2_global(stats=)``)."""
+    counters (``tvl2_global(stats=)``) and ``global_seconds``, the host's
+    seconds for reading the inputs, preparing the frames (the card has
+    finished them), the solve with its download, and writing the result."""
     from faldoi_tpu_torch.core.preprocess import prepare_triple, read_frame_list
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.io.image import read_image_split
@@ -54,6 +56,7 @@ def main(argv=None, stats=None):
         print(__doc__, file=sys.stderr)
         return 1
 
+    t_read = time.perf_counter()
     names = read_frame_list(args[0])
     in_flow = read_flo(args[1])
     outfile = args[2]
@@ -93,17 +96,25 @@ def main(argv=None, stats=None):
     if occ_in is not None and read_image_split(occ_in).shape[1:] != hw:
         print("ERROR: input occlusion mask size mismatch", file=sys.stderr)
         return 1
+    t_prep = time.perf_counter()
     i0n, i1n, _ = prepare_triple(i0p, i1p, i_1p, device=device)
     dev = i0n.device
     u1 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 0]), device=dev)
     u2 = torch.as_tensor(np.ascontiguousarray(in_flow[:, :, 1]), device=dev)
-    t0 = time.time()
+    if stats is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
     u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm, stats=stats)
     out = torch.stack([u1, u2], dim=-1).cpu().numpy()
+    t_write = time.perf_counter()
     if verbose:
-        print(f"(global) solve took {time.time() - t0:.3f}s on {dev}",
+        print(f"(global) solve took {t_write - t0:.3f}s on {dev}",
               file=sys.stderr)
     write_flo(outfile, out)
+    if stats is not None:
+        stats["global_seconds"] = dict(
+            read=t_prep - t_read, prepare=t0 - t_prep, solve=t_write - t0,
+            write=time.perf_counter() - t_write)
     return 0
 
 

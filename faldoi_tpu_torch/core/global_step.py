@@ -107,6 +107,10 @@ def global_pd_loop(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, i1wx, i1wy,
 global_pd_loop.launches = 0   # K5 launches, raised only after a launch
 
 
+# the stages of one warp of ``tvl2_global``, in order (``stats["global_ms"]``)
+GLOBAL_STAGES = ("warp", "constants", "clones", "pd_loop")
+
+
 def tvl2_global(i0: torch.Tensor, i1: torch.Tensor, u1: torch.Tensor,
                 u2: torch.Tensor, lambda_: float = 40.0, theta: float = 0.3,
                 tau: float = 0.125, tol: float = 0.01, warps: int = 5,
@@ -114,24 +118,48 @@ def tvl2_global(i0: torch.Tensor, i1: torch.Tensor, u1: torch.Tensor,
     """TV-L2-coupled global refinement.  i0, i1: normalized+smoothed gray
     frames (h, w); u1, u2: the initial flow.  Returns the refined (u1, u2).
 
-    ``stats`` (a dict, optional) receives the PD iteration count per warp."""
+    ``stats`` (a dict, optional) receives the PD iteration count per warp
+    (``global_iters``) and, on the card, ``global_ms``: milliseconds between
+    CUDA events recorded on the stream around the set-up and around each
+    warp's four stages (the K4 warp, ``warp_constants``, the clones, the K5
+    loop with its read of the count), read after the last warp.  A span
+    includes the time the card waits for the host to enqueue its work."""
     f32 = np.float32
     l_t = float(f32(lambda_) * f32(theta))
     tol2 = float(f32(tol) * f32(tol))
     theta, tau = float(f32(theta)), float(f32(tau))
+    marks = []
+
+    def mark():
+        if stats is not None and u1.device.type == "cuda":
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    mark()
     i1x, i1y = centered_gradient(i1)
     i1_stack = torch.stack([i1, i1x, i1y]).contiguous()
     u1 = u1.clone().contiguous()
     u2 = u2.clone().contiguous()
     xi = [torch.zeros_like(u1) for _ in range(4)]
     iters = []
+    mark()
     for _ in range(warps):
+        # three contiguous planes: the K5 loop takes i1wx and i1wy as they are
         i1w, i1wx, i1wy = bicubic_warp_stack(i1_stack, u1, u2, True)
+        mark()
         grad, rho_c = warp_constants(i0, i1w, i1wx, i1wy, u1, u2)
-        i1wx, i1wy = i1wx.contiguous(), i1wy.contiguous()
+        mark()
         u1_, u2_ = u1.clone(), u2.clone()
+        mark()
         iters.append(global_pd_loop(u1, u2, u1_, u2_, *xi, i1wx, i1wy, grad,
                                     rho_c, l_t, theta, tau, tol2, max_iters))
+        mark()
     if stats is not None:
         stats["global_iters"] = iters
+        if marks:
+            marks[-1].synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            stats["global_ms"] = dict(
+                setup=ms[0], **{name: ms[1 + k::len(GLOBAL_STAGES)]
+                                for k, name in enumerate(GLOBAL_STAGES)})
     return u1, u2

@@ -15,14 +15,17 @@
 // (faldoi_tpu_torch/ops/bicubic.py::bicubic_sample_plain); --fmad=false keeps
 // nvcc from contracting anything else.
 //
-// Two forms, one thread per sample point each:
-// * the point form (bicubic_sample_kernel, the whole-image warps of the
-//   global step and the FB check) samples given points;
+// Three forms, one thread per sample point each:
+// * the point form (bicubic_sample_kernel) samples given points;
 // * the patch form (bicubic_patches_kernel, the patch solver's warps of
 //   faldoi_tpu/core/functionals.py::_warp3/_warp1) forms its cells' points
 //   itself from the patch boxes and flow canvases, so the solver runs no
-//   glue ops before it.
-// Both share the weights across the C planes and are bound by the 16
+//   glue ops before it;
+// * the flow form (bicubic_warp_planes_kernel, the whole-image warps of the
+//   global step, the FB check and the uniformity test) forms its pixels'
+//   points (j + u, i + v) itself from the flow where it lies, so the warp
+//   runs no glue ops either.
+// All share the weights across the C planes and are bound by the 16
 // scattered reads per point and plane, which neighbouring threads mostly
 // share through L1/L2.  A patch form staging each patch's source tile in
 // shared memory was slower on the H100 than reading through L1 (PERF.md,
@@ -93,8 +96,9 @@ __device__ __forceinline__ bool point_weights(float u, float v, int h, int w,
   return o;
 }
 
-// Contract the 4x4 window at ``win`` (rows ``stride`` floats apart) over
-// rows, then over columns, with fmaf.
+// Contract the 4x4 window at ``win`` (rows ``stride`` floats apart; offsets
+// up to 3 * stride + 3 fit an int for every image a 32-bit h * w admits)
+// over rows, then over columns, with fmaf.
 __device__ __forceinline__ float contract(const float* win, int stride,
                                           const float wy[4],
                                           const float wx[4]) {
@@ -104,7 +108,7 @@ __device__ __forceinline__ float contract(const float* win, int stride,
     float col = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      col = fmaf(wy[k], win[(long long)k * stride + l], col);
+      col = fmaf(wy[k], win[k * stride + l], col);
     r = fmaf(col, wx[l], r);
   }
   return r;
@@ -162,6 +166,52 @@ __global__ void bicubic_patches_kernel(
   }
 }
 
+// The flow form: the whole-image warp out[ch, i, j] = planes[ch](j + u[i, j],
+// i + v[i, j]).  One thread a pixel, a 16 x 16 pixel tile a block, so that
+// the windows of neighbouring rows share their lines in the block's L1.
+// Each thread forms its point with the float32 additions of the twin's
+// warp_coords and then does what the point form does, so the two are equal
+// bit for bit.  The flow is read where it lies through its element strides
+// (a (h, w, 2) flow's halves need no copy), and the C outputs are contiguous
+// planes.
+//
+// What bounds it on the H100 (PERF.md, Findings): not bytes.  With a constant
+// flow it takes 2.3 times its byte bound, of which the planes' loads are a
+// third: the rest is the per-point weights and two dependent memory round
+// trips (flow, then windows) in each of the image's two waves of resident
+// blocks.  Under a noisy flow each warp load touches many 128-byte lines and
+// L1 wavefronts take over.  Staging each block's source box in shared memory
+// (bounding box by warp reductions, cp.async row copies, a counter of staged
+// blocks) was built and lost at every flow, a constant one included: it adds
+// a third dependent round trip and two barriers to a kernel that waits on
+// latency, and L1 already holds the windows.
+constexpr int kWarpTile = 16;
+
+__global__ void __launch_bounds__(kWarpTile * kWarpTile)
+    bicubic_warp_planes_kernel(const float* __restrict__ planes,
+                               const float* __restrict__ u,
+                               const float* __restrict__ v,
+                               float* __restrict__ out, int c, int h, int w,
+                               long long su0, long long su1, long long sv0,
+                               long long sv1, int border_out) {
+  const int j = blockIdx.x * kWarpTile + threadIdx.x;
+  const int i = blockIdx.y * kWarpTile + threadIdx.y;
+  if (i >= h || j >= w) return;
+  const float uu = (float)j + u[i * su0 + j * su1];
+  const float vv = (float)i + v[i * sv0 + j * sv1];
+  int wx0, wy0;
+  float wx[4], wy[4];
+  const bool o = point_weights(uu, vv, h, w, &wx0, &wy0, wx, wy);
+  const long long plane = (long long)h * w;
+  const long long pix = (long long)i * w + j;
+  for (int ch = 0; ch < c; ++ch) {
+    float r =
+        contract(planes + ch * plane + (long long)wy0 * w + wx0, w, wy, wx);
+    if (border_out && o) r = 0.0f;
+    out[ch * plane + pix] = r;
+  }
+}
+
 }  // namespace
 
 extern "C" int faldoi_bicubic_sample(const float* planes, const float* uu,
@@ -190,5 +240,20 @@ extern "C" int faldoi_bicubic_sample_patches(
   bicubic_patches_kernel<<<(unsigned)blocks, threads, 0,
                            (cudaStream_t)stream>>>(planes, oy, ox, ph, pw, u1,
                                                    u2, out, c, h, w, b, p);
+  return (int)cudaGetLastError();
+}
+
+// su*, sv*: the strides of u and v in elements.
+extern "C" int faldoi_bicubic_warp_planes(
+    const float* planes, const float* u, const float* v, float* out, int c,
+    int h, int w, long long su0, long long su1, long long sv0, long long sv1,
+    int border_out, void* stream) {
+  if (c <= 0 || h <= 0 || w <= 0) return 0;
+  const dim3 grid((unsigned)((w + kWarpTile - 1) / kWarpTile),
+                  (unsigned)((h + kWarpTile - 1) / kWarpTile));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  bicubic_warp_planes_kernel<<<grid, dim3(kWarpTile, kWarpTile), 0,
+                               (cudaStream_t)stream>>>(
+      planes, u, v, out, c, h, w, su0, su1, sv0, sv1, border_out);
   return (int)cudaGetLastError();
 }

@@ -129,53 +129,93 @@ __global__ void probe_roll4_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // P3: per lane, the sum of the (C, 40, 128) window at (oy8[k], cb[k]).
 //
-// One block of 256 threads per lane.  The window's rows are 128 floats =
-// 32 float4 at a 16-byte aligned start (cb is a multiple of 128 and the
-// wrapper requires W % 4 == 0), so a warp reads one 512-byte row segment per
-// load.  Each thread sums its float4s in a fixed order, then a shared-memory
-// tree reduces the 256 partial sums in a fixed order.
-//
-// Bound: bytes moved, 61,440 a lane for C = 3 (plus 512 written); the probe
-// asks how close a per-lane window fetch comes to device-memory bandwidth.
-// This kernel is the simple right form: plain loads, no overlap of one
-// lane's fetch with the previous lane's reduction inside a block.  The TPU
-// probe double-buffers its window DMAs; the Hopper counterpart, two
-// 61,440-byte boxes in flight per block by cp.async or TMA with mbarriers
-// (well within 227 KB of dynamic shared memory), is later work.
+// Bound: bytes, each touched plane cell read once and 512 bytes written a
+// lane.  A block that fetches its lane's private 61,440-byte window reads
+// from L2 at the L2's rate (8.4 TB/s measured on the H100), which is 50 times
+// the bytes the function needs at B = 8192: the origins are aligned (oy8 to
+// 8 rows, cb to 128 columns), so the windows of one column block overlap in
+// bands of 8 rows and there are only ceil(H / 8) x floor(W / 128) distinct
+// bands.  The work is therefore shared between the lanes:
+//   band table  table[by, bx] = the sum over the C planes of the aligned band
+//               of 8 rows x 128 columns at (8 by, 128 bx) (a last partial band
+//               sums the rows that exist).  One block of 256 threads a band;
+//               every plane cell is read once, in float4s along the rows.
+//   lane pass   out[k, :] = (t0 + t1 + t2 + t3 + t4) * 1e-6 with
+//               tm = table[oy8[k] / 8 + m, cb[k] / 128], added top to bottom;
+//               one warp a lane, one float4 a thread (512-byte aligned rows).
+// Two launches, the second a programmatic dependent of the first, so that
+// its launch and its origin loads overlap the table pass (0.5-0.8 us less
+// than two plain launches on the H100; one cooperative launch with a grid
+// barrier between the passes took 1.3-2 times as long as those).
+// Summation order (fixed, so the result is deterministic; it differs from
+// the twin's in the last bits): inside a band, thread t adds the float4s
+// t, t + 256, ... of the band's (C x rows x 32) float4s in that order, each
+// as (x + y) + (z + w); a butterfly (xor 16, 8, 4, 2, 1) sums a warp; the 8
+// warp sums are added as ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)).
 
 constexpr int kWinRows = 40;
 constexpr int kWinCols = 128;
+constexpr int kBandRows = 8;
 constexpr int kFetchThreads = 256;
+constexpr int kFetchWarps = kFetchThreads / 32;
+constexpr int kVecPerRow = kWinCols / 4;
 
-__global__ void probe_window_fetch_kernel(const float* __restrict__ planes,
-                                          const int* __restrict__ oy8,
-                                          const int* __restrict__ cb,
-                                          float* __restrict__ out, int c,
-                                          int h, int w) {
-  __shared__ float part[kFetchThreads];
-  const int lane = blockIdx.x;
-  const int oy = oy8[lane];
-  const int x0 = cb[lane];
-  constexpr int kVecPerRow = kWinCols / 4;
-  const int nvec = c * kWinRows * kVecPerRow;
+// The sum of band (by, bx), returned to every thread; ``part`` is shared.
+__device__ __forceinline__ float band_sum(const float* __restrict__ planes,
+                                          int c, int h, int w, int by, int bx,
+                                          float* part) {
+  const int rows = min(kBandRows, h - by * kBandRows);
+  const int nvec = c * rows * kVecPerRow;
+  const float* base = planes + (long long)by * kBandRows * w + bx * kWinCols;
   float s = 0.0f;
-  for (int v = threadIdx.x; v < nvec; v += kFetchThreads) {
-    const int cv = v % kVecPerRow;
-    const int rr = v / kVecPerRow;  // row of the (C * 40) stacked rows
-    const int ch = rr / kWinRows;
-    const int row = rr % kWinRows;
+#pragma unroll 4
+  for (int vi = threadIdx.x; vi < nvec; vi += kFetchThreads) {
+    const int rr = vi / kVecPerRow;  // row of the (C * rows) stacked rows
+    const int ch = rr / rows;
     const float4 q = *reinterpret_cast<const float4*>(
-        planes + ((long long)ch * h + oy + row) * w + x0 + 4 * cv);
+        base + ((long long)ch * h + (rr - ch * rows)) * w + 4 * (vi % kVecPerRow));
     s = s + ((q.x + q.y) + (q.z + q.w));
   }
-  part[threadIdx.x] = s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = s + __shfl_xor_sync(0xffffffffu, s, off);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
   __syncthreads();
-  for (int half = kFetchThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) part[threadIdx.x] += part[threadIdx.x + half];
-    __syncthreads();
-  }
-  const float total = part[0] * 1e-6f;
-  if (threadIdx.x < kWinCols) out[(long long)lane * kWinCols + threadIdx.x] = total;
+  return ((part[0] + part[1]) + (part[2] + part[3])) +
+         ((part[4] + part[5]) + (part[6] + part[7]));
+}
+
+__global__ void __launch_bounds__(kFetchThreads)
+    probe_band_table_kernel(const float* __restrict__ planes,
+                            float* __restrict__ table, int c, int h, int w,
+                            int nbx) {
+  __shared__ float part[kFetchWarps];
+  cudaTriggerProgrammaticLaunchCompletion();  // a dependent grid may start
+  const int band = blockIdx.x;
+  const float s = band_sum(planes, c, h, w, band / nbx, band % nbx, part);
+  if (threadIdx.x == 0) table[band] = s;
+}
+
+// Launched as a programmatic dependent of the table pass: its blocks start
+// and fetch their origins while the table pass still runs, and wait for the
+// table before they read it (plain loads: many lanes share a table entry, and
+// served from L2 alone the table's few sectors become a hot spot).
+__global__ void __launch_bounds__(kFetchThreads)
+    probe_band_lanes_kernel(const float* table, const int* __restrict__ oy8,
+                            const int* __restrict__ cb,
+                            float* __restrict__ out, int b, int nbx) {
+  const int k = blockIdx.x * kFetchWarps + (threadIdx.x >> 5);
+  const int off =
+      k < b ? (oy8[k] / kBandRows) * nbx + cb[k] / kWinCols : 0;
+  cudaGridDependencySynchronize();  // the table is complete and visible
+  if (k >= b) return;
+  const float* t = table + off;
+  float s = t[0];
+#pragma unroll
+  for (int m = 1; m < kWinRows / kBandRows; ++m) s = s + t[m * nbx];
+  const float total = s * 1e-6f;
+  reinterpret_cast<float4*>(out + (long long)k * kWinCols)[threadIdx.x & 31] =
+      make_float4(total, total, total, total);
 }
 
 unsigned grid_for(long long work, int threads) {
@@ -211,12 +251,31 @@ extern "C" int faldoi_probe_roll4(const float* x, float* out, int rows,
   return (int)cudaGetLastError();
 }
 
+// table: ceil(h / 8) * floor(w / 128) floats of scratch on the device.
 extern "C" int faldoi_probe_window_fetch(const float* planes, const int* oy8,
-                                         const int* cb, float* out, int c,
-                                         int h, int w, int b, void* stream) {
+                                         const int* cb, float* table,
+                                         float* out, int c, int h, int w,
+                                         int b, void* stream) {
   if (b <= 0) return 0;
-  probe_window_fetch_kernel<<<(unsigned)b, kFetchThreads, 0,
-                              (cudaStream_t)stream>>>(planes, oy8, cb, out, c,
-                                                      h, w);
+  cudaStream_t st = (cudaStream_t)stream;
+  int nbx = w / kWinCols;
+  int nbands = ((h + kBandRows - 1) / kBandRows) * nbx;
+  if (c < 1 || nbands < 1) return (int)cudaErrorInvalidValue;
+  const int lane_blocks = (b + kFetchWarps - 1) / kFetchWarps;
+  probe_band_table_kernel<<<(unsigned)nbands, kFetchThreads, 0, st>>>(
+      planes, table, c, h, w, nbx);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)lane_blocks);
+  cfg.blockDim = dim3(kFetchThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* table_in = table;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, probe_band_lanes_kernel,
+                                     table_in, oy8, cb, out, b, nbx);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

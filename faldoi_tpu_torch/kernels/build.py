@@ -54,6 +54,8 @@ _SIGNATURES = {
     "faldoi_gather_plane_patches": (_P, _I, _U, _P, _P, _P, _I, _I, _I, _I, _P),
     # planes, uu, vv, out, c, h, w, npts, border_out, stream
     "faldoi_bicubic_sample": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
+    # planes, u, v, out, c, h, w, u's and v's strides, border_out, stream
+    "faldoi_bicubic_warp_planes": (_P,) * 4 + (_I,) * 3 + (_L,) * 4 + (_I, _P),
     # planes, oy, ox, ph, pw, u1, u2, out, c, h, w, b, p, stream
     "faldoi_bicubic_sample_patches": (_P,) * 8 + (_I,) * 5 + (_P,),
     # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c scratch,
@@ -63,8 +65,8 @@ _SIGNATURES = {
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream
     "faldoi_probe_roll4": (_P, _P, _I, _I, _I, _P),
-    # planes, oy8, cb, out, c, h, w, b, stream
-    "faldoi_probe_window_fetch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # planes, oy8, cb, table, out, c, h, w, b, stream
+    "faldoi_probe_window_fetch": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 _state = {"lib": None}

@@ -22,13 +22,16 @@ samples every point exactly: it does not carry over the JAX package's
 windowed one-hot forms (``bicubic_window_sample*``, the tiled
 ``bicubic_warp_stack``), which clamp samples beyond their window.
 
-K4 (``csrc/bicubic.cu``) has two forms, one thread per sample point each,
+K4 (``csrc/bicubic.cu``) has three forms, one thread per sample point each,
 the weights shared across the C planes, bound by the 16 scattered 4-byte
 reads per point and plane (each a 32-byte sector), which neighbouring
 threads mostly share through L1/L2:
 
-* ``bicubic_sample``, the point form for the whole-image warps (global step,
-  FB check), at given points;
+* ``bicubic_sample``, the point form, at given points;
+* ``bicubic_warp_planes``, the flow form for the whole-image warps (global
+  step, FB check, uniformity test): it takes the flow where it lies and
+  forms the points ``(j + u, i + v)`` in the kernel, a 16 x 16 pixel tile a
+  block, so a warp is one launch with no glue ops before it;
 * ``bicubic_sample_patches``, the patch form for the patch solver: the
   caller passes the patch boxes and flow canvases, not points, and each
   thread forms its cell's point as the solver did (``cell + flow`` inside
@@ -129,7 +132,7 @@ def bicubic_sample_plain(planes: torch.Tensor, uu: torch.Tensor,
 
 def bicubic_sample(planes: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
                    border_out: bool) -> torch.Tensor:
-    """K4: bicubic samples of the (C, H, W) ``planes`` at (uu, vv).
+    """K4, point form: bicubic samples of the (C, H, W) ``planes`` at (uu, vv).
 
     CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
     raise).  Replaces the XLA-lowered ``faldoi_tpu.ops.bicubic.
@@ -246,12 +249,56 @@ def warp_coords(u: torch.Tensor, v: torch.Tensor):
     return (jj + u).contiguous(), (ii + v).contiguous()
 
 
+def bicubic_warp_planes_plain(planes: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor, border_out: bool) -> torch.Tensor:
+    """Plain twin of K4's flow form: the points of ``warp_coords`` sampled
+    by the point form's twin."""
+    return bicubic_sample_plain(planes, *warp_coords(u, v), border_out)
+
+
+def bicubic_warp_planes(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        border_out: bool) -> torch.Tensor:
+    """K4, flow form: warp the (C, H, W) ``planes`` by the (H, W) flow,
+    out[c, i, j] = planes[c](j + u[i, j], i + v[i, j]); returns (C, H, W),
+    contiguous.  u and v are read where they lie (any strides).
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise)."""
+    if planes.dim() != 3:
+        raise ValueError(f"planes must be (C, H, W), got {tuple(planes.shape)}")
+    c, ny, nx = planes.shape
+    if tuple(u.shape) != (ny, nx) or tuple(v.shape) != (ny, nx):
+        raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} must be "
+                         f"({ny}, {nx}) like the planes")
+    if ny < 4 or nx < 4:
+        raise ValueError("bicubic sampling needs an image of at least 4x4")
+    if planes.device.type == "cpu":
+        return bicubic_warp_planes_plain(planes, u, v, border_out)
+    kb.require_cuda_tensor(planes, "planes", torch.float32)
+    for name, t in (("u", u), ("v", v)):
+        if t.device != planes.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, expected "
+                            f"float32 on {planes.device}")
+    out = torch.empty_like(planes)
+    if c == 0:
+        return out
+    code = kb.library().faldoi_bicubic_warp_planes(
+        planes.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), c, ny,
+        nx, *u.stride(), *v.stride(), int(bool(border_out)),
+        kb.stream_ptr(planes.device))
+    kb.check(code, "bicubic_warp_planes")
+    bicubic_warp_planes.launches += 1
+    return out
+
+
+bicubic_warp_planes.launches = 0   # launches of K4's flow form
+
+
 def bicubic_warp_stack(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                        border_out: bool) -> torch.Tensor:
     """Warp (C, ny, nx) planes by one flow: out[c, i, j] = planes[c](j+u, i+v)
     (bicubic_interpolation.c:245-266), every point sampled exactly."""
-    uu, vv = warp_coords(u, v)
-    return bicubic_sample(planes.contiguous(), uu, vv, border_out)
+    return bicubic_warp_planes(planes.contiguous(), u, v, border_out)
 
 
 def bicubic_warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

@@ -22,6 +22,11 @@ fused patch sweep, so the port keeps them as Hopper kernels
 A CPU tensor goes to the twin; a CUDA tensor launches the kernel or the
 wrapper raises.  Each wrapper counts its launches in ``.launches``.  P1 and
 P2 equal their twins bit for bit; P3 sums in another order (relative 1e-5).
+
+P3's kernel shares the work between the lanes: the aligned windows are made
+of 8-row x 128-column bands, so it sums every band of the planes once (the
+band table) and adds five band sums a lane.
+``probe_window_fetch_bands_plain`` is that decomposition in PyTorch.
 """
 
 from __future__ import annotations
@@ -138,6 +143,30 @@ def probe_window_fetch_plain(planes: torch.Tensor, oy8: torch.Tensor,
     return s[:, None].expand(-1, WIN_COLS).contiguous()
 
 
+def band_table_plain(planes: torch.Tensor) -> torch.Tensor:
+    """The sums over C and over every aligned band of 8 rows x 128 columns
+    of the (C, H, W) planes: (ceil(H / 8), W // 128); a last partial band
+    sums the rows that exist."""
+    c, h, w = planes.shape
+    nby, nbx = -(-h // WIN_ROW_ALIGN), w // WIN_COLS
+    rows = planes[:, :, :nbx * WIN_COLS].reshape(c, h, nbx, WIN_COLS).sum(dim=(0, 3))
+    pad = rows.new_zeros((nby * WIN_ROW_ALIGN - h, nbx))
+    return torch.cat([rows, pad]).reshape(nby, WIN_ROW_ALIGN, nbx).sum(dim=1)
+
+
+def probe_window_fetch_bands_plain(planes: torch.Tensor, oy8: torch.Tensor,
+                                   cb: torch.Tensor) -> torch.Tensor:
+    """P3 as its kernel decomposes it: the band table, then per lane its five
+    band sums added top to bottom, times 1e-6, broadcast to (B, 128)."""
+    table = band_table_plain(planes)
+    by = oy8.to(torch.int64) // WIN_ROW_ALIGN
+    bx = cb.to(torch.int64) // WIN_COLS
+    s = planes.new_zeros((oy8.shape[0],))
+    for m in range(WIN_ROWS // WIN_ROW_ALIGN):
+        s = s + table[by + m, bx]
+    return (s * 1e-6)[:, None].expand(-1, WIN_COLS).contiguous()
+
+
 def probe_window_fetch(planes: torch.Tensor, oy8: torch.Tensor,
                        cb: torch.Tensor) -> torch.Tensor:
     """P3: (C, H, W) float32 planes, (B,) int32 aligned origins -> (B, 128).
@@ -157,16 +186,19 @@ def probe_window_fetch(planes: torch.Tensor, oy8: torch.Tensor,
 
 
 def launch_window_fetch(planes, oy8, cb) -> torch.Tensor:
-    """P3's launch alone, for origins that ``probe_window_fetch`` has
-    checked (it times the kernel without the check's sync)."""
+    """P3's launch alone (band table and lane pass), for origins that
+    ``probe_window_fetch`` has checked (it times the kernel without the
+    check's sync)."""
     c, h, w = planes.shape
     b = oy8.shape[0]
     out = torch.empty((b, WIN_COLS), dtype=torch.float32, device=planes.device)
     if b == 0:
         return out
+    table = torch.empty(-(-h // WIN_ROW_ALIGN) * (w // WIN_COLS),
+                        dtype=torch.float32, device=planes.device)
     code = kb.library().faldoi_probe_window_fetch(
-        planes.data_ptr(), oy8.data_ptr(), cb.data_ptr(), out.data_ptr(),
-        c, h, w, b, kb.stream_ptr(planes.device))
+        planes.data_ptr(), oy8.data_ptr(), cb.data_ptr(), table.data_ptr(),
+        out.data_ptr(), c, h, w, b, kb.stream_ptr(planes.device))
     kb.check(code, "probe_window_fetch")
     probe_window_fetch.launches += 1
     return out

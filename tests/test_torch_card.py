@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
-point and patch forms, the K5 loop, the probes P1-P3) against their plain twins, on the card, and the
-weighted patch solver on the card against its CPU run.
+point, patch and flow forms, the K5 loop, the probes P1-P3) against their
+plain twins, on the card, and the weighted patch solver on the card against
+its CPU run.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -8,8 +9,9 @@ only PyTorch:
 
     python -m pytest tests/test_torch_card.py --noconftest -q
 
-K0, P1, P2 and K4's patch form must equal their twins bit for bit; K4's
-point form and K5 within 1e-5 abs (the kernels are built with --fmad=false
+K0, P1, P2 and K4's patch form must equal their twins bit for bit, K4's flow
+form the point form bit for bit; K4's point and flow forms and K5 their
+twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
 summation order)."""
@@ -234,6 +236,73 @@ def test_k4_patch_form_matches_twin_on_card(dev):
                                          u1.to(dev), u2.to(dev), nplanes).cpu()
             assert bicubic_sample_patches.launches == before + 1
             assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+def _warp_flow(kind, rng, ny, nx):
+    """(ny, nx, 2) flows: constant, the smoke's smooth flow with 2 px of noise
+    a pixel, and a torn one (every pixel points anywhere within 300 px)."""
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    if kind == "constant":
+        f = np.broadcast_to(np.float32([2.6, -1.4]), (ny, nx, 2))
+    elif kind == "noisy":
+        f = np.stack([14 * np.sin(xx / 37.0) + 9 * np.cos(yy / 23.0),
+                      11 * np.cos(xx / 29.0) - 8 * np.sin(yy / 41.0)], -1)
+        f = f + rng.normal(0, 2.0, f.shape)
+    else:
+        f = rng.uniform(-300, 300, (ny, nx, 2))
+    return torch.as_tensor(np.ascontiguousarray(f, dtype=np.float32))
+
+
+@pytest.mark.parametrize("kind", ["constant", "noisy", "torn"])
+@pytest.mark.parametrize("ny,nx", [(436, 1024), (97, 131), (5, 7)])
+def test_k4_flow_form_matches_twin_and_point_form_on_card(dev, ny, nx, kind):
+    """The flow form within 1e-5 of its twin and bit-equal to the point form
+    at the same points, both border modes, the flow's halves read where they
+    lie."""
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample, bicubic_warp_planes, bicubic_warp_planes_plain, warp_coords,
+    )
+
+    rng = np.random.default_rng(17 + ny)
+    planes = torch.as_tensor(rng.uniform(0, 1, (3, ny, nx)).astype(np.float32))
+    flow = _warp_flow(kind, rng, ny, nx)
+    fd, pd = flow.to(dev), planes.to(dev)
+    u, v = fd[..., 0], fd[..., 1]                       # strided views
+    for border_out in (True, False):
+        want = bicubic_warp_planes_plain(planes, flow[..., 0], flow[..., 1], border_out)
+        before = bicubic_warp_planes.launches
+        got = bicubic_warp_planes(pd, u, v, border_out)
+        assert bicubic_warp_planes.launches == before + 1
+        assert got.shape == (3, ny, nx) and got.is_contiguous()
+        assert (got.cpu() - want).abs().max().item() <= ATOL
+        point = bicubic_sample(pd, *warp_coords(u, v), border_out)
+        assert torch.equal(_bits(got), _bits(point))
+        assert torch.equal(got, bicubic_warp_planes(pd, u.contiguous(),
+                                                    v.contiguous(), border_out))
+
+
+@pytest.mark.parametrize("h,c", [(436, 1), (436, 3), (440, 3)])
+@pytest.mark.parametrize("b", [0, 1, 1023, 8192])
+def test_p3_band_form_matches_twins_on_card(dev, b, h, c):
+    from faldoi_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(18 + b + h + c)
+    planes = torch.as_tensor(rng.uniform(0, 1, (c, h, 1024)).astype(np.float32))
+    oy8 = (rng.integers(0, (h - 40) // 8 + 1, b) * 8).astype(np.int32)
+    cb = (rng.integers(0, 8, b) * 128).astype(np.int32)
+    oy8[:2], cb[:2] = [(h - 40) // 8 * 8, 0][:b], [896, 0][:b]   # the far corners
+    oy8, cb = torch.as_tensor(oy8), torch.as_tensor(cb)
+    before = probes.probe_window_fetch.launches
+    got = probes.probe_window_fetch(planes.to(dev), oy8.to(dev), cb.to(dev)).cpu()
+    assert probes.probe_window_fetch.launches == before + (b > 0)
+    assert got.shape == (b, 128)
+    if b == 0:
+        return
+    for want in (probes.probe_window_fetch_plain(planes, oy8, cb),
+                 probes.probe_window_fetch_bands_plain(planes, oy8, cb)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    again = probes.probe_window_fetch(planes.to(dev), oy8.to(dev), cb.to(dev)).cpu()
+    assert torch.equal(got, again)                     # a fixed summation order
 
 
 def test_wrappers_raise_on_bad_card_tensors(dev):

@@ -403,7 +403,7 @@ def test_cpu_tensors_take_the_twins():
     )
     from faldoi_tpu_torch.ops.bicubic import (
         bicubic_sample, bicubic_sample_patches, bicubic_sample_patches_plain,
-        bicubic_sample_plain,
+        bicubic_sample_plain, bicubic_warp_planes, bicubic_warp_planes_plain,
     )
     from faldoi_tpu_torch.ops.patch_gather import (
         gather_patches, gather_patches_plain, gather_plane_patches,
@@ -412,7 +412,7 @@ def test_cpu_tensors_take_the_twins():
 
     rng = np.random.default_rng(10)
     wrappers = (gather_patches, gather_plane_patches, bicubic_sample,
-                bicubic_sample_patches, global_pd_loop)
+                bicubic_sample_patches, bicubic_warp_planes, global_pd_loop)
     counts = tuple(fn.launches for fn in wrappers)
     stack = T(rng.standard_normal((20, 24, 2)).astype(np.float32))
     oy = T(rng.integers(-3, 20, 30).astype(np.int32))
@@ -428,6 +428,9 @@ def test_cpu_tensors_take_the_twins():
     uu, vv = (T(x) for x in _bicubic_points(rng, 20, 24, 200))
     assert torch.equal(bicubic_sample(planes, uu, vv, True),
                        bicubic_sample_plain(planes, uu, vv, True))
+    u, v = (T(rng.uniform(-4, 4, (20, 24)).astype(np.float32)) for _ in range(2))
+    assert torch.equal(bicubic_warp_planes(planes, u, v, True),
+                       bicubic_warp_planes_plain(planes, u, v, True))
     geo = _solver_patches(rng, 20, 24, 5, 30)
     assert torch.equal(bicubic_sample_patches(planes, *geo, 2).nan_to_num(7.0),
                        bicubic_sample_patches_plain(planes, *geo, 2).nan_to_num(7.0))

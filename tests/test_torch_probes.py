@@ -136,3 +136,65 @@ def test_probe_wrappers_raise_on_what_the_kernels_do_not_take():
     out = probes.probe_window_fetch(planes + 1, *origins([400], [896]))
     np.testing.assert_allclose(out.numpy(), 3 * 40 * 128 * 1e-6, rtol=1e-6)
     assert probes.probe_window_fetch.launches == before
+
+
+def _edge_origins(rng, b, h, w):
+    """Random aligned origins with the first and last band and column block
+    among them."""
+    oy8 = (rng.integers(0, (h - 40) // 8 + 1, b) * 8).astype(np.int32)
+    cb = (rng.integers(0, w // 128, b) * 128).astype(np.int32)
+    last_oy, last_cb = (h - 40) // 8 * 8, (w // 128 - 1) * 128
+    oy8[:4], cb[:4] = [0, last_oy, 0, last_oy], [0, last_cb, last_cb, 0]
+    return oy8, cb
+
+
+@pytest.mark.parametrize("h,c", [(436, 1), (436, 3), (440, 3), (47, 2)])
+@pytest.mark.parametrize("b", [7, 64, 1024])
+def test_p3_band_decomposition_matches_the_twin(b, h, c):
+    """The kernel's decomposition (band table, five adds a lane) in PyTorch
+    against the window-sum twin: H a multiple of 8 or not (a last partial
+    band that no window reads), C 1 to 3, origins on the first and last band
+    and column block."""
+    rng = np.random.default_rng(50 + b + h + c)
+    w = 512 + 4 * (h % 8)             # a ragged tail of columns no window reads
+    planes = torch.as_tensor(rng.uniform(0, 1, (c, h, w)).astype(np.float32))
+    oy8, cb = map(torch.as_tensor, _edge_origins(rng, b, h, w))
+    table = probes.band_table_plain(planes)
+    assert table.shape == (-(-h // 8), w // 128)
+    want = probes.probe_window_fetch_plain(planes, oy8, cb)
+    got = probes.probe_window_fetch_bands_plain(planes, oy8, cb)
+    assert got.shape == want.shape == (b, 128)
+    assert (got - want).abs().max() <= P3_RTOL * want.abs().max()
+    # a last partial band sums the rows that exist
+    last = planes[:, (table.shape[0] - 1) * 8:, :128].double().sum()
+    assert abs(float(table[-1, 0]) - float(last)) <= P3_RTOL * float(last)
+
+
+@pytest.mark.parametrize("b", [7, 64, 1024])
+def test_p3_band_decomposition_matches_the_pallas_probe(b):
+    """The same decomposition against the Pallas probe itself (interpret
+    mode), at the probe's planes; the probe takes 4 lanes a grid step, so
+    B = 7 runs as 8 lanes and its first 7 are compared."""
+    lanes = -(-b // 4) * 4
+    ns = _load("tpu_pallas_gather_probe.py", ("kernel", "run"),
+               consts=("H", "W", "ROWS", "COLS", "C", "G"))
+    ns["B"] = lanes
+    h, w, c = ns["H"], ns["W"], ns["C"]
+    rng = np.random.default_rng(60 + b)
+    planes = rng.uniform(0, 1, (c, h, w)).astype(np.float32)
+    oy8, cb = _edge_origins(rng, lanes, h, w)
+    want = np.asarray(ns["run"](*map(jnp.asarray, (planes, oy8, cb))))[:b]
+    got = probes.probe_window_fetch_bands_plain(
+        *map(torch.as_tensor, (planes, oy8[:b], cb[:b])))
+    assert got.shape == want.shape == (b, 128)
+    assert np.abs(got.numpy() - want).max() <= P3_RTOL * np.abs(want).max()
+
+
+def test_p3_band_table_of_empty_batch_and_narrow_planes():
+    planes = torch.ones((2, 48, 130))
+    none = torch.zeros(0, dtype=torch.int32)
+    assert probes.probe_window_fetch_bands_plain(planes, none, none).shape == (0, 128)
+    assert probes.probe_window_fetch(planes, none, none).shape == (0, 128)
+    table = probes.band_table_plain(planes)
+    np.testing.assert_array_equal(table.numpy(), np.full((6, 1), 2 * 8 * 128.0))
+    assert probes.band_table_plain(torch.ones((1, 48, 100))).shape == (6, 0)

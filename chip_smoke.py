@@ -8,14 +8,18 @@ network.  It builds the hand-written kernels from ``faldoi_tpu_torch/csrc``
 (one nvcc per source, in parallel), holds each against its plain PyTorch
 twin at its path's shapes, runs crops of the synthetic pair through the port
 on the CPU (the twins, which the tests hold against JAX) and on the card —
-method 0 with the warm requeue, and method 1 with the cold requeue — and
-then drives three paths, each with the kernels' launch counts set to 0 just
-before it and read just after:
+methods 0 and 2 with the warm requeue, methods 1 and 3 with the cold one —
+and then drives four paths, each with the kernels' launch counts set to 0
+just before it and read just after:
 
 * the m0 main path at 436x1024 — seeds -> local growing -> global
   refinement — on a SYNTHETIC textured pair with a known two-layer flow,
   seeded at the positions of the golden DeepMatching seeds
   (``tests/golden/deep_mt_{1,2}.flo``);
+* the m2 (NLTV-L1) path at 436x1024 through the stage CLIs,
+  ``local_faldoi -m 2`` then ``global_faldoi -m 2``, from the same seeds on
+  the pair written as ``.npy`` frames: K0 crops the 24 weight planes, K7
+  runs the patch PD loops and K6 the global ones;
 * the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
 * the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
@@ -34,7 +38,11 @@ a constant and a torn flow, then at the pruning's shapes (C 2 and C 1 by the
 stride-2 halves of an (H, W, 2) flow) and, after the paths, on the very flows
 the m0 and ``faldoi_sift`` runs gave the FB check (its record's ``shapes``);
 the point form itself lies on no path any more: it is checked there and
-keeps a record with 0 launches.  The m0 and ``faldoi_sift`` runs print the global step's
+keeps a record with 0 launches.  K6 (the global NLTV loop) is held bit for
+bit to its twin on one 400-iteration warp at 436x1024, K7 (the patch NLTV
+loop) at B 8192 and 1900 (P 11) and at the seed count (P 3), methods 2 and
+3, and K0's planes form on the 24 weight planes at the same shapes.  The m0
+and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
 the last is the kernels' JSON record; the last line is ``{"ok": true,
@@ -60,7 +68,7 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
+EXTRA = ("launches_m0", "launches_m2", "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "shapes")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -70,6 +78,9 @@ KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
 # 400-iteration cap)
 ITERS_M0 = [400, 111, 133, 115, 160]
 ITERS_SIFT = [400] * 5
+# the kernels whose main path is the m2 one (every other kernel's is the
+# faldoi_sift path, and it runs on the m0 path too)
+M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
 
 
 def log(msg):
@@ -414,16 +425,17 @@ def check_k4_warp(dev, rng):
                                   reps=5))]
 
 
-def solver_patches(dev, rng, b, p=11):
+def solver_patches(dev, rng, b, p=11, centres=False):
     """The patch solver's call at B patches: boxes from ``patch_geometry`` of
     random candidate indices (corners and the dump index first), canvases
     of a smooth flow sampled at the cells (zero outside the box), and a
-    motion edge of 30 px inside 2% of the patches."""
+    motion edge of 30 px inside 2% of the patches; ``centres`` adds the
+    patches' centres (i, j) at the end."""
     from faldoi_tpu_torch.core.local_step import patch_geometry
 
     idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
     idx[:5] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W], device=dev)
-    _, _, oy, ox, ph, pw = patch_geometry(idx, H, W, p // 2)
+    ci, cj, oy, ox, ph, pw = patch_geometry(idx, H, W, p // 2)
     u, v = smooth_flow(rng, noise=0.3)
     ar = torch.arange(p, device=dev)
     rr = (oy[:, None, None] + ar[None, :, None]).clamp(max=H - 1)
@@ -435,7 +447,8 @@ def solver_patches(dev, rng, b, p=11):
     edge = torch.as_tensor(rng.random(b) < 0.02, device=dev)[:, None, None] & \
         (ar[None, None, :] > p // 2)
     u1 = torch.where(edge & inbox, u1 + 30.0, u1).contiguous()
-    return [x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw)] + [u1, u2.contiguous()]
+    return ([x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw)]
+            + [u1, u2.contiguous()] + ([ci, cj] if centres else []))
 
 
 def check_k4_patches(dev, rng):
@@ -593,29 +606,283 @@ def check_k5(dev, rng, a, b, gf):
                 **least)
 
 
+# K6's float operations a pixel an iteration: the threshold 16, 48 dual
+# updates of 10, 48 divergence terms of 3, the two divisions by wt 2, the
+# primal step and over-relaxation 14; K7's a canvas cell an iteration run:
+# the same without the divisions by wt, plus the squared update and its
+# share of the sums 7
+K6_OPS = 656
+K7_OPS = 661
+K6_PLANES = 133    # 81 (h, w) planes read once and 52 written once a launch
+
+
+def nltv_local_consts(a, b, i0, i1):
+    """The m2 and m3 solver consts of the forward lane at 436x1024 (the
+    local-scale weights of I0's colour planes, method 3's window)."""
+    from faldoi_tpu_torch.core.functionals import make_solver_consts
+    from faldoi_tpu_torch.models import method_local_params
+
+    return {m: make_solver_consts(a, b, *method_local_params(m, 5), 0.01, 11, m,
+                                  i0_planes=i0) for m in (2, 3)}
+
+
+def check_k0_c24(dev, rng, sc, n_seeds):
+    """K0's planes form on the 24 zero-padded weight planes of the NLTV
+    solver at the paths' shapes (P 11 at B 8192 and 1900, P 3 at the seed
+    count), bit for bit against its twin, with one ``aten::index`` of the
+    same windows as its yardstick.  Returns the rows."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms, touched
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_plane_patches, gather_plane_patches_plain,
+    )
+
+    planes = sc.wp_pad.unbind(0)
+    c, hp, wp = sc.wp_pad.shape
+    rows_out = []
+    for p, b in ((11, BSZ), (11, 1900), (3, n_seeds)):
+        idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
+        idx[:4] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W], device=dev)
+        _, _, oy, ox, _, _ = patch_geometry(idx, H, W, p // 2)
+        oy, ox = oy.contiguous(), ox.contiguous()
+        got = gather_plane_patches(planes, oy, ox, p, hp, wp)
+        want = gather_plane_patches_plain(planes, oy, ox, p, hp, wp)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"K0 gather_plane_patches C 24 p {p} B {b} "
+                                 "differs from its twin")
+        rows, cols = padded_windows(oy, ox, p, hp + p, wp + p)
+        rows, cols = rows.clamp(max=hp - 1), cols.clamp(max=wp - 1)
+        ri, ci = rows[:, :, None], cols[:, None, :]
+        row = dict(shape=f"24 x ({hp},{wp}) p {p} B {b}",
+                   ms=cuda_ms(lambda: gather_plane_patches(planes, oy, ox, p, hp, wp),
+                              graph=True),
+                   plain_ms=cuda_ms(lambda: gather_plane_patches_plain(
+                       planes, oy, ox, p, hp, wp)),
+                   library_ms=cuda_ms(lambda: sc.wp_pad[:, ri, ci], graph=True),
+                   **bound(touched((hp, wp), rows, cols) * c * 4
+                           + b * p * p * c * 4 + 2 * b * 8))
+        rows_out.append(row)
+        log(f"K0 gather_plane_patches (planes form) {row['shape']}, the NLTV "
+            f"weights: bit-exact  kernel {row['ms']:.4f} ms  twin "
+            f"{row['plain_ms']:.4f} ms  one aten::index {row['library_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows_out
+
+
+def check_k6(dev, rng, a, b, gf, i0):
+    """K6 on one warp of 400 iterations at 436x1024 from the state
+    ``nltvl1_global`` builds for its first warp (zero duals, the global
+    weights of I0), bit for bit against its twin on the card; timed."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.global_step_nltv import (
+        global_weights, nltv_global_loop, nltv_global_loop_plain,
+    )
+
+    wp, wt = global_weights(i0, dev)
+    flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
+                           device=dev)
+    u1, u2, u1_, u2_, *_, gx, gy, grad, rho_c = warp_state(dev, a, b, flow)
+    sc = [torch.zeros((24, H, W), device=dev) for _ in range(2)]
+    ka = [u1, u2, u1_, u2_, *sc, wp, wt, gx, gy, grad, rho_c]
+    kb_ = [x.clone() for x in ka]
+    l_t, theta, tau = float(np.float32(2.0) * np.float32(0.3)), 0.3, 0.1
+    t0 = time.perf_counter()
+    nltv_global_loop(*ka, l_t, theta, tau, 400)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nltv_global_loop_plain(*kb_, l_t, theta, tau, 400)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    worst = max((x - y).abs().max().item() for x, y in zip(ka[:6], kb_[:6]))
+    if not all(same_bits(x, y) for x, y in zip(ka[:6], kb_[:6])):
+        raise AssertionError(f"K6 differs from its twin: max abs {worst}")
+    if not all(torch.isfinite(x).all() for x in ka[:6]):
+        raise AssertionError("K6 state not finite after a warp")
+    ms = cuda_ms(lambda: nltv_global_loop(*ka, l_t, theta, tau, 400), reps=3,
+                 warmup=1)
+    least = bound(K6_PLANES * H * W * 4, K6_OPS * H * W * 400)
+    log(f"K6 nltv_global_loop {H}x{W}, one warp of 400 iterations: bit-exact "
+        f"(max_abs_err {worst}); kernels {ms:.3f} ms a call (two launches an "
+        f"iteration) = {ms / 400 * 1e3:.2f} us an iteration (first call "
+        f"{first * 1e3:.1f} ms host); twin {plain:.1f} ms (host clock); bound "
+        f"{least['bound_ms']:.4f} ms "
+        f"({least['bound_by']}; bytes alone "
+        f"{bound(K6_PLANES * H * W * 4)['bound_ms']:.4f} ms)")
+    return dict(name="nltv_global_loop", route="cuda",
+                source="faldoi_tpu_torch/csrc/nltv.cu",
+                replaces="faldoi_tpu/core/global_step_nltv.py:48",
+                shape=f"{H}x{W}, 400 iterations a call", max_abs_err=worst,
+                ms=ms, plain_ms=plain, library_ms=None,
+                per_iter_us=ms / 400 * 1e3, **least)
+
+
+def check_k7(dev, rng, scs, n_seeds):
+    """K7 at the solver's shapes: P 11 at B 8192 (methods 2 and 3) and 1900,
+    P 3 at the seed count (methods 2 and 3), from the solver's own stages
+    (K0's source and weight crops, K4's patch form), bit for bit against its
+    twin on the card (canvases, iteration counts); timed.  The record is
+    the first row's."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.functionals import (
+        _weight2d, nltv_crop_weights, nltv_patch_loop, nltv_patch_loop_plain,
+    )
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    rows_out = []
+    for p, b, m in ((11, BSZ, 2), (11, BSZ, 3), (11, 1900, 2), (3, n_seeds, 2),
+                    (3, n_seeds, 3)):
+        sc = scs[m]
+        oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, b, p, centres=True)
+        i1w, gx, gy = bicubic_sample_patches(sc.i1_stack, oy, ox, ph, pw, u1, u2, 3)
+        i0p = gather_patches(sc.i0pad[:, :, None], oy, ox, p)[:, :, 0, :].permute(2, 0, 1)
+        wp, wt = nltv_crop_weights(sc.wp_pad, oy, ox, ph, pw, p)
+        l_t = sc.lambda_ * sc.theta
+        if m == 3:
+            rows, cols = canvas_ids(p, dev)
+            l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy.long(), ox.long(), cj,
+                                   ci, p // 2)).contiguous()
+        args = [u1, u2, u1, u2, None, gx, gy, (gx * gx + gy * gy).contiguous(),
+                (i1w - gx * u1 - gy * u2 - i0p).contiguous(), wp, wt, l_t, ph, pw,
+                sc.theta, sc.tau, sc.tol * sc.tol, 4]
+        got = nltv_patch_loop(*args)
+        want = nltv_patch_loop_plain(*args)
+        torch.cuda.synchronize()
+        worst = max((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(got[:5], want[:5]))
+        if not all(same_bits(x, y) for x, y in zip(got[:5], want[:5])):
+            raise AssertionError(f"K7 P {p} B {b} m{m} differs from its twin: max "
+                                 f"abs {worst}")
+        iters = got[4]
+        run = int(iters.sum())
+        nb = b * p * p * 4 * (8 + 24 + 1 + (1 if m == 3 else 0) + 4) + b * 12
+        row = dict(shape=f"m{m} P {p} B {b}", max_abs_err=worst,
+                   ms=cuda_ms(lambda: nltv_patch_loop(*args), graph=True),
+                   plain_ms=cuda_ms(lambda: nltv_patch_loop_plain(*args), reps=3,
+                                    warmup=1),
+                   iterations={str(k): int((iters == k).sum()) for k in range(5)},
+                   **bound(nb, run * p * p * K7_OPS))
+        rows_out.append(row)
+        log(f"K7 nltv_patch_loop {row['shape']}: bit-exact (canvases, iteration "
+            f"counts {row['iterations']}); kernel {row['ms']:.4f} ms  twin "
+            f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return dict(name="nltv_patch_loop", route="cuda",
+                source="faldoi_tpu_torch/csrc/nltv.cu",
+                replaces="faldoi_tpu/core/functionals.py:448", library_ms=None,
+                **{k: v for k, v in rows_out[0].items() if k != "iterations"},
+                shapes=rows_out)
+
+
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
     """The port's main path: prepare_pair -> match_growing -> tvl2_global
-    (the global step of methods 0 and 1)."""
+    (the global step of methods 0 and 1) or nltvl1_global (2 and 3), five
+    warps."""
     from faldoi_tpu_torch import params as P
     from faldoi_tpu_torch.core.global_step import tvl2_global
+    from faldoi_tpu_torch.core.global_step_nltv import nltvl1_global
     from faldoi_tpu_torch.core.match_growing import match_growing
     from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.models import method_global_params
 
     dev = torch.device(device)
     t0 = time.perf_counter()
     a, b = prepare_pair(i0, i1, device=device)
     prm = P.Parameters()
     prm.val_method = method
-    flow, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
-                            warm_band=warm_band)
+    flow, _, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
+                               warm_band=warm_band, i0_planes=i0, i1_planes=i1)
     t1 = time.perf_counter()
-    u1, u2 = tvl2_global(a, b, flow[..., 0].contiguous(), flow[..., 1].contiguous(),
-                         stats=stats)
+    f1, f2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    if method in (2, 3):
+        lam, theta, tau = method_global_params(method, prm)
+        u1, u2 = nltvl1_global(a, b, i0, f1, f2, lam, theta, tau, 5, stats=stats)
+    else:
+        u1, u2 = tvl2_global(a, b, f1, f2, stats=stats)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stats["seconds"]["global"] = time.perf_counter() - t1
     stats["seconds"]["total"] = time.perf_counter() - t0
     return flow.cpu().numpy(), torch.stack([u1, u2], -1).cpu().numpy()
+
+
+def write_frames(tmp, i0, i1):
+    """The pair as ``.npy`` frames and their list file; returns its path."""
+    names = []
+    for k, im in enumerate((i0, i1)):
+        names.append(os.path.join(tmp, f"frame_{k}.npy"))
+        np.save(names[-1], np.round(im).astype(np.uint8).transpose(1, 2, 0))
+    ims = os.path.join(tmp, "ims.txt")
+    with open(ims, "w") as fh:
+        fh.write("\n".join(names) + "\n")
+    return ims
+
+
+def run_m2_path(i0, i1, go, ba, gf, wrappers):
+    """``local_faldoi -m 2`` then ``global_faldoi -m 2`` on the card, from
+    the golden-position seeds on the pair written as ``.npy`` frames;
+    checks the final flow and returns the launches of ``wrappers`` on this
+    path, with K0's planes-form launches on the 24 weight planes under
+    ``gather_plane_patches_c24``."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.cli import global_faldoi, local_faldoi
+    from faldoi_tpu_torch.io.flo import read_flo, write_flo
+    from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ims = write_frames(tmp, i0, i1)
+        seeds = [os.path.join(tmp, f"{k}.flo") for k in ("go", "ba")]
+        write_flo(seeds[0], go)
+        write_flo(seeds[1], ba)
+        rg, var = os.path.join(tmp, "rg.flo"), os.path.join(tmp, "var.flo")
+        for fn in wrappers:
+            fn.launches = 0
+        gather_plane_patches.launches_by_planes.clear()
+        st = {}
+        t0 = time.perf_counter()
+        rc = local_faldoi.main([ims, *seeds, rg, os.path.join(tmp, "sim.tiff"),
+                                "-m", "2", "-bsz", str(BSZ), "-device", "cuda"],
+                               stats=st)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rc = rc or global_faldoi.main([ims, rg, var, "-m", "2", "-device", "cuda"],
+                                      stats=st)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        launches["gather_plane_patches_c24"] = gather_plane_patches.launches_by_planes[24]
+        if rc != 0:
+            raise AssertionError(f"the m2 stage CLIs exited {rc}")
+        rg, var = read_flo(rg), read_flo(var)
+    fill = float(np.isfinite(rg).all(-1).mean())
+    log(f"m2 path (local_faldoi -m 2, global_faldoi -m 2) {H}x{W} SYNTHETIC .npy "
+        f"frames, bsz {BSZ}: local {t1 - t0:.2f} s, global {t2 - t1:.2f} s, "
+        f"total {t2 - t0:.2f} s")
+    log("m2 growing seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in st["seconds"].items()}))
+    log(f"m2 sweeps per drain: {json.dumps(st['sweeps'])}")
+    log(f"m2 global PD iterations per warp: {st['global_iters']}")
+    log("m2 global stage, host seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in st["global_seconds"].items()}))
+    log(f"launches on the m2 path: {json.dumps(launches)}")
+    log(f"m2 fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
+        f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
+    if fill < 1.0:
+        raise AssertionError(f"m2 growing filled {100 * fill:.3f}% < 100%")
+    if not np.isfinite(var).all():
+        raise AssertionError("non-finite values in the m2 final flow")
+    if st["global_iters"] != [400] * 5:
+        raise AssertionError(f"m2 global iterations {st['global_iters']}")
+    for name in ("gather_plane_patches_c24", "nltv_patch_loop", "nltv_global_loop"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the m2 path")
+    if launches["nltv_global_loop"] != 5:
+        raise AssertionError(f"K6 launched {launches['nltv_global_loop']} times, "
+                             "expected 5 (one a warp)")
+    return launches
 
 
 def log_global_ms(path, st):
@@ -639,18 +906,13 @@ def run_sift_path(i0, i1, gf, wrappers):
     from faldoi_tpu_torch.io.flo import read_flo
 
     with tempfile.TemporaryDirectory() as tmp:
-        names = []
-        for k, im in enumerate((i0, i1)):
-            names.append(os.path.join(tmp, f"frame_{k}.npy"))
-            np.save(names[-1], np.round(im).astype(np.uint8).transpose(1, 2, 0))
-        with open(os.path.join(tmp, "ims.txt"), "w") as fh:
-            fh.write("\n".join(names) + "\n")
+        ims = write_frames(tmp, i0, i1)
         res = os.path.join(tmp, "out") + os.sep
         for fn in wrappers:
             fn.launches = 0
         st = {}
         t0 = time.perf_counter()
-        rc = faldoi_sift.main([os.path.join(tmp, "ims.txt"), "-vm", "1",
+        rc = faldoi_sift.main([ims, "-vm", "1",
                                "-device", "cuda", "-bsz", str(BSZ),
                                "-res_path", res], stats=st)
         secs = time.perf_counter() - t0
@@ -693,7 +955,9 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.core.functionals import nltv_patch_loop
     from faldoi_tpu_torch.core.global_step import global_pd_loop
+    from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.io.flo import read_flo
     from faldoi_tpu_torch.kernels import build as kb
@@ -702,6 +966,7 @@ def main():
     )
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -732,6 +997,12 @@ def main():
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
                check_k4_patches(dev, rng), check_k5(dev, rng, a, b, gf)]
+    scs = nltv_local_consts(a, b, i0, i1)
+    planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
+    planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],
+                                                               len(pos_f))
+    kernels += [check_k6(dev, rng, a, b, gf, i0), check_k7(dev, rng, scs, len(pos_f))]
+    del scs
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -740,12 +1011,12 @@ def main():
     for r in probe_recs:
         log(kp.describe(r))
 
-    # phase 4: crops through the CPU twins and through the card, m0 with the
-    # warm requeue and m1 with the cold one
+    # phase 4: crops through the CPU twins and through the card, m0 and m2
+    # with the warm requeue, m1 and m3 with the cold one
     ch, cw = CROP
     cut = (slice(0, ch), slice(0, cw))
     crop = (i0[:, :ch, :cw], i1[:, :ch, :cw], go[cut], ba[cut])
-    for method, band in ((0, 10), (1, 0)):
+    for method, band in ((0, 10), (1, 0), (2, 10), (3, 0)):
         res = {}
         for device in ("cpu", "cuda"):
             st = {}
@@ -766,7 +1037,8 @@ def main():
     # K4's point form comes last: it is counted to show that no path
     # launches it any more (the whole-image warps take the flow form)
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
-                bicubic_sample_patches, global_pd_loop, bicubic_sample)
+                bicubic_sample_patches, global_pd_loop, nltv_global_loop,
+                nltv_patch_loop, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -794,6 +1066,10 @@ def main():
         raise AssertionError(f"global iterations {st['global_iters']}, expected "
                              f"{ITERS_M0}")
 
+    # phase 5b: the m2 (NLTV-L1) path through the stage CLIs at full width,
+    # counting launches
+    launches_m2 = run_m2_path(i0, i1, go, ba, gf, wrappers)
+
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
 
@@ -817,8 +1093,12 @@ def main():
     flow_rec["shapes"] = (flow_rec["shapes"] + check_k4_path("m0", fb_m0)
                           + check_k4_path("faldoi_sift", fb_sift))
 
-    kernels = [dict(k, launches=launches_sift[k["name"]],
-                    launches_m0=launches_m0[k["name"]]) for k in kernels]
+    kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS
+                                 else launches_sift)[k["name"]],
+                    launches_m0=launches_m0[k["name"]],
+                    launches_m2=launches_m2[k["name"]]) for k in kernels]
+    planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
+    planes_rec["launches_c24_m2"] = launches_m2["gather_plane_patches_c24"]
     p3 = [r for r in probe_recs if r["name"] == "probe_window_fetch"][-1]
     for r in [r for r in probe_recs if r["name"] != "probe_window_fetch"] + [p3]:
         kernels.append(dict(r, launches=launches_probe[r["name"]]))
@@ -830,9 +1110,10 @@ def main():
             continue
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
-        if k.get("launches_m0", 1) <= 0:
+        if k["name"] not in M2_KERNELS and k.get("launches_m0", 1) <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {k: d[k] for k in KEYS + EXTRA if k in d} for d in kernels]}))
     print(json.dumps({"ok": True, "device": {

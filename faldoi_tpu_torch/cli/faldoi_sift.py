@@ -2,7 +2,7 @@
 "Algorithm 1" (``scripts_python/faldoi_sift.py``), the contract of
 ``faldoi_tpu.cli.faldoi_sift`` plus ``-device`` and ``-bin_dir``::
 
-    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0|1] [-wr 5] \
+    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0|1|2|3] [-wr 5] \
         [-local_iter n] [-patch_iter n] [-fb_thresh eps] [-partial_res v] \
         [-warps n] [-glob_iter n] [-nsp n] [-res_path dir/] \
         [-energy_params file] [-verbose v] [-trace dir] \

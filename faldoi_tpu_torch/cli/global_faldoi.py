@@ -6,7 +6,8 @@
         [occl_input.png occl_out.png] [-m method] [-w warps] [-p params_file] \
         [-glb_iters iters] [-verbose v] [-device cuda|cpu]
 
-Methods 0 (TV-L1) and 1 (weighted TV-L1, whose global step is the TV-L1 one)
+Methods 0 (TV-L1), 1 (weighted TV-L1, whose global step is the TV-L1 one),
+2 (NLTV-L1) and 3 (weighted NLTV-L1, whose global step is the NLTV-L1 one)
 are ported; other methods exit with code 2.
 """
 
@@ -21,7 +22,9 @@ import torch
 from faldoi_tpu_torch import params as P
 
 # the methods this slice of the port runs
-PORTED_METHODS = (P.M_TVL1, P.M_TVL1_W)
+PORTED_METHODS = (P.M_TVL1, P.M_TVL1_W, P.M_NLTVL1, P.M_NLTVL1_W)
+NOT_PORTED = ("the port runs methods 0, TV-L1, 1, weighted TV-L1, 2, NLTV-L1, "
+              "and 3, weighted NLTV-L1")
 
 
 def pick_option(args, name, default):
@@ -81,8 +84,8 @@ def main(argv=None, stats=None):
               file=sys.stderr)
         method = P.M_TVL1
     if method not in PORTED_METHODS:
-        print(f"ERROR: method {method} not ported yet (the port runs methods "
-              "0, TV-L1, and 1, weighted TV-L1)", file=sys.stderr)
+        print(f"ERROR: method {method} not ported yet ({NOT_PORTED})",
+              file=sys.stderr)
         return 2
 
     prm = P.init_params(file_params, P.GLOBAL_STEP)
@@ -104,7 +107,8 @@ def main(argv=None, stats=None):
     if stats is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm, stats=stats)
+    u1, u2 = global_refine(method, i0n, i1n, u1, u2, prm, stats=stats,
+                           i0_planes=i0p)
     out = torch.stack([u1, u2], dim=-1).cpu().numpy()
     t_write = time.perf_counter()
     if verbose:

@@ -7,8 +7,10 @@
         [-split_img 0/1] [-h_parts n] [-v_parts n] [-fb_thresh eps] \
         [-partial_res v] [-verbose v] [-device cuda|cpu] [-bsz n]
 
-Methods 0 (TV-L1) and 1 (weighted TV-L1) are ported; other methods exit
-with code 2.  ``-partial_res 1`` writes the forward growing's snapshots to
+Methods 0 (TV-L1), 1 (weighted TV-L1), 2 (NLTV-L1) and 3 (weighted
+NLTV-L1) are ported; other methods exit with code 2.  ``occlusions.png``
+holds the pixels that the FB pruning distrusted in any outer iteration, as
+JAX writes them.  ``-partial_res 1`` writes the forward growing's snapshots to
 ``partial_results/partial_fwd_{30,70,80,95}_iter_{it}.flo`` under the working
 directory, as the JAX CLI does.  ``-bsz`` is the growing's batch size (the
 counterpart of JAX's ``FALDOI_GROW_BSZ``; default 4096, as there).
@@ -22,7 +24,9 @@ import time
 import numpy as np
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.cli.global_faldoi import PORTED_METHODS, pick_option
+from faldoi_tpu_torch.cli.global_faldoi import (
+    NOT_PORTED, PORTED_METHODS, pick_option,
+)
 
 
 def main(argv=None, stats=None):
@@ -72,8 +76,8 @@ def main(argv=None, stats=None):
               file=sys.stderr)
         method = P.M_TVL1
     if method not in PORTED_METHODS:
-        print(f"ERROR: method {method} not ported yet (the port runs methods "
-              "0, TV-L1, and 1, weighted TV-L1)", file=sys.stderr)
+        print(f"ERROR: method {method} not ported yet ({NOT_PORTED})",
+              file=sys.stderr)
         return 2
 
     prm = P.init_params(file_params, P.LOCAL_STEP)
@@ -110,17 +114,18 @@ def main(argv=None, stats=None):
 
     t0 = time.time()
     i0n, i1n = prepare_pair(planes[0], planes[1], device=device)
-    flow, ene = match_growing(
+    flow, ene, occ = match_growing(
         go, ba, i0n, i1n, prm, sal[0], sal[1], bsz=bsz, stats=stats,
-        snapshot_dir="partial_results" if partial_res else None)
-    flow, ene = flow.cpu().numpy(), ene.cpu().numpy()
+        snapshot_dir="partial_results" if partial_res else None,
+        i0_planes=planes[0], i1_planes=planes[1])
+    flow, ene, occ = flow.cpu().numpy(), ene.cpu().numpy(), occ.cpu().numpy()
     if verbose:
         print(f"(local) match growing took {time.time() - t0:.2f}s on "
               f"{i0n.device}", file=sys.stderr)
     write_flo(out_path, flow)
     save_image_float(sim_path, ene)
     if occ_path is not None:
-        save_image_int(occ_path, np.zeros(ene.shape, np.int32))
+        save_image_int(occ_path, occ.astype(np.int32))
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Iterated FALDOI local minimization for methods 0 and 1 (``match_growing``).
+"""Iterated FALDOI local minimization for methods 0-3 (``match_growing``).
 
 Port of ``faldoi_tpu/core/match_growing.py`` in the semantics of its CPU
 default, ``mode="fused"`` (``_iterated_growing``, local_faldoi.cpp:
@@ -10,6 +10,11 @@ reference's full re-grow of every outer iteration (``_delete_untrusted`` +
 is 64 in iteration 0 and 16 after.  JAX drains the two directions in
 lockstep; a drained lane's sweeps are no-ops there, so draining them one
 after the other, as here, gives the same states.
+
+The occlusion output is JAX's ``out_chi`` of the forward lane for methods
+0-7: every requeue, warm or cold, sets it to 1 at the pixels the pruning
+distrusted (match_growing.py:73,152), and no sweep resets it, so it is the
+union of the forward lane's pruned masks.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ SNAPSHOT_PCTS = (30, 70, 80, 95)
 def delete_untrusted(state: GrowState, trust) -> GrowState:
     """delete_not_trustable_candidates (local_faldoi.cpp:283-311): untrusted
     pixels lose their flow and energy and poison the working flow.  JAX also
-    marks them occluded (``out_chi``); the port's state has no chi plane,
-    since only method 8 reads it."""
+    marks them occluded (``out_chi``); the port keeps that mask beside the
+    state (``match_growing``'s occlusion output), since no sweep of methods
+    0-7 reads or changes it."""
     bad = trust == 0
     dev = trust.device
     nan = torch.full((), float("nan"), device=dev)
@@ -149,12 +155,18 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                   sal_go: Optional[np.ndarray] = None,
                   sal_ba: Optional[np.ndarray] = None, bsz: int = 4096,
                   seed_bsz: int = 2048, stats=None, warm_band: int = WARM_BAND,
-                  snapshot_dir: Optional[str] = None):
+                  snapshot_dir: Optional[str] = None,
+                  i0_planes: Optional[np.ndarray] = None,
+                  i1_planes: Optional[np.ndarray] = None):
     """Grow the (h, w, 2) NaN-sparse forward seeds ``go`` and backward seeds
     ``ba`` over the normalized, smoothed frames ``i0n``, ``i1n`` (tensors on
-    the run's device) with method ``prm.val_method`` (0 or 1).  Returns
-    (flow (h, w, 2), energy (h, w)) of the forward direction, as tensors on
-    that device.
+    the run's device) with method ``prm.val_method`` (0 to 3).  Returns
+    (flow (h, w, 2), energy (h, w), occlusions (h, w) float32 0/1) of the
+    forward direction, as tensors on that device.
+
+    ``i0_planes``, ``i1_planes``: the raw (pd, h, w) colour planes of the two
+    frames (0..255), which the NLTV methods (2, 3) need for their weights:
+    the forward lane's from I0, the backward lane's from I1.
 
     ``warm_band``: the requeue band in px (JAX reads it from
     ``FALDOI_GROW_WARM_BAND``); 0 = the cold requeue.
@@ -171,8 +183,10 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     wr = prm.w_radio
     p = 2 * wr + 1
     lam, theta, tau = method_local_params(method, wr)
-    sc = (make_solver_consts(i0n, i1n, lam, theta, tau, prm.tol_OF, p, method),
-          make_solver_consts(i1n, i0n, lam, theta, tau, prm.tol_OF, p, method))
+    sc = (make_solver_consts(i0n, i1n, lam, theta, tau, prm.tol_OF, p, method,
+                             i0_planes=i0_planes),
+          make_solver_consts(i1n, i0n, lam, theta, tau, prm.tol_OF, p, method,
+                             i0_planes=i1_planes))
     max_iters = max(prm.max_iter_patch, 1)
     stats = {} if stats is None else stats
     stats.setdefault("sweeps", [])
@@ -205,6 +219,7 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
 
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
     trust2d = [ones, ones]
+    occ = torch.zeros((h, w), dtype=torch.float32, device=dev)
 
     def run_drain(lane, it, fs):
         marks["it"] = it
@@ -222,6 +237,7 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
             tick(f"drain_it{it}_{('fwd', 'bwd')[lane]}")
         tg, tb = prune(i0n, i1n, flow_of(st[0], h, w), flow_of(st[1], h, w),
                        prm.epsilon)
+        occ = torch.where(tg == 0, torch.ones((), device=dev), occ)
         for lane, tr in enumerate((tg, tb)):
             trust = torch.cat([tr.reshape(-1),
                                torch.ones((1,), dtype=tr.dtype, device=dev)])
@@ -233,4 +249,4 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
 
     run_drain(0, prm.iterations_of, FLOOR_SCALE_LATE)
     tick("drain_final_fwd")
-    return flow_of(st[0], h, w), st[0].ene[:n].view(h, w)
+    return flow_of(st[0], h, w), st[0].ene[:n].view(h, w), occ

@@ -34,7 +34,9 @@
 // aligned bytes.  A cell's offset is computed once and shared by the C
 // planes, and a thread's four loads of a plane are in flight together.  A
 // plane may be int32 (the trust map after pruning): it is converted on the
-// way.
+// way.  The same form crops the 24 NLTV weight planes of the patch solver
+// (zero-padded (h + P, w + P) planes, so no clamp applies) into the
+// (24, B, p, p) layout that K7 (csrc/nltv.cu) reads coalesced.
 
 #include <cuda_runtime.h>
 
@@ -72,7 +74,7 @@ __global__ void __launch_bounds__(kStackThreads)
 // ---------------------------------------------------------------------------
 // planes form
 
-constexpr int kMaxPlanes = 8;
+constexpr int kMaxPlanes = 24;  // the NLTV weights are 24 planes
 constexpr int kPlaneThreads = 256;
 constexpr int kPlaneCells = 4;  // cells a thread, kPlaneThreads apart
 

@@ -61,6 +61,12 @@ _SIGNATURES = {
     # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c scratch,
     # h, w, l_t, theta, tau, tol2, max_iters, stream
     "faldoi_global_pd_loop": (_P,) * 13 + (_I, _I, _F, _F, _F, _F, _I, _P),
+    # u1 u2 u1_ u2_ wt i1wx i1wy grad rho_c sc_p sc_q wp, h, w, l_t, theta,
+    # tau, max_iters, stream
+    "faldoi_nltv_global_loop": (_P,) * 12 + (_I, _I, _F, _F, _F, _I, _P),
+    # u1 u2 v1 v2 i1wx i1wy grad rho_c wp wt lt scal ph pw duals_in, u1o u2o
+    # v1o v2o iters duals_out, b, p, lt_cells, max_iters, stream
+    "faldoi_nltv_patch_loop": (_P,) * 21 + (_I,) * 4 + (_P,),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

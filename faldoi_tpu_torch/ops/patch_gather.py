@@ -18,7 +18,9 @@ kernel where the JAX package could not, in two forms
   "edge")``, ``dynamic_slice``): it reads the C state planes where they lie,
   clamps to the last row and column instead of padding, and returns
   (C, B, p, p), lane-major, so each plane's canvases are one contiguous
-  (B, p, p) block and no stack, pad or permute is dispatched.
+  (B, p, p) block and no stack, pad or permute is dispatched.  It also
+  crops the NLTV solver's 24 weight planes (``SolverConsts.wp_pad``,
+  zero-padded to (h + P, w + P)) into (24, B, p, p).
 
 Semantics are ``lax.dynamic_slice``'s on the padded array in both forms: a
 negative start counts from the padded end (``allow_negative_indices``), then
@@ -28,18 +30,21 @@ pure copies, so each kernel equals its twin bit for bit.  Both are bound by
 device-memory traffic and launch latency.
 
 ``gather_patches.launches`` and ``gather_plane_patches.launches`` count the
-launches of the two kernels.
+launches of the two kernels; ``gather_plane_patches.launches_by_planes``
+splits the planes form's by the number of planes (5: the state crop, 24:
+the NLTV weights).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from faldoi_tpu_torch.kernels import build as kb
 
-MAX_PLANES = 8     # kMaxPlanes of csrc/patch_gather.cu
+MAX_PLANES = 24    # kMaxPlanes of csrc/patch_gather.cu
 
 
 def pad_for_crops(img: torch.Tensor, p: int) -> torch.Tensor:
@@ -133,7 +138,7 @@ def gather_plane_patches(planes, oy: torch.Tensor, ox: torch.Tensor, p: int,
                          h: int, w: int) -> torch.Tensor:
     """K0, planes form: C planes of one (h, w) image each -> (C, B, p, p).
 
-    ``planes``: 1 to 8 contiguous float32 or int32 tensors of h*w elements
+    ``planes``: 1 to 24 contiguous float32 or int32 tensors of h*w elements
     (or h*w + 1: the sweep's flat state planes with their dump slot, which
     is never read); ``oy``, ``ox``: (B,) int64 window origins.  Cell (r, c)
     of lane k is ``plane[min(y0 + r, h - 1), min(x0 + c, w - 1)]`` with
@@ -170,7 +175,9 @@ def gather_plane_patches(planes, oy: torch.Tensor, ox: torch.Tensor, p: int,
         out.data_ptr(), h, w, b, p, kb.stream_ptr(dev))
     kb.check(code, "gather_plane_patches")
     gather_plane_patches.launches += 1
+    gather_plane_patches.launches_by_planes[len(planes)] += 1
     return out
 
 
 gather_plane_patches.launches = 0   # planes-form launches
+gather_plane_patches.launches_by_planes = Counter()   # the same, by plane count

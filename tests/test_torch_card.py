@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
-point, patch and flow forms, the K5 loop, the probes P1-P3) against their
-plain twins, on the card, and the weighted patch solver on the card against
-its CPU run.
+point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
+probes P1-P3) against their plain twins, on the card, and the weighted and
+the NLTV patch solvers on the card against their CPU runs.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -14,7 +14,8 @@ form the point form bit for bit; K4's point and flow forms and K5 their
 twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
-summation order)."""
+summation order).  K6, K7 and the NLTV solvers must equal their twins (and
+CPU runs) bit for bit: they sum in the twins' order."""
 
 import numpy as np
 import pytest
@@ -397,3 +398,185 @@ def test_weighted_solver_on_card_matches_cpu(dev):
                                      v0.to(d), p, 1, 4))
         for x, y in zip(outs[1], outs[0]):
             assert (x.cpu() - y).abs().max().item() <= ATOL
+
+
+def _nltv_consts(dev, h, w, method, p=11, seed=90):
+    """A frame pair on ``dev`` and its method-2/3 solver consts."""
+    from faldoi_tpu_torch.core.functionals import make_solver_consts
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.models import method_local_params
+
+    i0, i1, gf, _ = syn.make_pair(h, w, seed=seed)
+    a, b = prepare_pair(i0, i1, device=dev)
+    lam, theta, tau = method_local_params(method, 5)
+    return make_solver_consts(a, b, lam, theta, tau, 0.01, p, method,
+                              i0_planes=i0), i0, gf
+
+
+@pytest.mark.parametrize("p,b", [(11, 700), (3, 333), (11, 1)])
+def test_k0_planes_form_c24_on_card(dev, p, b):
+    """K0's planes form on the 24 zero-padded NLTV weight planes, bit for
+    bit, counted under 24 planes."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_plane_patches, gather_plane_patches_plain,
+    )
+
+    h, w = 61, 83
+    sc, _, _ = _nltv_consts(dev, h, w, 2)
+    rng = np.random.default_rng(91 + p + b)
+    idx = torch.as_tensor(rng.integers(0, h * w, b), device=dev)
+    idx[:1] = h * w - 1
+    _, _, oy, ox, _, _ = patch_geometry(idx, h, w, p // 2)
+    planes = sc.wp_pad.unbind(0)
+    hp, wp = sc.wp_pad.shape[1:]
+    want = gather_plane_patches_plain([x.cpu() for x in planes], oy.cpu(),
+                                      ox.cpu(), p, hp, wp)
+    before = gather_plane_patches.launches_by_planes[24]
+    got = gather_plane_patches(planes, oy, ox, p, hp, wp)
+    assert gather_plane_patches.launches_by_planes[24] == before + 1
+    assert got.shape == (24, b, p, p) and torch.equal(got.cpu(), want)
+
+
+def _k6_state(dev, h, w, seed):
+    """A global NLTV warp's state and constants at (h, w), on ``dev``."""
+    from faldoi_tpu_torch.core.global_step_nltv import global_weights
+
+    rng = np.random.default_rng(seed)
+    i0 = rng.uniform(0, 255, (3, h, w)).astype(np.float32)
+    wp, wt = global_weights(i0, dev)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor(rng.normal(0, s, shape).astype(np.float32),
+                               device=dev)
+
+    u1, u2 = t(h, w), t(h, w)
+    gx, gy = t(h, w, s=0.05), t(h, w, s=0.05)
+    return [u1, u2, u1 + t(h, w, s=0.1), u2 + t(h, w, s=0.1),
+            t(24, h, w, s=0.3), t(24, h, w, s=0.3), wp, wt, gx, gy,
+            gx * gx + gy * gy, t(h, w, s=0.1)]
+
+
+@pytest.mark.parametrize("h,w,iters", [(61, 83, 1), (97, 131, 7), (5, 7, 3)])
+def test_k6_matches_twin_on_card(dev, h, w, iters):
+    """K6 (two launches an iteration) against its twin on the card, bit for
+    bit, state updated in place."""
+    from faldoi_tpu_torch.core.global_step_nltv import (
+        nltv_global_loop, nltv_global_loop_plain,
+    )
+
+    got = _k6_state(dev, h, w, 92 + h)
+    want = [x.clone() for x in got]
+    before = nltv_global_loop.launches
+    nltv_global_loop(*got, 0.6, 0.3, 0.1, iters)
+    assert nltv_global_loop.launches == before + 1
+    nltv_global_loop_plain(*want, 0.6, 0.3, 0.1, iters)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert not torch.equal(got[0], _k6_state(dev, h, w, 92 + h)[0])
+
+
+def _k7_inputs(sc, dev, p, b, method, seed):
+    """K7's arguments at B canvases of side p from the solver's own
+    stages: weights cropped by K0, warp constants from K4's patch form."""
+    from faldoi_tpu_torch.core.functionals import _weight2d, nltv_crop_weights
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    h, w = sc.i1.shape
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.integers(0, h * w, b), device=dev)
+    i, j, oy, ox, ph, pw = patch_geometry(idx, h, w, p // 2)
+    box = [x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw)]
+    scale = torch.linspace(0, 1, b, device=dev)[:, None, None]
+    u1, u2 = (torch.as_tensor(rng.normal(m, 1.0, (b, p, p)).astype(np.float32),
+                              device=dev) * scale for m in (2.6, -1.4))
+    u1, u2 = u1.contiguous(), u2.contiguous()
+    i1w, gx, gy = bicubic_sample_patches(sc.i1_stack, *box, u1, u2, 3)
+    wp, wt = nltv_crop_weights(sc.wp_pad, oy, ox, ph, pw, p)
+    l_t = sc.lambda_ * sc.theta
+    if method == 3:
+        rows, cols = canvas_ids(p, dev)
+        l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy, ox, j, i, p // 2)).contiguous()
+    return [u1, u2, u1, u2, None, gx, gy, gx * gx + gy * gy,
+            (i1w - gx * u1 - gy * u2).contiguous(), wp, wt, l_t, box[2], box[3],
+            sc.theta, sc.tau, sc.tol * sc.tol]
+
+
+@pytest.mark.parametrize("p,b,method,duals", [
+    (11, 300, 2, "none"), (11, 300, 3, "in"), (3, 500, 2, "in"),
+    (3, 131, 3, "none"), (11, 1, 2, "none")])
+def test_k7_matches_twin_on_card(dev, p, b, method, duals):
+    """K7 against its twin on the card, bit for bit: outputs, iteration
+    counts (lanes freeze at different counts) and the duals it keeps."""
+    from faldoi_tpu_torch.core.functionals import (
+        nltv_patch_loop, nltv_patch_loop_plain,
+    )
+
+    sc, _, _ = _nltv_consts(dev, 40, 56, method)
+    args = _k7_inputs(sc, dev, p, b, method, 93 + p + b)
+    if duals == "in":
+        rng = np.random.default_rng(94)
+        args[4] = torch.as_tensor(rng.normal(0, 0.05, (2, 24, b, p, p))
+                                  .astype(np.float32), device=dev)
+    before = nltv_patch_loop.launches
+    got = nltv_patch_loop(*args, 6, keep_duals=True)
+    assert nltv_patch_loop.launches == before + 1
+    want = nltv_patch_loop_plain(*args, 6, keep_duals=True)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if b > 100:
+        assert len(set(got[4].tolist())) > 1
+    # no duals kept: the same results, and None
+    again = nltv_patch_loop(*args, 6)
+    assert again[5] is None
+    for x, y in zip(again[:5], got[:5]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("method", [2, 3])
+def test_nltv_solver_on_card_matches_cpu(dev, method):
+    """solve_nltvl1 / solve_nltvl1_w on the card (K0, K4, K7) against
+    their CPU run (the twins), one and two warps."""
+    from faldoi_tpu_torch.core.functionals import solver_for
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    h, w = 40, 56
+    scs = {d: _nltv_consts(d, h, w, method)[0] for d in ("cpu", dev)}
+    rng = np.random.default_rng(95)
+    idx = torch.as_tensor(rng.choice(h * w, 200, replace=False))
+    idx[:4] = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w])
+    for p, warps in ((11, 1), (3, 2)):
+        geo = patch_geometry(idx, h, w, p // 2)
+        u0 = torch.as_tensor(rng.normal(2.6, 1.0, (200, p, p)).astype(np.float32))
+        v0 = torch.as_tensor(rng.normal(-1.4, 1.0, (200, p, p)).astype(np.float32))
+        outs = [solver_for(method)(scs[d], *(g.to(d) for g in geo), u0.to(d),
+                                   v0.to(d), p, warps, 4) for d in ("cpu", dev)]
+        for x, y in zip(outs[1], outs[0]):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_nltv_wrappers_raise_on_bad_card_tensors(dev):
+    from faldoi_tpu_torch.core.functionals import nltv_patch_loop
+    from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
+
+    st = _k6_state(dev, 9, 11, 96)
+    bad = list(st)
+    bad[4] = st[4][:23]
+    with pytest.raises(ValueError, match="sc_p"):
+        nltv_global_loop(*bad, 0.6, 0.3, 0.1, 2)
+    bad = list(st)
+    bad[0] = st[0].double()
+    with pytest.raises(TypeError, match="u1"):
+        nltv_global_loop(*bad, 0.6, 0.3, 0.1, 2)
+    sc, _, _ = _nltv_consts(dev, 40, 56, 2)
+    args = _k7_inputs(sc, dev, 11, 20, 2, 97)
+    bad = list(args)
+    bad[12] = args[12].to(torch.int64)
+    with pytest.raises(TypeError, match="ph"):
+        nltv_patch_loop(*bad, 4)
+    bad = list(args)
+    bad[9] = args[9][:, :10]
+    with pytest.raises(ValueError, match="wp"):
+        nltv_patch_loop(*bad, 4)

@@ -94,8 +94,8 @@ def test_consts_carry_the_window(setup):
         close(got, want)
     assert make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01,
                               11).w1d is None
-    with pytest.raises(NotImplementedError, match="method 2 not ported yet"):
-        make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01, 11, 2)
+    with pytest.raises(NotImplementedError, match="method 4 not ported yet"):
+        make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01, 11, 4)
 
 
 def _patches(p, b, seed):
@@ -155,10 +155,13 @@ def test_weighted_patch_solver_matches_jax(setup, p):
 
 
 def test_unported_methods_raise():
-    from faldoi_tpu_torch.core.functionals import solver_for, solve_tvl1, solve_tvl1_w
+    from faldoi_tpu_torch.core.functionals import (
+        solve_nltvl1, solve_nltvl1_w, solve_tvl1, solve_tvl1_w, solver_for,
+    )
 
     assert solver_for(0) is solve_tvl1 and solver_for(1) is solve_tvl1_w
-    for m in range(2, 9):
+    assert solver_for(2) is solve_nltvl1 and solver_for(3) is solve_nltvl1_w
+    for m in range(4, 9):
         with pytest.raises(NotImplementedError, match=f"method {m} not ported"):
             solver_for(m)
 
@@ -345,8 +348,8 @@ def test_cold_m1_slice_matches_jax(jax_cold_slice):
     i0, i1, go, ba, gf = _slice_pair()
     a, b = prepare_pair(i0, i1, device="cpu")
     stats = {}
-    flow, _ = match_growing(go, ba, a, b, _m1_params(P), bsz=256, stats=stats,
-                            warm_band=0)
+    flow, _, _ = match_growing(go, ba, a, b, _m1_params(P), bsz=256,
+                               stats=stats, warm_band=0)
     u1, u2 = global_refine(P.M_TVL1_W, a, b, flow[..., 0].contiguous(),
                            flow[..., 1].contiguous(), P.Parameters())
     prg, pvar = flow.numpy(), torch.stack([u1, u2], -1).numpy()

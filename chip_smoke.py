@@ -39,9 +39,12 @@ stride-2 halves of an (H, W, 2) flow) and, after the paths, on the very flows
 the m0 and ``faldoi_sift`` runs gave the FB check (its record's ``shapes``);
 the point form itself lies on no path any more: it is checked there and
 keeps a record with 0 launches.  K6 (the global NLTV loop) is held bit for
-bit to its twin on one 400-iteration warp at 436x1024, K7 (the patch NLTV
-loop) at B 8192 and 1900 (P 11) and at the seed count (P 3), methods 2 and
-3, and K0's planes form on the 24 weight planes at the same shapes.  The m0
+bit to its twin on one 400-iteration warp at 436x1024 (its log line gives
+the streamed floor beside the bound: the state through device memory once
+an iteration), K7
+(the patch NLTV loop) at B 8192 and 1900 (P 11) and at the seed count (P 3),
+methods 2 and 3, then timed per call on the m2 local step's own arguments,
+and K0's planes form on the 24 weight planes at the same shapes.  The m0
 and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
@@ -70,12 +73,13 @@ SEED = 0
 # keys of a kernel's record printed beside the required ones
 EXTRA = ("launches_m0", "launches_m2", "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
-         "ms_spread", "library_spread", "shapes")
+         "ms_spread", "library_spread", "shapes", "path_calls")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
 # (the m0 path's since PR 1; every warp of the SIFT-seeded m1 flow hits the
-# 400-iteration cap)
+# 400-iteration cap, as JAX's warps do on such a flow:
+# tests/test_torch_m1_global_iters.py)
 ITERS_M0 = [400, 111, 133, 115, 160]
 ITERS_SIFT = [400] * 5
 # the kernels whose main path is the m2 one (every other kernel's is the
@@ -614,6 +618,9 @@ def check_k5(dev, rng, a, b, gf):
 K6_OPS = 656
 K7_OPS = 661
 K6_PLANES = 133    # 81 (h, w) planes read once and 52 written once a launch
+# K6's streamed floor: every state plane through device memory once an
+# iteration, with the 24 weight planes or with the 12 that K6 reads
+K6_STREAMED = {24: 133, 12: 121}
 
 
 def nltv_local_consts(a, b, i0, i1):
@@ -703,13 +710,18 @@ def check_k6(dev, rng, a, b, gf, i0):
     ms = cuda_ms(lambda: nltv_global_loop(*ka, l_t, theta, tau, 400), reps=3,
                  warmup=1)
     least = bound(K6_PLANES * H * W * 4, K6_OPS * H * W * 400)
+    floor = {n: bound(planes * H * W * 4)["bound_ms"]
+             for n, planes in K6_STREAMED.items()}
     log(f"K6 nltv_global_loop {H}x{W}, one warp of 400 iterations: bit-exact "
         f"(max_abs_err {worst}); kernels {ms:.3f} ms a call (two launches an "
         f"iteration) = {ms / 400 * 1e3:.2f} us an iteration (first call "
         f"{first * 1e3:.1f} ms host); twin {plain:.1f} ms (host clock); bound "
         f"{least['bound_ms']:.4f} ms "
         f"({least['bound_by']}; bytes alone "
-        f"{bound(K6_PLANES * H * W * 4)['bound_ms']:.4f} ms)")
+        f"{bound(K6_PLANES * H * W * 4)['bound_ms']:.4f} ms); streamed floor "
+        f"(the state through device memory once an iteration) "
+        f"{floor[24]:.4f} ms an iteration with 24 weight planes, "
+        f"{floor[12]:.4f} ms with 12")
     return dict(name="nltv_global_loop", route="cuda",
                 source="faldoi_tpu_torch/csrc/nltv.cu",
                 replaces="faldoi_tpu/core/global_step_nltv.py:48",
@@ -718,12 +730,65 @@ def check_k6(dev, rng, a, b, gf, i0):
                 per_iter_us=ms / 400 * 1e3, **least)
 
 
-def check_k7(dev, rng, scs, n_seeds):
+def k7_nbytes(b, p, lt_cells):
+    """K7's bytes a call: the canvases read once (u, v, the four warp
+    constants, the 24 weights, wt, l_t where per cell), u, v written once,
+    the boxes and iteration counts."""
+    return b * p * p * 4 * (8 + 24 + 1 + (1 if lt_cells else 0) + 4) + b * 12
+
+
+def k7_path_calls(frames):
+    """``local_faldoi -m 2`` at full width, as the m2 path runs it, with each
+    K7 call timed on its own arguments (a CUDA graph of 10 calls, after the
+    call itself) beside its bound.  Returns the calls' (B, ms, bound_ms).
+
+    It wraps K7 by rebinding ``functionals.nltv_patch_loop`` for the run, so
+    it relies on ``_solve_nltv_family`` looking the wrapper up through its
+    module at each call (and on the wrapper counting its launches on that
+    name)."""
+    from faldoi_tpu_torch.cli import local_faldoi
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core import functionals
+    from faldoi_tpu_torch.io.flo import write_flo
+
+    wrapper, calls = functionals.nltv_patch_loop, []
+
+    def timed(*args, **kw):
+        out = wrapper(*args, **kw)
+        b, p = args[0].shape[0], args[0].shape[-1]
+        least = bound(k7_nbytes(b, p, args[11].dim() != 0),
+                      int(out[4].sum()) * p * p * K7_OPS)
+        calls.append((b, cuda_ms(lambda: wrapper(*args, **kw), reps=10, warmup=1,
+                                 graph=True), least["bound_ms"]))
+        return out
+
+    # the wrapper counts its launches on its module's name, which is ours now
+    timed.launches = 0
+    functionals.nltv_patch_loop = timed
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ims = write_frames(tmp, *frames[:2])
+            seeds = [os.path.join(tmp, f"{k}.flo") for k in ("go", "ba")]
+            for path, seed in zip(seeds, frames[2:]):
+                write_flo(path, seed)
+            rc = local_faldoi.main([ims, *seeds, os.path.join(tmp, "rg.flo"),
+                                    os.path.join(tmp, "sim.tiff"), "-m", "2", "-bsz",
+                                    str(BSZ), "-device", "cuda"])
+    finally:
+        functionals.nltv_patch_loop = wrapper
+    if rc != 0:
+        raise AssertionError(f"local_faldoi -m 2 exited {rc}")
+    return calls
+
+
+def check_k7(dev, rng, scs, n_seeds, frames):
     """K7 at the solver's shapes: P 11 at B 8192 (methods 2 and 3) and 1900,
     P 3 at the seed count (methods 2 and 3), from the solver's own stages
     (K0's source and weight crops, K4's patch form), bit for bit against its
-    twin on the card (canvases, iteration counts); timed.  The record is
-    the first row's."""
+    twin on the card (canvases, iteration counts); timed.  Then timed per
+    call on the m2 path's local step (``frames``: I0, I1 and the two seed
+    flows), where launches x (ms - bound) sums its loss.  The record is the
+    first row's."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.functionals import (
         _weight2d, nltv_crop_weights, nltv_patch_loop, nltv_patch_loop_plain,
@@ -758,7 +823,7 @@ def check_k7(dev, rng, scs, n_seeds):
                                  f"abs {worst}")
         iters = got[4]
         run = int(iters.sum())
-        nb = b * p * p * 4 * (8 + 24 + 1 + (1 if m == 3 else 0) + 4) + b * 12
+        nb = k7_nbytes(b, p, m == 3)
         row = dict(shape=f"m{m} P {p} B {b}", max_abs_err=worst,
                    ms=cuda_ms(lambda: nltv_patch_loop(*args), graph=True),
                    plain_ms=cuda_ms(lambda: nltv_patch_loop_plain(*args), reps=3,
@@ -770,11 +835,19 @@ def check_k7(dev, rng, scs, n_seeds):
             f"counts {row['iterations']}); kernel {row['ms']:.4f} ms  twin "
             f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
+    calls = k7_path_calls(frames)
+    bs = sorted(c[0] for c in calls)
+    path = dict(calls=len(calls), b_min=bs[0], b_median=bs[len(bs) // 2],
+                b_max=bs[-1], sum_b=sum(bs), sum_ms=sum(c[1] for c in calls))
+    least = sum(c[2] for c in calls)
+    log(f"K7 per call on the m2 path's local step: {json.dumps(path)}; bounds "
+        f"sum to {least:.4f} ms, launches x (ms - bound) {path['sum_ms'] - least:.4f}"
+        f" ms; B of each call in order: {[c[0] for c in calls]}")
     return dict(name="nltv_patch_loop", route="cuda",
                 source="faldoi_tpu_torch/csrc/nltv.cu",
                 replaces="faldoi_tpu/core/functionals.py:448", library_ms=None,
                 **{k: v for k, v in rows_out[0].items() if k != "iterations"},
-                shapes=rows_out)
+                shapes=rows_out, path_calls=path)
 
 
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
@@ -1001,7 +1074,8 @@ def main():
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],
                                                                len(pos_f))
-    kernels += [check_k6(dev, rng, a, b, gf, i0), check_k7(dev, rng, scs, len(pos_f))]
+    kernels += [check_k6(dev, rng, a, b, gf, i0),
+                check_k7(dev, rng, scs, len(pos_f), (i0, i1, go, ba))]
     del scs
 
     # phase 3b: the probe kernels P1-P3 against their twins

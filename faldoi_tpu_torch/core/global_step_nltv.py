@@ -16,7 +16,8 @@ whole-image ``wt``):
 
 The PD loop of one warp (the ``fori_loop`` of global_step_nltv.py:48-63) is
 kernel K6 (``csrc/nltv.cu``): one call a warp, which enqueues two plain
-launches an iteration (the dual phase, then the primal phase).
+launches an iteration (the dual phase, then the primal phase), reading the
+12 weight planes that the symmetric weights need.
 """
 
 from __future__ import annotations
@@ -66,6 +67,13 @@ def nltv_global_loop(u1, u2, u1_, u2_, sc_p, sc_q, wp, wt, i1wx, i1wy, grad,
     """K6: the NLTV PD loop of one warp of ``nltvl1_global``, in place, a
     fixed ``max_iters`` iterations.  u1, u2, u1_, u2_, wt and the warp
     constants are (h, w) float32 planes; sc_p, sc_q and wp are (24, h, w).
+
+    Precondition: wp is symmetric, ``w_j(x) == w_{23-j}(x + d_j)`` bit for
+    bit, as ``global_weights`` (``nltv_weights``) makes it.  The kernel
+    reads planes 0-11 and takes w_j, j >= 12, from plane 23 - j at x + d_j,
+    and assumes the symmetry without checking it: on the card, weights that
+    break it give a different answer silently.  Only the card checks, which
+    hold the kernel to the twin (which reads all 24 planes), detect that.
 
     CPU tensors go to the plain twin; CUDA tensors enqueue the whole loop
     on the card, two kernel launches an iteration, with no host sync (or

@@ -27,35 +27,62 @@
 // nltv_global_loop_plain, faldoi_tpu_torch/core/functionals.py::
 // nltv_patch_loop_plain); with --fmad=false both round identically.
 //
-// K6: a thread a pixel, a 32x8 tile a block, and two plain launches an
-// iteration (the dual phase, then the primal phase; the launch boundary is
-// the barrier), all enqueued by one call.  Measured on an H100 at 436x1024,
-// this is 10% faster than K5's structure, one cooperative launch with two
-// grid barriers an iteration, and 28% faster than one fused pass an
-// iteration that recomputes each neighbour's reciprocal dual from
-// ping-pong buffers (70-108 registers a thread).  The state lives in device
-// memory: u, u_bar (4 planes), the 48 dual planes (85.7 MB at 436x1024), and
-// the 24 weight planes and wt it reads.  Bound: per call 81 planes read
-// once and 52 written once (237 MB at 436x1024, 0.071 ms at 3.35 TB/s)
-// against ~656 float operations a pixel an iteration (1.75 ms at 400
-// iterations and 67 TFLOP/s): bound by operations.  In practice each
-// iteration streams the 48 dual planes and the 24 weights through device
-// memory about twice (they do not fit the 50 MB L2).
+// K6: two plain launches an iteration (the dual phase, then the primal
+// phase; the launch boundary is the barrier), all enqueued by one call.
+// The state lives in device memory: u, u_bar (4 planes), the 48 dual planes
+// (85.7 MB at 436x1024), wt and the weights; it does not fit the 50 MB L2,
+// so the loop is bound by the bytes it streams an iteration.  Bound as the
+// row counts it: per call 81 planes read once and 52 written once (237 MB at
+// 436x1024, 0.071 ms at 3.35 TB/s) against ~656 float operations a pixel an
+// iteration (1.75 ms at 400 iterations and 67 TFLOP/s): bound by operations.
+// What the design does about the bytes:
+//  * the weights are symmetric, w_j(x) == w_{23-j}(x + d_j) bit for bit
+//    (nltv_weights builds them so; the wrapper states it as a precondition
+//    and the card checks hold the kernel to the twin, which reads all 24
+//    planes), so only planes 0-11 are read: w_j(x) for j >= 12 is plane
+//    23 - j at x + d_j.  12 planes (21.4 MB at 436x1024) can stay in L2;
+//  * the dual phase reads each dual plane once at x and writes it once,
+//    both marked streaming (evict first), a thread a pixel, with the loads
+//    of four offsets issued before their dual steps (restrict pointers);
+//  * the primal phase takes the reciprocal pairs (j, 23 - j), j = 0..11, in
+//    turn, so a pair's planes are read at x and at x -+ d_j together and
+//    the shifted reads find the lines in L1: term j, w_j(x) (sc_j(x) -
+//    sc_{23-j}(x + d_j)), and term 23 - j, w_j(x - d_j) (sc_{23-j}(x) -
+//    sc_j(x - d_j)).  Terms 0-11 fold into the sum as they come; terms
+//    12-23 wait in registers and fold after the last pair, so the sum runs
+//    over j in order from zero, as the twin's.
+// That is ~111 plane passes from device memory in the dual phase and ~71 in
+// the primal, against 133 for the state read and written once an iteration.
+// Both phases take 32x8 tiles at four blocks an SM (64 registers a thread).
+// On an H100 at 436x1024, staging the pairs in shared memory (cp.async, a
+// halo of 2) lost to L1, and one launch an iteration that recomputes the
+// primal on the tile's halo (u_bar kept in shared memory, duals and u
+// ping-ponged) came out no faster; the dual phase runs at ~1.3x the time of
+// streaming its 48 dual planes in and out alone.
 //
-// K7: a thread a canvas cell, floor(128 / P^2) canvases a block (one at P
-// 11, fourteen at P 3).  A canvas's 48 duals, u_bar and the error terms live
-// in shared memory, where the neighbour reads go; a cell's 24 weights and
-// its constants stay in registers for the whole loop.  The loop is the
-// masked unroll of JAX's _bounded_pd_loop: a canvas runs while err > tol^2
-// and n < max_iters (err starts at +inf; a NaN err freezes it); err is the
-// canvas_sum of the in-box squared updates (columns, then rows, in order)
-// over the box's cell count.  A block leaves the loop when none of its
-// canvases runs.  The duals start at 0 in the kernel unless given, and are
-// written out only when asked (the local step's single warp needs neither).
-// Bound: the canvases read once (u, v, the four warp constants, the 24
-// weights, wt, l_t where per cell) and u, v written once: 37 canvases at B
-// 8192, P 11 (147 MB, 0.044 ms) against ~606 float operations a cell an
-// iteration run.
+// K7: two threads a canvas cell, one a flow component (242 of 256 threads
+// at P 11), one canvas a block at P 11 (eight at P 3, a canvas's threads
+// on whole warps).  A canvas's 48 duals, u_bar, u and the last step's
+// updates live in shared memory, where the neighbour reads go; a cell's 24
+// weights and its constants stay in registers for the whole loop.  Each
+// thread runs the 24 dual steps and the divergence of its component (half
+// the dependent division chain of a cell, twice the warps in flight); the
+// threshold needs both components and reads the other from shared memory.
+// A dual step of weight 0 keeps its dual and is skipped (it would discard
+// its update).  The loop is the masked unroll of JAX's _bounded_pd_loop: a
+// canvas runs while err > tol^2 and n < max_iters (err starts at +inf; a
+// NaN err freezes it); err is the canvas_sum of the in-box squared updates
+// (each row over its columns, then the rows, in order) over the box's cell
+// count: the canvas's first P threads, one warp, take a row each, and sum
+// the rows by shuffles, so an iteration has three block barriers.  A block
+// leaves the loop when none of its canvases runs.  The duals start at 0 in
+// the kernel unless given, and are written out only when asked (the local
+// step's single warp needs neither).  Bound: the canvases read once (u, v,
+// the four warp constants, the 24 weights, wt, l_t where per cell) and u, v
+// written once: 37 canvases at B 8192, P 11 (147 MB, 0.044 ms) against
+// ~661 float operations a cell an iteration run.  What holds it: the
+// dependent IEEE divisions of the dual steps (two a step) and the barriers,
+// so the design puts more warps in flight rather than moving fewer bytes.
 
 #include <cuda_runtime.h>
 
@@ -63,9 +90,12 @@ namespace {
 
 constexpr float kGradIsZero = 1e-8f;
 constexpr int kNd = 24;
-constexpr int kTileW = 32;
+constexpr int kHalf = kNd / 2;
+constexpr int kTileW = 32;    // K6, both phases: a 32x8 tile a block
 constexpr int kTileH = 8;
-constexpr int kPatchThreads = 128;  // threads a block, for P^2 <= 128
+constexpr int kDualLoads = 4; // offsets whose loads go out together
+constexpr int kK6Blocks = 4;  // blocks an SM: 64 registers a thread
+constexpr int kPatchThreads = 256;  // threads a K7 block, for 2 P^2 <= 256
 
 // offset j -> (dy, dx): the 5x5 window without its centre, row-major
 __host__ __device__ constexpr int off_dy(int j) { return (j < 12 ? j : j + 1) / 5 - 2; }
@@ -105,49 +135,89 @@ struct GlobalPlanes {
   const float* __restrict__ rho_c;
   float* sp;   // (24, h, w)
   float* sq;
-  const float* __restrict__ wp;
+  const float* __restrict__ wp;   // (24, h, w), symmetric: planes 0-11 read
 };
 
-__device__ __forceinline__ void global_dual_at(const GlobalPlanes& p, int r,
-                                               int c, int h, int w,
-                                               float tau) {
+// The dual phase of one iteration, a thread a pixel.
+__global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
+    nltv_dual_kernel(GlobalPlanes p, int h, int w, float tau) {
+  const int r = blockIdx.y * kTileH + threadIdx.y;
+  const int c = blockIdx.x * kTileW + threadIdx.x;
+  if (r >= h || c >= w) return;
+  const float* __restrict__ u1b = p.u1b;
+  const float* __restrict__ u2b = p.u2b;
+  const float* __restrict__ wp = p.wp;
+  float* __restrict__ sp = p.sp;
+  float* __restrict__ sq = p.sq;
   const long long hw = (long long)h * w;
   const long long i = (long long)r * w + c;
-  const float b1 = p.u1b[i], b2 = p.u2b[i], wt = p.wt[i];
+  const float b1 = __ldg(u1b + i), b2 = __ldg(u2b + i);
+  const float wt = __ldg(p.wt + i);
 #pragma unroll
-  for (int j = 0; j < kNd; ++j) {
-    const int rr = r + off_dy(j), cc = c + off_dx(j);
-    const bool in = rr >= 0 && rr < h && cc >= 0 && cc < w;
-    const long long o = (long long)rr * w + cc;
-    const float n1 = in ? p.u1b[o] : 0.0f;
-    const float n2 = in ? p.u2b[o] : 0.0f;
-    const float wj = p.wp[j * hw + i];
-    p.sp[j * hw + i] = dual_step(p.sp[j * hw + i], wj, b1, n1, wt, tau);
-    p.sq[j * hw + i] = dual_step(p.sq[j * hw + i], wj, b2, n2, wt, tau);
+  for (int j0 = 0; j0 < kNd; j0 += kDualLoads) {
+    float s1[kDualLoads], s2[kDualLoads], wj[kDualLoads], n1[kDualLoads],
+        n2[kDualLoads];
+#pragma unroll
+    for (int q = 0; q < kDualLoads; ++q) {
+      const int j = j0 + q;
+      const int rr = r + off_dy(j), cc = c + off_dx(j);
+      const bool in = rr >= 0 && rr < h && cc >= 0 && cc < w;
+      const long long o = (long long)rr * w + cc;
+      n1[q] = in ? __ldg(u1b + o) : 0.0f;
+      n2[q] = in ? __ldg(u2b + o) : 0.0f;
+      // w_j(x), or for j >= 12 its mirror w_{23-j}(x + d_j)
+      wj[q] = j < kHalf ? __ldg(wp + j * hw + i)
+                        : (in ? __ldg(wp + (kNd - 1 - j) * hw + o) : 0.0f);
+      s1[q] = __ldcs(sp + j * hw + i);
+      s2[q] = __ldcs(sq + j * hw + i);
+    }
+#pragma unroll
+    for (int q = 0; q < kDualLoads; ++q) {
+      const int j = j0 + q;
+      __stcs(sp + j * hw + i, dual_step(s1[q], wj[q], b1, n1[q], wt, tau));
+      __stcs(sq + j * hw + i, dual_step(s2[q], wj[q], b2, n2[q], wt, tau));
+    }
   }
 }
 
-__device__ __forceinline__ void global_primal_at(const GlobalPlanes& p, int r,
-                                                 int c, int h, int w,
-                                                 float l_t, float theta,
-                                                 float tau) {
+// The primal phase of one iteration, a thread a pixel: the divergence by
+// reciprocal pairs, then the threshold and the primal step.
+__global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
+    nltv_primal_kernel(GlobalPlanes p, int h, int w, float l_t, float theta,
+                       float tau) {
+  const int r = blockIdx.y * kTileH + threadIdx.y;
+  const int c = blockIdx.x * kTileW + threadIdx.x;
+  if (r >= h || c >= w) return;
+  const float* __restrict__ sp = p.sp;
+  const float* __restrict__ sq = p.sq;
+  const float* __restrict__ wp = p.wp;
   const long long hw = (long long)h * w;
   const long long i = (long long)r * w + c;
+  float d1 = 0.0f, d2 = 0.0f;
+  float m1[kHalf], m2[kHalf];   // terms 23 - j, folded after term 11
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const int m = kNd - 1 - j;
+    const int rp = r + off_dy(j), cp = c + off_dx(j);
+    const int rn = r - off_dy(j), cn = c - off_dx(j);
+    const bool ip = rp >= 0 && rp < h && cp >= 0 && cp < w;
+    const bool in = rn >= 0 && rn < h && cn >= 0 && cn < w;
+    const long long op = (long long)rp * w + cp, on = (long long)rn * w + cn;
+    const float wj = __ldg(wp + j * hw + i);                  // w_j(x)
+    const float wm = in ? __ldg(wp + j * hw + on) : 0.0f;     // w_{23-j}(x)
+    d1 = d1 + wj * (__ldg(sp + j * hw + i) - (ip ? __ldg(sp + m * hw + op) : 0.0f));
+    d2 = d2 + wj * (__ldg(sq + j * hw + i) - (ip ? __ldg(sq + m * hw + op) : 0.0f));
+    m1[j] = wm * (__ldg(sp + m * hw + i) - (in ? __ldg(sp + j * hw + on) : 0.0f));
+    m2[j] = wm * (__ldg(sq + m * hw + i) - (in ? __ldg(sq + j * hw + on) : 0.0f));
+  }
+#pragma unroll
+  for (int j = kHalf - 1; j >= 0; --j) {
+    d1 = d1 + m1[j];
+    d2 = d2 + m2[j];
+  }
   const float a = p.u1[i], b = p.u2[i];
   float v1, v2;
   threshold(a, b, p.rho_c[i], p.i1wx[i], p.i1wy[i], p.grad[i], l_t, &v1, &v2);
-  float d1 = 0.0f, d2 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kNd; ++j) {
-    const int rr = r + off_dy(j), cc = c + off_dx(j);
-    const bool in = rr >= 0 && rr < h && cc >= 0 && cc < w;
-    const long long o = (kNd - 1 - j) * hw + (long long)rr * w + cc;
-    const float n1 = in ? p.sp[o] : 0.0f;
-    const float n2 = in ? p.sq[o] : 0.0f;
-    const float wj = p.wp[j * hw + i];
-    d1 = d1 + wj * (p.sp[j * hw + i] - n1);
-    d2 = d2 + wj * (p.sq[j * hw + i] - n2);
-  }
   const float wt = p.wt[i];
   d1 = d1 / wt;
   d2 = d2 / wt;
@@ -157,23 +227,6 @@ __device__ __forceinline__ void global_primal_at(const GlobalPlanes& p, int r,
   p.u2b[i] = 2.0f * nu2 - b;
   p.u1[i] = nu1;
   p.u2[i] = nu2;
-}
-
-// One thread a pixel, one 32x8 tile a block: the dual phase, then (the next
-// launch) the primal phase of one iteration.
-__global__ void __launch_bounds__(kTileW * kTileH)
-    nltv_dual_kernel(GlobalPlanes p, int h, int w, float tau) {
-  const int r = blockIdx.y * kTileH + threadIdx.y;
-  const int c = blockIdx.x * kTileW + threadIdx.x;
-  if (r < h && c < w) global_dual_at(p, r, c, h, w, tau);
-}
-
-__global__ void __launch_bounds__(kTileW * kTileH)
-    nltv_primal_kernel(GlobalPlanes p, int h, int w, float l_t, float theta,
-                       float tau) {
-  const int r = blockIdx.y * kTileH + threadIdx.y;
-  const int c = blockIdx.x * kTileW + threadIdx.x;
-  if (r < h && c < w) global_primal_at(p, r, c, h, w, l_t, theta, tau);
 }
 
 // ---------------------------------------------------------------------------
@@ -203,162 +256,192 @@ struct PatchArgs {
   float* __restrict__ duals_out;       // (2, 24, B, P, P) or null
 };
 
-// floats of shared memory a canvas: 48 duals, 2 u_bar, the error terms
-// (p^2 each) and the row sums (p)
-__host__ __device__ constexpr int canvas_floats(int p) { return 51 * p * p + p; }
+// floats of shared memory a canvas: 48 duals, then u_bar, u and the last
+// update of each component (p^2 each), then the canvas's run flag
+__host__ __device__ constexpr int canvas_floats(int p) { return 54 * p * p + 1; }
 
-// P > 0: the patch side at compile time.
-template <int P>
-__global__ void __launch_bounds__(P > 0 ? kPatchThreads : 1024)
+// threads a canvas: nc components a thread, on whole warps
+__host__ __device__ constexpr int canvas_threads(int p, int nc) {
+  return ((2 / nc) * p * p + 31) / 32 * 32;
+}
+
+// P > 0: the patch side at compile time.  NC: flow components a thread (1:
+// two threads a cell; 2: one, for canvases too large for two).
+template <int P, int NC>
+__global__ void __launch_bounds__(P > 0 ? kPatchThreads : 1024, P > 0 ? 4 : 1)
     nltv_patch_kernel(PatchArgs a, int b, int p_rt, int cpb, int lt_cells,
                       int max_iters) {
   extern __shared__ float smem[];
   const int p = P > 0 ? P : p_rt;
   const int pp = p * p;
-  const int lc = threadIdx.x / pp;
-  const int cell = threadIdx.x - lc * pp;
+  const int cs = canvas_threads(p, NC);
+  const int lc = threadIdx.x / cs;
+  const int t = threadIdx.x - lc * cs;
+  const int c0 = NC == 2 ? 0 : t / pp;     // this thread's first component
+  const int cell = t - c0 * pp;
   const int k = blockIdx.x * cpb + lc;
-  const bool active = lc < cpb && k < b;
-  float* sd = smem + (active ? lc : 0) * canvas_floats(p);  // [48][pp]
-  float* ub = sd + 48 * pp;                                  // [2][pp]
-  float* es = ub + 2 * pp;                                   // [pp]
-  float* rs = es + pp;                                       // [p]
+  const bool canvas = lc < cpb && k < b;
+  const bool active = canvas && t < (2 / NC) * pp;
+  float* sd = smem + (lc < cpb ? lc : 0) * canvas_floats(p);  // [2][24][pp]
+  float* ub = sd + 48 * pp;                                   // [2][pp]
+  float* un = ub + 2 * pp;                                    // [2][pp]
+  float* ec = un + 2 * pp;                                    // [2][pp]
+  float* flag = ec + 2 * pp;                                  // [1]
   const int r = cell / p, c = cell - r * p;
   const long long plane = (long long)b * pp;
   const long long ci = (long long)k * pp + cell;
   const float theta = a.scal[0], tau = a.scal[1], tol2 = a.scal[2];
+  const bool leader = canvas && t == 0;
 
-  float u1 = 0.0f, u2 = 0.0f, v1 = 0.0f, v2 = 0.0f, gx = 0.0f, gy = 0.0f,
-        g = 0.0f, rc = 0.0f, wt = 1.0f, lt = 0.0f, npx = 1.0f;
+  float u[NC], v[NC];
+  float gx = 0.0f, gy = 0.0f, g = 0.0f, rc = 0.0f, wt = 1.0f, lt = 0.0f,
+        npx = 1.0f;
   float w[kNd];
-  bool inbox = false;
+  int bh = 0, bw = 0;
+#pragma unroll
+  for (int q = 0; q < NC; ++q) u[q] = v[q] = 0.0f;
+  if (canvas) {
+    bh = a.ph[k];
+    bw = a.pw[k];
+    npx = (float)(bh * bw);
+  }
   if (active) {
-    u1 = a.u1[ci];
-    u2 = a.u2[ci];
-    v1 = a.v1[ci];
-    v2 = a.v2[ci];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int cc = c0 + q;
+      u[q] = (cc == 0 ? a.u1 : a.u2)[ci];
+      v[q] = (cc == 0 ? a.v1 : a.v2)[ci];
+      ub[cc * pp + cell] = u[q];
+      un[cc * pp + cell] = u[q];
+#pragma unroll
+      for (int j = 0; j < kNd; ++j)
+        sd[(cc * kNd + j) * pp + cell] =
+            a.duals_in ? a.duals_in[(cc * kNd + j) * plane + ci] : 0.0f;
+    }
     gx = a.i1wx[ci];
     gy = a.i1wy[ci];
     g = a.grad[ci];
     rc = a.rho_c[ci];
     wt = a.wt[ci];
     lt = lt_cells ? a.lt[ci] : a.lt[0];
-    const int bh = a.ph[k], bw = a.pw[k];
-    inbox = r < bh && c < bw;
-    npx = (float)(bh * bw);
 #pragma unroll
-    for (int j = 0; j < kNd; ++j) {
-      w[j] = a.wp[j * plane + ci];
-      sd[j * pp + cell] = a.duals_in ? a.duals_in[j * plane + ci] : 0.0f;
-      sd[(kNd + j) * pp + cell] =
-          a.duals_in ? a.duals_in[(kNd + j) * plane + ci] : 0.0f;
-    }
-    ub[cell] = u1;
-    ub[pp + cell] = u2;
+    for (int j = 0; j < kNd; ++j) w[j] = a.wp[j * plane + ci];
   } else {
 #pragma unroll
     for (int j = 0; j < kNd; ++j) w[j] = 0.0f;
   }
-  float err = __int_as_float(0x7f800000);  // +inf: every canvas runs once
+  if (leader) flag[0] = max_iters > 0 ? 1.0f : 0.0f;   // err = +inf
   int n = 0;
   for (int it = 0; it < max_iters; ++it) {
-    const bool run = active && err > tol2 && n < max_iters;
-    // the barrier that publishes u_bar (and the duals) of the last step
-    if (!__syncthreads_or(run)) break;
-    float nv1 = 0.0f, nv2 = 0.0f;
+    // the barrier that publishes u_bar, u, the duals and the run flags of
+    // the last step
+    if (!__syncthreads_or(leader && flag[0] != 0.0f)) break;
+    const bool run = active && flag[0] != 0.0f;
+    float nv[NC];
     if (run) {
+      const float u1 = (NC == 2 || c0 == 0) ? u[0] : un[cell];
+      const float u2 = NC == 2 ? u[NC - 1] : (c0 == 1 ? u[0] : un[pp + cell]);
+      float nv1, nv2;
       threshold(u1, u2, rc, gx, gy, g, lt, &nv1, &nv2);
-      const float b1 = ub[cell], b2 = ub[pp + cell];
 #pragma unroll
-      for (int j = 0; j < kNd; ++j) {
-        const int rr = r + off_dy(j), cc = c + off_dx(j);
-        const bool in = rr >= 0 && rr < p && cc >= 0 && cc < p;
-        const float n1 = in ? ub[rr * p + cc] : 0.0f;
-        const float n2 = in ? ub[pp + rr * p + cc] : 0.0f;
-        float* s1 = sd + j * pp + cell;
-        float* s2 = sd + (kNd + j) * pp + cell;
-        *s1 = dual_step(*s1, w[j], b1, n1, wt, tau);
-        *s2 = dual_step(*s2, w[j], b2, n2, wt, tau);
+      for (int q = 0; q < NC; ++q) {
+        const int cc = c0 + q;
+        nv[q] = cc == 0 ? nv1 : nv2;
+        const float* ubc = ub + cc * pp;
+        const float bc = ubc[cell];
+        float* sdc = sd + cc * kNd * pp + cell;
+#pragma unroll
+        for (int j = 0; j < kNd; ++j) {
+          if (!(w[j] > 0.0f)) continue;   // dual_step keeps s: skip it
+          const int rr = r + off_dy(j), cx = c + off_dx(j);
+          const bool in = rr >= 0 && rr < p && cx >= 0 && cx < p;
+          const float nb = in ? ubc[rr * p + cx] : 0.0f;
+          sdc[j * pp] = dual_step(sdc[j * pp], w[j], bc, nb, wt, tau);
+        }
       }
     }
     __syncthreads();
-    float nu1 = 0.0f, nu2 = 0.0f;
     if (run) {
-      float d1 = 0.0f, d2 = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kNd; ++j) {
-        const int rr = r + off_dy(j), cc = c + off_dx(j);
-        const bool in = rr >= 0 && rr < p && cc >= 0 && cc < p;
-        const int m = kNd - 1 - j;
-        const float n1 = in ? sd[m * pp + rr * p + cc] : 0.0f;
-        const float n2 = in ? sd[(kNd + m) * pp + rr * p + cc] : 0.0f;
-        d1 = d1 + w[j] * (sd[j * pp + cell] - n1);
-        d2 = d2 + w[j] * (sd[(kNd + j) * pp + cell] - n2);
+      for (int q = 0; q < NC; ++q) {
+        const int cc = c0 + q;
+        const float* sdc = sd + cc * kNd * pp;
+        float d = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kNd; ++j) {
+          const int rr = r + off_dy(j), cx = c + off_dx(j);
+          const bool in = rr >= 0 && rr < p && cx >= 0 && cx < p;
+          const float nb = in ? sdc[(kNd - 1 - j) * pp + rr * p + cx] : 0.0f;
+          d = d + w[j] * (sdc[j * pp + cell] - nb);
+        }
+        const float nu = u[q] - tau * (d + (u[q] - nv[q]) / theta);
+        ec[cc * pp + cell] = nu - u[q];
+        un[cc * pp + cell] = nu;
+        ub[cc * pp + cell] = 2.0f * nu - u[q];
+        u[q] = nu;
+        v[q] = nv[q];
       }
-      nu1 = u1 - tau * (d1 + (u1 - nv1) / theta);
-      nu2 = u2 - tau * (d2 + (u2 - nv2) / theta);
-      const float e1 = nu1 - u1, e2 = nu2 - u2;
-      es[cell] = inbox ? e1 * e1 + e2 * e2 : 0.0f;
-    }
-    __syncthreads();
-    if (run && cell < p) {  // canvas_sum: each row over its columns
-      float s = es[cell * p];
-      for (int cc = 1; cc < p; ++cc) s = s + es[cell * p + cc];
-      rs[cell] = s;
-    }
-    __syncthreads();
-    if (run) {  // then over the rows; every cell of the canvas alike
-      float t = rs[0];
-      for (int rr = 1; rr < p; ++rr) t = t + rs[rr];
-      err = t / npx;
-      ub[cell] = 2.0f * nu1 - u1;
-      ub[pp + cell] = 2.0f * nu2 - u2;
-      u1 = nu1;
-      u2 = nu2;
-      v1 = nv1;
-      v2 = nv2;
       ++n;
+    }
+    __syncthreads();
+    if (run && t < p) {   // canvas_sum: row t over its columns, one warp
+      float s = 0.0f;
+      for (int cx = 0; cx < p; ++cx) {
+        const float e1 = ec[t * p + cx], e2 = ec[pp + t * p + cx];
+        const float es = t < bh && cx < bw ? e1 * e1 + e2 * e2 : 0.0f;
+        s = cx == 0 ? es : s + es;
+      }
+      const unsigned mask = p == 32 ? 0xffffffffu : (1u << p) - 1u;
+      float tot = __shfl_sync(mask, s, 0);   // then over the rows
+      for (int rr = 1; rr < p; ++rr) tot = tot + __shfl_sync(mask, s, rr);
+      const float err = tot / npx;
+      if (t == 0) flag[0] = err > tol2 && n < max_iters ? 1.0f : 0.0f;
     }
   }
   if (!active) return;
-  a.u1o[ci] = u1;
-  a.u2o[ci] = u2;
-  a.v1o[ci] = v1;
-  a.v2o[ci] = v2;
-  if (cell == 0) a.iters[k] = n;
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int cc = c0 + q;
+    (cc == 0 ? a.u1o : a.u2o)[ci] = u[q];
+    (cc == 0 ? a.v1o : a.v2o)[ci] = v[q];
+  }
+  if (t == 0) a.iters[k] = n;
   if (a.duals_out) {
     // every thread of the canvas passed the last barrier of its loop, so its
     // duals are final (a canvas that left the loop early wrote none since)
 #pragma unroll
-    for (int j = 0; j < kNd; ++j) {
-      a.duals_out[j * plane + ci] = sd[j * pp + cell];
-      a.duals_out[(kNd + j) * plane + ci] = sd[(kNd + j) * pp + cell];
+    for (int q = 0; q < NC; ++q) {
+      const int cc = c0 + q;
+#pragma unroll
+      for (int j = 0; j < kNd; ++j)
+        a.duals_out[(cc * kNd + j) * plane + ci] = sd[(cc * kNd + j) * pp + cell];
     }
   }
 }
 
-template <int P>
-cudaError_t launch_patch(const PatchArgs& a, int b, int p, int cpb,
-                         int lt_cells, int max_iters, cudaStream_t st) {
-  const int threads = ((cpb * p * p + 31) / 32) * 32;
+template <int P, int NC>
+cudaError_t launch_patch(const PatchArgs& a, int b, int p, int lt_cells,
+                         int max_iters, cudaStream_t st) {
+  const int cs = canvas_threads(p, NC);
+  const int cpb = cs <= kPatchThreads ? kPatchThreads / cs : 1;
   const size_t smem = (size_t)cpb * canvas_floats(p) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nltv_patch_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nltv_patch_kernel<P, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   const unsigned grid = (unsigned)((b + cpb - 1) / cpb);
-  nltv_patch_kernel<P><<<grid, threads, smem, st>>>(a, b, p, cpb, lt_cells,
-                                                     max_iters);
+  nltv_patch_kernel<P, NC><<<grid, cpb * cs, smem, st>>>(a, b, p, cpb, lt_cells,
+                                                         max_iters);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // K6: u1 u2 u1b u2b wt i1wx i1wy grad rho_c (h, w) and sp sq wp (24, h, w),
-// all float32 on one device; the whole loop enqueued on the stream, two
-// launches an iteration.
+// all float32 on one device, wp symmetric (planes 0-11 are read); the whole
+// loop enqueued on the stream, two launches an iteration.
 extern "C" int faldoi_nltv_global_loop(
     float* u1, float* u2, float* u1b, float* u2b, const float* wt,
     const float* i1wx, const float* i1wy, const float* grad,
@@ -393,15 +476,10 @@ extern "C" int faldoi_nltv_patch_loop(
   if (p <= 0 || p * p > 1024) return (int)cudaErrorInvalidValue;
   PatchArgs a{u1, u2, v1, v2, i1wx, i1wy, grad, rho_c, wp, wt, lt, scal,
               ph, pw, duals_in, u1o, u2o, v1o, v2o, iters, duals_out};
-  const int cpb = p * p <= kPatchThreads ? kPatchThreads / (p * p) : 1;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (p == 11)
-    e = launch_patch<11>(a, b, p, cpb, lt_cells, max_iters, st);
-  else if (p == 3)
-    e = launch_patch<3>(a, b, p, cpb, lt_cells, max_iters, st);
-  else
-    e = launch_patch<0>(a, b, p, cpb, lt_cells, max_iters, st);
-  return (int)e;
+  if (p == 11) return (int)launch_patch<11, 1>(a, b, p, lt_cells, max_iters, st);
+  if (p == 3) return (int)launch_patch<3, 1>(a, b, p, lt_cells, max_iters, st);
+  if (2 * p * p <= 1024)
+    return (int)launch_patch<0, 1>(a, b, p, lt_cells, max_iters, st);
+  return (int)launch_patch<0, 2>(a, b, p, lt_cells, max_iters, st);
 }
-

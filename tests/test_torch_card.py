@@ -457,10 +457,12 @@ def _k6_state(dev, h, w, seed):
             gx * gx + gy * gy, t(h, w, s=0.1)]
 
 
-@pytest.mark.parametrize("h,w,iters", [(61, 83, 1), (97, 131, 7), (5, 7, 3)])
+@pytest.mark.parametrize("h,w,iters", [(61, 83, 1), (97, 131, 7), (5, 7, 3),
+                                       (17, 300, 4)])
 def test_k6_matches_twin_on_card(dev, h, w, iters):
     """K6 (two launches an iteration) against its twin on the card, bit for
-    bit, state updated in place."""
+    bit, state updated in place; shapes that are no multiple of its 32x8
+    tiles, one smaller than a tile."""
     from faldoi_tpu_torch.core.global_step_nltv import (
         nltv_global_loop, nltv_global_loop_plain,
     )
@@ -476,9 +478,38 @@ def test_k6_matches_twin_on_card(dev, h, w, iters):
     assert not torch.equal(got[0], _k6_state(dev, h, w, 92 + h)[0])
 
 
-def _k7_inputs(sc, dev, p, b, method, seed):
+def test_k6_reads_only_the_mirrored_weights_on_card(dev):
+    """K6 reads weight planes 0-11 and takes w_j, j >= 12, from plane 23 - j
+    at x + d_j: fed weights that are not symmetric it disagrees with its
+    twin, which reads all 24 planes, and agrees with the twin fed the
+    mirrored weights.  The wrapper's precondition shows when broken."""
+    from faldoi_tpu_torch.core.global_step_nltv import (
+        OFFS, nltv_global_loop, nltv_global_loop_plain,
+    )
+    from faldoi_tpu_torch.ops.nonlocal_ops import shift_each
+
+    st = _k6_state(dev, 61, 83, 98)
+    wp = st[6].clone()
+    wp[12:] = wp[12:] * 1.5                  # no longer the mirror of 0-11
+    mirrored = wp.clone()
+    mirrored[12:] = shift_each(wp.flip(0), OFFS)[12:]
+    got, want, same = ([x.clone() for x in st] for _ in range(3))
+    got[6], want[6], same[6] = wp, wp, mirrored
+    nltv_global_loop(*got, 0.6, 0.3, 0.1, 3)
+    nltv_global_loop_plain(*want, 0.6, 0.3, 0.1, 3)
+    nltv_global_loop_plain(*same, 0.6, 0.3, 0.1, 3)
+    assert not all(torch.equal(x, y) for x, y in zip(got[:6], want[:6]))
+    for x, y in zip(got[:6], same[:6]):
+        assert torch.equal(x, y)
+
+
+def _k7_inputs(sc, dev, p, b, method, seed, case="random"):
     """K7's arguments at B canvases of side p from the solver's own
-    stages: weights cropped by K0, warp constants from K4's patch form."""
+    stages: weights cropped by K0, warp constants from K4's patch form.
+    ``case`` "edges" puts the first eight patches at the image's corners
+    and edges (boxes clamped, ph, pw < p); "freeze" gives every lane flat
+    data and a near-constant flow, so each meets tol^2 after one
+    iteration."""
     from faldoi_tpu_torch.core.functionals import _weight2d, nltv_crop_weights
     from faldoi_tpu_torch.core.local_step import patch_geometry
     from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
@@ -487,6 +518,9 @@ def _k7_inputs(sc, dev, p, b, method, seed):
     h, w = sc.i1.shape
     rng = np.random.default_rng(seed)
     idx = torch.as_tensor(rng.integers(0, h * w, b), device=dev)
+    if case == "edges":
+        idx[:8] = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w, 3, 2 * w,
+                                   3 * w - 1, (h - 1) * w + 7], device=dev)
     i, j, oy, ox, ph, pw = patch_geometry(idx, h, w, p // 2)
     box = [x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw)]
     scale = torch.linspace(0, 1, b, device=dev)[:, None, None]
@@ -499,23 +533,36 @@ def _k7_inputs(sc, dev, p, b, method, seed):
     if method == 3:
         rows, cols = canvas_ids(p, dev)
         l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy, ox, j, i, p // 2)).contiguous()
-    return [u1, u2, u1, u2, None, gx, gy, gx * gx + gy * gy,
-            (i1w - gx * u1 - gy * u2).contiguous(), wp, wt, l_t, box[2], box[3],
-            sc.theta, sc.tau, sc.tol * sc.tol]
+    rho_c = (i1w - gx * u1 - gy * u2).contiguous()
+    if case == "freeze":
+        u1, u2, rho_c = (torch.as_tensor(rng.normal(0, s, (b, p, p)).astype(np.float32),
+                                         device=dev) for s in (0.02, 0.02, 0.1))
+        gx, gy = torch.zeros_like(u1), torch.zeros_like(u1)
+    return [u1, u2, u1, u2, None, gx, gy, gx * gx + gy * gy, rho_c, wp, wt,
+            l_t, box[2], box[3], sc.theta, sc.tau, sc.tol * sc.tol]
 
 
-@pytest.mark.parametrize("p,b,method,duals", [
-    (11, 300, 2, "none"), (11, 300, 3, "in"), (3, 500, 2, "in"),
-    (3, 131, 3, "none"), (11, 1, 2, "none")])
-def test_k7_matches_twin_on_card(dev, p, b, method, duals):
+@pytest.mark.parametrize("p,b,method,duals,case", [
+    (11, 300, 2, "none", "random"), (11, 300, 3, "in", "random"),
+    (3, 500, 2, "in", "random"), (3, 131, 3, "none", "random"),
+    (11, 1, 2, "none", "random"), (11, 300, 2, "none", "edges"),
+    (3, 131, 3, "in", "edges"), (11, 300, 2, "none", "freeze"),
+    (3, 500, 3, "none", "freeze"), (7, 150, 2, "in", "random"),
+    (23, 40, 3, "none", "random")])
+def test_k7_matches_twin_on_card(dev, p, b, method, duals, case):
     """K7 against its twin on the card, bit for bit: outputs, iteration
-    counts (lanes freeze at different counts) and the duals it keeps."""
+    counts (lanes freeze at different counts, or all after one) and the
+    duals it keeps; boxes clamped at the image edge (ph, pw < p); a side
+    compiled for no size (7: two threads a cell) and one too large for two
+    threads a cell (23: one)."""
     from faldoi_tpu_torch.core.functionals import (
         nltv_patch_loop, nltv_patch_loop_plain,
     )
 
-    sc, _, _ = _nltv_consts(dev, 40, 56, method)
-    args = _k7_inputs(sc, dev, p, b, method, 93 + p + b)
+    sc, _, _ = _nltv_consts(dev, 40, 56, method, p=max(p, 11))
+    args = _k7_inputs(sc, dev, p, b, method, 93 + p + b, case)
+    if case == "edges":
+        assert bool((args[12] < p).any()) and bool((args[13] < p).any())
     if duals == "in":
         rng = np.random.default_rng(94)
         args[4] = torch.as_tensor(rng.normal(0, 0.05, (2, 24, b, p, p))
@@ -526,7 +573,9 @@ def test_k7_matches_twin_on_card(dev, p, b, method, duals):
     want = nltv_patch_loop_plain(*args, 6, keep_duals=True)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    if b > 100:
+    if case == "freeze":
+        assert set(got[4].tolist()) == {1}
+    elif b > 100:
         assert len(set(got[4].tolist())) > 1
     # no duals kept: the same results, and None
     again = nltv_patch_loop(*args, 6)

@@ -82,6 +82,44 @@ def test_nltv_weights_match_jax(frames, ws, wi):
     assert (got[0][:, 0, 0] == 0).sum() == 24 - 8
 
 
+def _mirrored(wp):
+    """Plane j of w_{23-j}(x + d_j), zero where x + d_j leaves the grid: the
+    weights K6 reads for j >= 12 (any leading dims of ``wp`` after the 24)."""
+    from faldoi_tpu_torch.ops.nonlocal_ops import neighbor_offsets, shift_each
+
+    return shift_each(wp.flip(0), neighbor_offsets(2))
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("global", (37, 51)), ("global", (40, 56)), ("local", (37, 51)),
+    ("local", (40, 56)), ("crop11", (37, 51)), ("crop3", (37, 51))])
+def test_weights_are_symmetric(frames, kind, shape):
+    """w_j(x) == w_{23-j}(x + d_j) bit for bit, which K6 relies on to read
+    only weight planes 0-11: the global weights (scales 2 / 5), the local
+    ones (2 / 2) on seeded frames of an odd and an even shape, and the
+    box-masked crops of ``nltv_crop_weights`` on boxes clamped at the image
+    edge (ph, pw < P)."""
+    from faldoi_tpu_torch.core.functionals import make_solver_consts, nltv_crop_weights
+    from faldoi_tpu_torch.core.global_step_nltv import global_weights
+    from faldoi_tpu_torch.ops.nonlocal_ops import nltv_weights, rgb_to_lab_np
+
+    h, w = shape
+    i0 = np.random.default_rng(61 + h).uniform(0, 255, (3, h, w)).astype(np.float32)
+    if kind == "global":
+        wp = global_weights(i0, "cpu")[0]
+    elif kind == "local":
+        wp = T(nltv_weights(rgb_to_lab_np(i0), 2, 2.0, 2.0)[0])
+    else:
+        p = int(kind[4:])
+        sc = make_solver_consts(frames["a"], frames["b"], 2.0, 0.3, 0.1, 0.01,
+                                11, P.M_NLTVL1, i0_planes=frames["i0"])
+        (_, _, oy, ox, ph, pw), _, _ = _patches(p, 64, 62 + p)
+        wp = nltv_crop_weights(sc.wp_pad, *map(T, (oy, ox, ph, pw)), p)[0]
+        assert (ph < p).any() and (pw < p).any()
+    assert bool((wp > 0).any())
+    assert torch.equal(wp.view(torch.int32), _mirrored(wp).view(torch.int32))
+
+
 def _operator_inputs(frames, seed):
     from faldoi_tpu_torch.ops.nonlocal_ops import nltv_weights, rgb_to_lab_np
 

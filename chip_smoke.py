@@ -8,8 +8,11 @@ network.  It builds the hand-written kernels from ``faldoi_tpu_torch/csrc``
 (one nvcc per source, in parallel), holds each against its plain PyTorch
 twin at its path's shapes, runs crops of the synthetic pair through the port
 on the CPU (the twins, which the tests hold against JAX) and on the card —
-methods 0 and 2 with the warm requeue, methods 1 and 3 with the cold one —
-and then drives four paths, each with the kernels' launch counts set to 0
+methods 0, 2, 4 and 6 with the warm requeue, methods 1, 3, 5 and 7 with the
+cold one, at 96x128 (methods 0-3) and 48x64 (the CSAD methods 4-7); the CPU
+runs go in eight child processes, one thread each, started at once beside
+the card's phases, and the CSAD crops must give the card's flows exactly —
+and then drives five paths, each with the kernels' launch counts set to 0
 just before it and read just after:
 
 * the m0 main path at 436x1024 — seeds -> local growing -> global
@@ -20,6 +23,9 @@ just before it and read just after:
   ``local_faldoi -m 2`` then ``global_faldoi -m 2``, from the same seeds on
   the pair written as ``.npy`` frames: K0 crops the 24 weight planes, K7
   runs the patch PD loops and K6 the global ones;
+* the m4 (TV-CSAD) path the same way, ``local_faldoi -m 4`` then
+  ``global_faldoi -m 4``: K8 (the CSAD median prox) runs the v-step of every
+  patch PD iteration and of every global PD iteration;
 * the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
 * the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
@@ -43,8 +49,13 @@ bit to its twin on one 400-iteration warp at 436x1024 (its log line gives
 the streamed floor beside the bound: the state through device memory once
 an iteration), K7
 (the patch NLTV loop) at B 8192 and 1900 (P 11) and at the seed count (P 3),
-methods 2 and 3, then timed per call on the m2 local step's own arguments,
-and K0's planes form on the 24 weight planes at the same shapes.  The m0
+methods 2 and 3, and K0's planes form on the 24 weight planes at the same
+shapes.  K8 is held bit for bit to its twin in its whole-image form at
+436x1024 (a corner pixel has 15 neighbours) and 5x7, and in its patch form
+at P 11 with B 8192, 1 and 1900 on boxes clipped at the image edge (out-of-box
+cells: NaN and +-inf included) and, after the paths, at the m4 path's median
+B; it is timed beside its twin and beside ``torch.sort`` + ``gather`` of the
+97 stacked entries (no single PyTorch call selects a per-cell rank).  The m0
 and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
@@ -71,9 +82,10 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "launches_m2", "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
+EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_sift",
+         "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
-         "ms_spread", "library_spread", "shapes", "path_calls")
+         "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -82,9 +94,19 @@ KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
 # tests/test_torch_m1_global_iters.py)
 ITERS_M0 = [400, 111, 133, 115, 160]
 ITERS_SIFT = [400] * 5
-# the kernels whose main path is the m2 one (every other kernel's is the
-# faldoi_sift path, and it runs on the m0 path too)
+# the kernels whose main path is the m2 one, and the m4 one (every other
+# kernel's is the faldoi_sift path, and it runs on the m0 path too)
 M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
+M4_KERNELS = ("csad_vstep",)
+# the CPU-vs-card crops of methods 4-7: smaller than CROP, as their CPU
+# twins (the 97-entry sort, the exact raster fill) take ~2 min at 48x64 on
+# one thread
+CSAD_CROP = (48, 64)
+# every crop (method, warm band, shape); their CPU twins run in child
+# processes, one thread each, beside the card's phases
+CROPS = ((0, 10, CROP), (1, 0, CROP), (2, 10, CROP), (3, 0, CROP),
+         (4, 10, CSAD_CROP), (5, 0, CSAD_CROP), (6, 10, CSAD_CROP),
+         (7, 0, CSAD_CROP))
 
 
 def log(msg):
@@ -438,7 +460,8 @@ def solver_patches(dev, rng, b, p=11, centres=False):
     from faldoi_tpu_torch.core.local_step import patch_geometry
 
     idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
-    idx[:5] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W], device=dev)
+    idx[:5] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W, H * W],
+                              device=dev)[:b]
     ci, cj, oy, ox, ph, pw = patch_geometry(idx, H, W, p // 2)
     u, v = smooth_flow(rng, noise=0.3)
     ar = torch.arange(p, device=dev)
@@ -737,57 +760,11 @@ def k7_nbytes(b, p, lt_cells):
     return b * p * p * 4 * (8 + 24 + 1 + (1 if lt_cells else 0) + 4) + b * 12
 
 
-def k7_path_calls(frames):
-    """``local_faldoi -m 2`` at full width, as the m2 path runs it, with each
-    K7 call timed on its own arguments (a CUDA graph of 10 calls, after the
-    call itself) beside its bound.  Returns the calls' (B, ms, bound_ms).
-
-    It wraps K7 by rebinding ``functionals.nltv_patch_loop`` for the run, so
-    it relies on ``_solve_nltv_family`` looking the wrapper up through its
-    module at each call (and on the wrapper counting its launches on that
-    name)."""
-    from faldoi_tpu_torch.cli import local_faldoi
-    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
-    from faldoi_tpu_torch.core import functionals
-    from faldoi_tpu_torch.io.flo import write_flo
-
-    wrapper, calls = functionals.nltv_patch_loop, []
-
-    def timed(*args, **kw):
-        out = wrapper(*args, **kw)
-        b, p = args[0].shape[0], args[0].shape[-1]
-        least = bound(k7_nbytes(b, p, args[11].dim() != 0),
-                      int(out[4].sum()) * p * p * K7_OPS)
-        calls.append((b, cuda_ms(lambda: wrapper(*args, **kw), reps=10, warmup=1,
-                                 graph=True), least["bound_ms"]))
-        return out
-
-    # the wrapper counts its launches on its module's name, which is ours now
-    timed.launches = 0
-    functionals.nltv_patch_loop = timed
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            ims = write_frames(tmp, *frames[:2])
-            seeds = [os.path.join(tmp, f"{k}.flo") for k in ("go", "ba")]
-            for path, seed in zip(seeds, frames[2:]):
-                write_flo(path, seed)
-            rc = local_faldoi.main([ims, *seeds, os.path.join(tmp, "rg.flo"),
-                                    os.path.join(tmp, "sim.tiff"), "-m", "2", "-bsz",
-                                    str(BSZ), "-device", "cuda"])
-    finally:
-        functionals.nltv_patch_loop = wrapper
-    if rc != 0:
-        raise AssertionError(f"local_faldoi -m 2 exited {rc}")
-    return calls
-
-
-def check_k7(dev, rng, scs, n_seeds, frames):
+def check_k7(dev, rng, scs, n_seeds):
     """K7 at the solver's shapes: P 11 at B 8192 (methods 2 and 3) and 1900,
     P 3 at the seed count (methods 2 and 3), from the solver's own stages
     (K0's source and weight crops, K4's patch form), bit for bit against its
-    twin on the card (canvases, iteration counts); timed.  Then timed per
-    call on the m2 path's local step (``frames``: I0, I1 and the two seed
-    flows), where launches x (ms - bound) sums its loss.  The record is the
+    twin on the card (canvases, iteration counts); timed.  The record is the
     first row's."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.functionals import (
@@ -835,31 +812,145 @@ def check_k7(dev, rng, scs, n_seeds, frames):
             f"counts {row['iterations']}); kernel {row['ms']:.4f} ms  twin "
             f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
-    calls = k7_path_calls(frames)
-    bs = sorted(c[0] for c in calls)
-    path = dict(calls=len(calls), b_min=bs[0], b_median=bs[len(bs) // 2],
-                b_max=bs[-1], sum_b=sum(bs), sum_ms=sum(c[1] for c in calls))
-    least = sum(c[2] for c in calls)
-    log(f"K7 per call on the m2 path's local step: {json.dumps(path)}; bounds "
-        f"sum to {least:.4f} ms, launches x (ms - bound) {path['sum_ms'] - least:.4f}"
-        f" ms; B of each call in order: {[c[0] for c in calls]}")
     return dict(name="nltv_patch_loop", route="cuda",
                 source="faldoi_tpu_torch/csrc/nltv.cu",
                 replaces="faldoi_tpu/core/functionals.py:448", library_ms=None,
                 **{k: v for k, v in rows_out[0].items() if k != "iterations"},
-                shapes=rows_out, path_calls=path)
+                shapes=rows_out)
+
+
+# K8's float operations a cell: dot 4, the n entries 2 each, the n + 1
+# products 2 each, the merge walk's n + 2 comparisons, the v-step 6
+def k8_ops(ncount):
+    return int((5 * ncount + 14).sum())
+
+
+def k8_bytes(cells, lt_cells=False, boxes=0):
+    """K8's bytes a call: 48 b planes and u1, u2, i1wx, i1wy, denom read
+    once (and l_t where it is one a cell), v1, v2 written once, the boxes."""
+    return cells * 4 * (48 + 5 + (1 if lt_cells else 0) + 2) + boxes * 8
+
+
+def k8_patch_args(dev, rng, sc, b, weighted=False):
+    """K8's patch-form call as the m4 solver makes it: B canvases of P 11
+    from ``solver_patches`` (boxes clipped at the image edge: out-of-box
+    cells, with no neighbour), the source crop (K0), the warp (K4), grad at
+    the TV-CSAD floor, the breakpoints; l_t one value, or one a cell."""
+    from faldoi_tpu_torch.core.functionals import _weight2d
+    from faldoi_tpu_torch.core.pd_common import hypot
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+    from faldoi_tpu_torch.ops.csad import canvas_masks, csad_b
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, b, 11, centres=True)
+    i1w, gx, gy = bicubic_sample_patches(sc.i1_stack, oy, ox, ph, pw, u1, u2, 3)
+    i0p = gather_patches(sc.i0pad[:, :, None], oy, ox, 11)[:, :, 0, :].permute(2, 0, 1)
+    grad = hypot(gx * gx + gy * gy, 0.01).contiguous()
+    m, n = canvas_masks(ph, pw, 11)
+    bb = csad_b(i0p, i1w, gx, gy, u1, u2, grad, m)
+    l_t = sc.lambda_ * sc.theta
+    if weighted:
+        rows, cols = canvas_ids(11, dev)
+        l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy.long(), ox.long(), cj, ci,
+                               5)).contiguous()
+    return (u1, u2, bb, gx.contiguous(), gy.contiguous(), grad, l_t, m, n, ph, pw)
+
+
+def k8_row(shape, args, patch):
+    """K8 on one call's arguments: bit for bit against its twin (NaN and
+    +-inf of out-of-box cells included), timed (a CUDA graph of 20 calls)
+    beside the twin and beside ``torch.sort`` + ``gather`` of the stacked
+    entries (the twin's core; no single PyTorch call selects a per-cell
+    rank).  Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.csad import csad_vstep, csad_vstep_plain
+
+    u1, u2, bb, gx, gy, grad, l_t, m, n = args[:9]
+    got = csad_vstep(*args)
+    want = csad_vstep_plain(*args[:9])
+    torch.cuda.synchronize()
+    if not all(same_bits(x, y) for x, y in zip(got, want)):
+        d = max(torch.nan_to_num((x - y).abs(), nan=9.0).max().item()
+                for x, y in zip(got, want))
+        raise AssertionError(f"K8 {shape} differs from its twin (max abs {d})")
+    dot = (gx * u1 + gy * u2) / grad
+    inf = torch.full((), float("inf"), device=u1.device)
+    jidx = torch.arange(49, dtype=torch.float32, device=u1.device).view(
+        (-1,) + (1,) * u1.dim())
+    ent = torch.cat([torch.where(m, -(bb - dot), inf),
+                     torch.where(jidx <= n, (n - 2.0 * jidx) * (l_t * grad), inf)])
+    sel = (n + 1.0).to(torch.int64)[None]
+    lt_cells = isinstance(l_t, torch.Tensor) and l_t.dim() != 0
+    row = dict(shape=shape, max_abs_err=0.0,
+               ms=cuda_ms(lambda: csad_vstep(*args), graph=True),
+               plain_ms=cuda_ms(lambda: csad_vstep_plain(*args[:9]), reps=5),
+               sort_ms=cuda_ms(lambda: torch.sort(ent, dim=0).values.gather(0, sel),
+                               reps=5),
+               nonfinite=int((~torch.isfinite(got[0])).sum()),
+               **bound(k8_bytes(u1.numel(), lt_cells, u1.shape[0] if patch else 0),
+                       k8_ops(n)))
+    log(f"K8 csad_vstep {shape}: bit-exact (non-finite cells "
+        f"{row['nonfinite']}); kernel {row['ms']:.4f} ms  twin {row['plain_ms']:.4f} "
+        f"ms  torch.sort + gather of the 97 entries {row['sort_ms']:.4f} ms  bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def check_k8(dev, rng, a, b, gf, scs):
+    """K8 in both forms against its twin, bit for bit: the whole-image form
+    at 436x1024 from a warp of the synthetic pair (TV-CSAD's grad and
+    breakpoints; a corner pixel has n = 15) and at a ragged 5x7; the patch
+    form at P 11 from the m4 and m5 solvers' stages (``scs``: their consts
+    by method) at B 8192, 1 and a ragged 1900 (the last m5's, with its
+    per-cell l_t, the window), on boxes clipped at the image edge.  The
+    record is 436x1024's."""
+    from faldoi_tpu_torch.core.pd_common import hypot
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
+    from faldoi_tpu_torch.ops.csad import csad_b, image_masks
+    from faldoi_tpu_torch.ops.stencils import centered_gradient
+
+    flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
+                           device=dev)
+    u1, u2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    i1x, i1y = centered_gradient(b)
+    i1w, gx, gy = bicubic_warp_stack(torch.stack([b, i1x, i1y]), u1, u2, True)
+    gx, gy = gx.contiguous(), gy.contiguous()
+    grad = hypot(gx * gx + gy * gy, 0.01).contiguous()
+    m, n = image_masks(H, W, dev)
+    l_t = float(np.float32(0.85) * np.float32(0.3))
+    args = (u1, u2, csad_b(a, i1w, gx, gy, u1, u2, grad, m), gx, gy, grad, l_t,
+            m, n)
+    rows = [k8_row(f"{H}x{W}", args, False)]
+    corner = int(n[0, 0])
+    if corner != 15:
+        raise AssertionError(f"K8: the corner pixel has n {corner}, expected 15")
+    small = [torch.as_tensor(rng.normal(0, s, (5, 7)).astype(np.float32), device=dev)
+             for s in (0.3, 0.3, 0.05, 0.05, 2.0, 2.0)]
+    i0s, i1ws, gxs, gys, u1s, u2s = small
+    gs = hypot(gxs * gxs + gys * gys, 0.01)
+    ms, ns = image_masks(5, 7, dev)
+    rows.append(k8_row("5x7", (u1s, u2s, csad_b(i0s, i1ws, gxs, gys, u1s, u2s, gs,
+                                                 ms), gxs, gys, gs, l_t, ms, ns),
+                       False))
+    for bsz, weighted in ((BSZ, False), (1, False), (1900, True)):
+        rows.append(k8_row(f"P 11 B {bsz}" + (" m5, per-cell l_t" if weighted else ""),
+                           k8_patch_args(dev, rng, scs[5 if weighted else 4], bsz,
+                                         weighted), True))
+    return dict(name="csad_vstep", route="cuda",
+                source="faldoi_tpu_torch/csrc/csad.cu",
+                replaces="faldoi_tpu/core/global_step_csad.py:68",
+                library_ms=None, corner_n=corner, shapes=rows,
+                **{k: v for k, v in rows[0].items() if k != "nonfinite"})
 
 
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
-    """The port's main path: prepare_pair -> match_growing -> tvl2_global
-    (the global step of methods 0 and 1) or nltvl1_global (2 and 3), five
-    warps."""
+    """The port's main path: prepare_pair -> match_growing -> the method's
+    global step (``models.global_refine``), five warps."""
     from faldoi_tpu_torch import params as P
-    from faldoi_tpu_torch.core.global_step import tvl2_global
-    from faldoi_tpu_torch.core.global_step_nltv import nltvl1_global
     from faldoi_tpu_torch.core.match_growing import match_growing
     from faldoi_tpu_torch.core.preprocess import prepare_pair
-    from faldoi_tpu_torch.models import method_global_params
+    from faldoi_tpu_torch.models import global_refine
 
     dev = torch.device(device)
     t0 = time.perf_counter()
@@ -869,12 +960,11 @@ def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
     flow, _, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
                                warm_band=warm_band, i0_planes=i0, i1_planes=i1)
     t1 = time.perf_counter()
-    f1, f2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
-    if method in (2, 3):
-        lam, theta, tau = method_global_params(method, prm)
-        u1, u2 = nltvl1_global(a, b, i0, f1, f2, lam, theta, tau, 5, stats=stats)
-    else:
-        u1, u2 = tvl2_global(a, b, f1, f2, stats=stats)
+    prm = P.Parameters()
+    prm.warps = P.PAR_DEFAULT_NWARPS_GLOBAL
+    u1, u2 = global_refine(method, a, b, flow[..., 0].contiguous(),
+                           flow[..., 1].contiguous(), prm, stats=stats,
+                           i0_planes=i0)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stats["seconds"]["global"] = time.perf_counter() - t1
@@ -894,17 +984,43 @@ def write_frames(tmp, i0, i1):
     return ims
 
 
-def run_m2_path(i0, i1, go, ba, gf, wrappers):
-    """``local_faldoi -m 2`` then ``global_faldoi -m 2`` on the card, from
-    the golden-position seeds on the pair written as ``.npy`` frames;
-    checks the final flow and returns the launches of ``wrappers`` on this
-    path, with K0's planes-form launches on the 24 weight planes under
-    ``gather_plane_patches_c24``."""
+class k8_calls:
+    """While active, keeps the batch size of every patch-form K8 call the
+    CSAD solvers make (``functionals.csad_vstep``), so that the kernel can be
+    timed at the path's typical B afterwards.  Launches are counted as
+    ever (by the wrapper it calls)."""
+
+    def __enter__(self):
+        from faldoi_tpu_torch.core import functionals
+
+        self.sizes, self.inner = [], functionals.csad_vstep
+
+        def keep(*args, **kw):
+            self.sizes.append(args[0].shape[0])
+            return self.inner(*args, **kw)
+
+        functionals.csad_vstep = keep
+        return self.sizes
+
+    def __exit__(self, *exc):
+        from faldoi_tpu_torch.core import functionals
+
+        functionals.csad_vstep = self.inner
+
+
+def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
+    """``local_faldoi -m <method>`` then ``global_faldoi -m <method>`` on the
+    card, from the golden-position seeds on the pair written as ``.npy``
+    frames; checks the final flow and the method's kernels' launches and
+    returns the launches of ``wrappers`` on this path (with K0's planes-form
+    launches on the 24 weight planes under ``gather_plane_patches_c24``),
+    the path's stats and its seconds."""
     from faldoi_tpu_torch import synthetic as syn
     from faldoi_tpu_torch.cli import global_faldoi, local_faldoi
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
 
+    tag = f"m{method}"
     with tempfile.TemporaryDirectory() as tmp:
         ims = write_frames(tmp, i0, i1)
         seeds = [os.path.join(tmp, f"{k}.flo") for k in ("go", "ba")]
@@ -917,45 +1033,61 @@ def run_m2_path(i0, i1, go, ba, gf, wrappers):
         st = {}
         t0 = time.perf_counter()
         rc = local_faldoi.main([ims, *seeds, rg, os.path.join(tmp, "sim.tiff"),
-                                "-m", "2", "-bsz", str(BSZ), "-device", "cuda"],
-                               stats=st)
+                                "-m", str(method), "-bsz", str(BSZ), "-device",
+                                "cuda"], stats=st)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        rc = rc or global_faldoi.main([ims, rg, var, "-m", "2", "-device", "cuda"],
-                                      stats=st)
+        rc = rc or global_faldoi.main([ims, rg, var, "-m", str(method), "-device",
+                                       "cuda"], stats=st)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = {fn.__name__: fn.launches for fn in wrappers}
         launches["gather_plane_patches_c24"] = gather_plane_patches.launches_by_planes[24]
         if rc != 0:
-            raise AssertionError(f"the m2 stage CLIs exited {rc}")
+            raise AssertionError(f"the {tag} stage CLIs exited {rc}")
         rg, var = read_flo(rg), read_flo(var)
     fill = float(np.isfinite(rg).all(-1).mean())
-    log(f"m2 path (local_faldoi -m 2, global_faldoi -m 2) {H}x{W} SYNTHETIC .npy "
-        f"frames, bsz {BSZ}: local {t1 - t0:.2f} s, global {t2 - t1:.2f} s, "
-        f"total {t2 - t0:.2f} s")
-    log("m2 growing seconds: " + json.dumps(
+    secs = dict(local=t1 - t0, global_=t2 - t1, total=t2 - t0)
+    log(f"{tag} path (local_faldoi -m {method}, global_faldoi -m {method}) "
+        f"{H}x{W} SYNTHETIC .npy frames, bsz {BSZ}: local {t1 - t0:.2f} s, "
+        f"global {t2 - t1:.2f} s, total {t2 - t0:.2f} s")
+    log(f"{tag} growing seconds: " + json.dumps(
         {k: round(v, 3) for k, v in st["seconds"].items()}))
-    log(f"m2 sweeps per drain: {json.dumps(st['sweeps'])}")
-    log(f"m2 global PD iterations per warp: {st['global_iters']}")
-    log("m2 global stage, host seconds: " + json.dumps(
+    log(f"{tag} sweeps per drain: {json.dumps(st['sweeps'])}")
+    log(f"{tag} global PD iterations per warp: {st['global_iters']}")
+    log(f"{tag} global stage, host seconds: " + json.dumps(
         {k: round(v, 4) for k, v in st["global_seconds"].items()}))
-    log(f"launches on the m2 path: {json.dumps(launches)}")
-    log(f"m2 fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
-        f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
+    log(f"launches on the {tag} path: {json.dumps(launches)}")
+    log(f"{tag} fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} "
+        f"px  var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
     if fill < 1.0:
-        raise AssertionError(f"m2 growing filled {100 * fill:.3f}% < 100%")
+        raise AssertionError(f"{tag} growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
-        raise AssertionError("non-finite values in the m2 final flow")
-    if st["global_iters"] != [400] * 5:
-        raise AssertionError(f"m2 global iterations {st['global_iters']}")
-    for name in ("gather_plane_patches_c24", "nltv_patch_loop", "nltv_global_loop"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the m2 path")
-    if launches["nltv_global_loop"] != 5:
-        raise AssertionError(f"K6 launched {launches['nltv_global_loop']} times, "
-                             "expected 5 (one a warp)")
-    return launches
+        raise AssertionError(f"non-finite values in the {tag} final flow")
+    if method == 2:
+        if st["global_iters"] != [400] * 5:
+            raise AssertionError(f"m2 global iterations {st['global_iters']}")
+        for name in ("gather_plane_patches_c24", "nltv_patch_loop",
+                     "nltv_global_loop"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on the m2 path")
+        if launches["nltv_global_loop"] != 5:
+            raise AssertionError(f"K6 launched {launches['nltv_global_loop']} "
+                                 "times, expected 5 (one a warp)")
+    if method == 4:
+        iters = st["global_iters"]
+        if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
+            raise AssertionError(f"m4 global iterations {iters}")
+        for name in ("csad_vstep", "gather_plane_patches", "gather_patches",
+                     "bicubic_sample_patches", "bicubic_warp_planes"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on the m4 path")
+        # K8: one launch a PD iteration of every global warp, the rest in
+        # the patch solves
+        if launches["csad_vstep"] <= sum(iters):
+            raise AssertionError(f"K8 launched {launches['csad_vstep']} times, "
+                                 f"not more than the {sum(iters)} global ones")
+    return launches, st, secs
 
 
 def log_global_ms(path, st):
@@ -1021,19 +1153,81 @@ def run_sift_path(i0, i1, gf, wrappers):
     return launches
 
 
+def make_data():
+    """The synthetic pair, its known flows and the seeds at the golden
+    positions, made from ``SEED``: (i0, i1, gf, gb, pos_f, pos_b, go, ba,
+    rng), the rng where the seeds left it."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.io.flo import read_flo
+
+    rng = np.random.default_rng(SEED)
+    i0, i1, gf, gb = syn.make_pair(H, W, seed=SEED)
+    gold = os.path.join(HERE, "tests", "golden")
+    pos_f = syn.seed_positions_from_flo(read_flo(os.path.join(gold, "deep_mt_1.flo")), H, W)
+    pos_b = syn.seed_positions_from_flo(read_flo(os.path.join(gold, "deep_mt_2.flo")), H, W)
+    go = syn.make_seeds(gf, pos_f, rng)
+    ba = syn.make_seeds(gb, pos_b, rng)
+    return i0, i1, gf, gb, pos_f, pos_b, go, ba, rng
+
+
+def crop_of(data, shape):
+    i0, i1, _, _, _, _, go, ba, _ = data
+    ch, cw = shape
+    cut = (slice(0, ch), slice(0, cw))
+    return i0[:, :ch, :cw], i1[:, :ch, :cw], go[cut], ba[cut]
+
+
+def cpu_crop(method, band, ch, cw, out):
+    """A child process's job: the ch x cw crop of ``method`` through the CPU
+    twins, one thread; writes rg, var and the sweeps to ``out`` (.npz)."""
+    torch.set_num_threads(1)
+    st = {"seconds": {}}
+    t0 = time.perf_counter()
+    rg, var = run_slice(*crop_of(make_data(), (ch, cw)), "cpu", st, method, band)
+    np.savez(out, rg=rg, var=var, sweeps=[s["sweeps"] for s in st["sweeps"]],
+             seconds=time.perf_counter() - t0)
+    return 0
+
+
+def start_cpu_crops(tmp):
+    """Start one child process a crop (``cpu_crop``), with no card in sight;
+    returns {method: (process, output path)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    jobs = {}
+    for method, band, (ch, cw) in CROPS:
+        out = os.path.join(tmp, f"crop_m{method}.npz")
+        jobs[method] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-crop", str(method),
+             str(band), str(ch), str(cw), out], env=env, cwd=HERE), out)
+    return jobs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs "
               "a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        try:
+            return run_all(jobs, tmp)
+        finally:
+            for proc, _ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+
+def run_all(jobs, tmp):
     from faldoi_tpu_torch import synthetic as syn
-    from faldoi_tpu_torch.core.functionals import nltv_patch_loop
+    from faldoi_tpu_torch.core.functionals import make_solver_consts, nltv_patch_loop
     from faldoi_tpu_torch.core.global_step import global_pd_loop
     from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
     from faldoi_tpu_torch.core.preprocess import prepare_pair
-    from faldoi_tpu_torch.io.flo import read_flo
     from faldoi_tpu_torch.kernels import build as kb
+    from faldoi_tpu_torch.models import method_local_params
+    from faldoi_tpu_torch.ops.csad import csad_vstep
     from faldoi_tpu_torch.ops.bicubic import (
         bicubic_sample, bicubic_sample_patches, bicubic_warp_planes,
     )
@@ -1054,17 +1248,14 @@ def main():
     kb.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)}")
 
-    # the synthetic pair and the golden seed positions
-    rng = np.random.default_rng(SEED)
-    i0, i1, gf, gb = syn.make_pair(H, W, seed=SEED)
-    gold = os.path.join(HERE, "tests", "golden")
-    pos_f = syn.seed_positions_from_flo(read_flo(os.path.join(gold, "deep_mt_1.flo")), H, W)
-    pos_b = syn.seed_positions_from_flo(read_flo(os.path.join(gold, "deep_mt_2.flo")), H, W)
-    go = syn.make_seeds(gf, pos_f, rng)
-    ba = syn.make_seeds(gb, pos_b, rng)
+    # the synthetic pair and the golden seed positions; the CSAD crops'
+    # CPU twins start in child processes at once and run beside the card
+    data = make_data()
+    i0, i1, gf, gb, pos_f, pos_b, go, ba, rng = data
     log(f"data: SYNTHETIC textured pair {H}x{W} (seed {SEED}), known flow "
         f"bg {syn.BG_FLOW} / rect {syn.FG_FLOW}; seeds at the golden positions: "
         f"{len(pos_f)} fwd, {len(pos_b)} bwd, 5% perturbed 3-6 px")
+    jobs.update(start_cpu_crops(tmp))
 
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
@@ -1074,9 +1265,12 @@ def main():
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],
                                                                len(pos_f))
-    kernels += [check_k6(dev, rng, a, b, gf, i0),
-                check_k7(dev, rng, scs, len(pos_f), (i0, i1, go, ba))]
+    kernels += [check_k6(dev, rng, a, b, gf, i0), check_k7(dev, rng, scs, len(pos_f))]
     del scs
+    sc45 = {m: make_solver_consts(a, b, *method_local_params(m, 5), 0.01, 11, m)
+            for m in (4, 5)}
+    k8_rec = check_k8(dev, rng, a, b, gf, sc45)
+    kernels.append(k8_rec)
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -1085,24 +1279,31 @@ def main():
     for r in probe_recs:
         log(kp.describe(r))
 
-    # phase 4: crops through the CPU twins and through the card, m0 and m2
-    # with the warm requeue, m1 and m3 with the cold one
-    ch, cw = CROP
-    cut = (slice(0, ch), slice(0, cw))
-    crop = (i0[:, :ch, :cw], i1[:, :ch, :cw], go[cut], ba[cut])
-    for method, band in ((0, 10), (1, 0), (2, 10), (3, 0)):
-        res = {}
-        for device in ("cpu", "cuda"):
-            st = {}
-            t0 = time.perf_counter()
-            res[device] = run_slice(*crop, device, st, method, band)
-            log(f"crop {ch}x{cw} m{method} warm_band {band} on {device}: "
-                f"{time.perf_counter() - t0:.2f} s, "
-                f"sweeps {[s['sweeps'] for s in st['sweeps']]}")
-        e_rg = syn.epe(res["cuda"][0], res["cpu"][0])
-        e_var = syn.epe(res["cuda"][1], res["cpu"][1])
-        log(f"crop m{method} warm_band {band} card vs CPU twins: rg EPE "
-            f"{e_rg:.3e} px, final (var) EPE {e_var:.3e} px (bound 0.01)")
+    # phase 4: crops through the CPU twins (the child processes) and
+    # through the card, m0, m2, m4 and m6 with the warm requeue, m1, m3, m5
+    # and m7 with the cold one; the CSAD crops must agree exactly
+    for method, band, shape in CROPS:
+        st = {}
+        t0 = time.perf_counter()
+        rg, var = run_slice(*crop_of(data, shape), "cuda", st, method, band)
+        card_s = time.perf_counter() - t0
+        proc, out = jobs[method]
+        t0 = time.perf_counter()
+        if proc.wait() != 0:
+            raise AssertionError(f"the CPU crop of m{method} exited {proc.returncode}")
+        cpu = np.load(out)
+        e_rg, e_var = syn.epe(rg, cpu["rg"]), syn.epe(var, cpu["var"])
+        csad = method in range(4, 8)
+        log(f"crop {shape[0]}x{shape[1]} m{method} warm_band {band}: card "
+            f"{card_s:.2f} s, sweeps {[s['sweeps'] for s in st['sweeps']]}; CPU "
+            f"twins (a child process, one thread) {float(cpu['seconds']):.2f} s, "
+            f"sweeps {cpu['sweeps'].tolist()}, waited {time.perf_counter() - t0:.2f} "
+            f"s; card vs CPU twins: rg EPE {e_rg:.3e} px, final (var) EPE "
+            f"{e_var:.3e} px ({'must be 0' if csad else 'bound 0.01'})")
+        if csad and not (e_rg == 0.0 and e_var == 0.0
+                         and np.array_equal(np.isnan(rg), np.isnan(cpu["rg"]))):
+            raise AssertionError(f"crop m{method} card vs CPU: rg EPE {e_rg}, "
+                                 f"final EPE {e_var}, expected 0")
         if not e_var <= 0.01:
             raise AssertionError(f"crop m{method} card vs CPU: final EPE "
                                  f"{e_var} > 0.01")
@@ -1112,7 +1313,7 @@ def main():
     # launches it any more (the whole-image warps take the flow form)
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
-                nltv_patch_loop, bicubic_sample)
+                nltv_patch_loop, csad_vstep, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -1140,9 +1341,21 @@ def main():
         raise AssertionError(f"global iterations {st['global_iters']}, expected "
                              f"{ITERS_M0}")
 
-    # phase 5b: the m2 (NLTV-L1) path through the stage CLIs at full width,
-    # counting launches
-    launches_m2 = run_m2_path(i0, i1, go, ba, gf, wrappers)
+    # phase 5b: the m2 (NLTV-L1) and m4 (TV-CSAD) paths through the stage
+    # CLIs at full width, counting launches; K8's patch-form batch sizes
+    # are kept on the m4 path
+    launches_m2, _, _ = run_stage_path(2, i0, i1, go, ba, gf, wrappers)
+    with k8_calls() as k8_sizes:
+        launches_m4, st_m4, _ = run_stage_path(4, i0, i1, go, ba, gf, wrappers)
+    patch_calls = len(k8_sizes)
+    if launches_m4["csad_vstep"] != patch_calls + sum(st_m4["global_iters"]):
+        raise AssertionError(f"K8 launched {launches_m4['csad_vstep']} times on the "
+                             f"m4 path: {patch_calls} patch calls and "
+                             f"{sum(st_m4['global_iters'])} global iterations")
+    bs = sorted(k8_sizes)
+    log(f"K8 on the m4 path: {patch_calls} patch-form calls (B min {bs[0]}, "
+        f"median {bs[len(bs) // 2]}, max {bs[-1]}, sum {sum(bs)}) and "
+        f"{sum(st_m4['global_iters'])} whole-image calls (one a global PD iteration)")
 
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
@@ -1161,22 +1374,29 @@ def main():
     with fb_warps() as fb_sift:
         launches_sift = run_sift_path(i0, i1, gf, wrappers)
 
-    # phase 8: K4's flow form on the flows the two paths gave the FB check
-    # (after the paths, so these launches are in no path's count)
+    # phase 8: K4's flow form on the flows the two paths gave the FB check,
+    # and K8's patch form at the m4 path's median B (after the paths, so
+    # these launches are in no path's count)
     flow_rec = [k for k in kernels if k["name"] == "bicubic_warp_planes"][0]
     flow_rec["shapes"] = (flow_rec["shapes"] + check_k4_path("m0", fb_m0)
                           + check_k4_path("faldoi_sift", fb_sift))
+    k8_rec["shapes"].append(k8_row(f"P 11 B {bs[len(bs) // 2]} (the m4 path's "
+                                   "median)", k8_patch_args(
+                                       dev, rng, sc45[4], bs[len(bs) // 2]), True))
 
-    kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS
-                                 else launches_sift)[k["name"]],
-                    launches_m0=launches_m0[k["name"]],
-                    launches_m2=launches_m2[k["name"]]) for k in kernels]
+    paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
+                 sift=launches_sift)
+    kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS else
+                                 launches_m4 if k["name"] in M4_KERNELS else
+                                 launches_sift)[k["name"]],
+                    **{f"launches_{p}": la[k["name"]] for p, la in paths.items()})
+               for k in kernels]
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["launches_c24_m2"] = launches_m2["gather_plane_patches_c24"]
     p3 = [r for r in probe_recs if r["name"] == "probe_window_fetch"][-1]
     for r in [r for r in probe_recs if r["name"] != "probe_window_fetch"] + [p3]:
         kernels.append(dict(r, launches=launches_probe[r["name"]]))
-    if launches_m0["bicubic_sample"] or launches_sift["bicubic_sample"]:
+    if any(la["bicubic_sample"] for la in paths.values()):
         raise AssertionError("K4's point form was launched on a path: a "
                              "whole-image warp did not take the flow form")
     for k in kernels:
@@ -1184,7 +1404,8 @@ def main():
             continue
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
-        if k["name"] not in M2_KERNELS and k.get("launches_m0", 1) <= 0:
+        if (k["name"] not in M2_KERNELS + M4_KERNELS
+                and k.get("launches_m0", 1) <= 0):
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -1197,4 +1418,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-crop"]:
+        sys.path.insert(0, HERE)
+        sys.exit(cpu_crop(*map(int, sys.argv[2:6]), sys.argv[6]))
     sys.exit(main())

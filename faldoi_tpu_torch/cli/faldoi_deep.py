@@ -2,9 +2,14 @@
 "Algorithm 2" (``scripts_python/faldoi_deep.py``), the contract of
 ``faldoi_tpu.cli.faldoi_deep`` plus ``-device`` and ``-bin_dir``::
 
-    python -m faldoi_tpu_torch.cli.faldoi_deep imgs.txt [-vm 0|1|2|3] ... \
+    python -m faldoi_tpu_torch.cli.faldoi_deep imgs.txt [-vm 0..7] ... \
         [-threshold 0.045] [-nt 4] [-downscale 2] [-max_scale 1.414] \
-        [-rot_plus 45] [-rot_minus 45] [-device cuda|cpu] [-bsz n] [-bin_dir dir]
+        [-rot_plus 45] [-rot_minus 45] [-device cuda|cpu] [-bsz n] [-bin_dir dir] \
+        [throttles]
+
+``[throttles]``: the growing's flags of ``local_faldoi``, as in
+``faldoi_sift`` (each the counterpart of JAX's ``FALDOI_GROW_*`` knob of its
+name).
 
 The forward and backward ``deepmatching`` runs go as concurrent subprocesses
 (the binary is looked up in ``-bin_dir``, else on ``PATH``; the port ships
@@ -23,7 +28,9 @@ import math
 import os
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.cli.faldoi_sift import _run_pair, find_binary, run_local_global
+from faldoi_tpu_torch.cli.faldoi_sift import (
+    _run_pair, add_throttle_args, find_binary, run_local_global,
+)
 
 
 def build_argparser():
@@ -56,6 +63,7 @@ def build_argparser():
     p.add_argument("-bin_dir", default="",
                    help="directory of the deepmatching binary "
                         "(default: look it up on PATH)")
+    add_throttle_args(p)
     return p
 
 

@@ -2,11 +2,16 @@
 "Algorithm 1" (``scripts_python/faldoi_sift.py``), the contract of
 ``faldoi_tpu.cli.faldoi_sift`` plus ``-device`` and ``-bin_dir``::
 
-    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0|1|2|3] [-wr 5] \
+    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0..7] [-wr 5] \
         [-local_iter n] [-patch_iter n] [-fb_thresh eps] [-partial_res v] \
         [-warps n] [-glob_iter n] [-nsp n] [-res_path dir/] \
         [-energy_params file] [-verbose v] [-trace dir] \
-        [-device cuda|cpu] [-bsz n] [-bin_dir dir]
+        [-device cuda|cpu] [-bsz n] [-bin_dir dir] [throttles]
+
+``[throttles]`` are the growing's flags of ``local_faldoi`` (``-delta``,
+``-delta_rel``, ``-floor``, ``-floor_scale``, ``-fs_hi``, ``-qhi``,
+``-fs_late``, ``-warm_band``, ``-block``, ``-fill``), passed to it as given;
+each is the counterpart of JAX's ``FALDOI_GROW_*`` knob of its name.
 
 Artifacts (``core1``/``core2`` are the frames' base names):
 ``{core1}_sift_mt_1.txt`` / ``{core2}_sift_mt_2.txt`` (4-column matches),
@@ -57,7 +62,32 @@ def build_argparser():
     p.add_argument("-bin_dir", default="",
                    help="directory of the vendored matcher binaries "
                         "(default: look them up on PATH)")
+    add_throttle_args(p)
     return p
+
+
+
+def add_throttle_args(p):
+    """The throttle flags, passed on to ``local_faldoi`` when given (its
+    defaults are JAX's)."""
+    from faldoi_tpu_torch.cli.local_faldoi import THROTTLE_FLAGS
+
+    for name, knob in THROTTLE_FLAGS.items():
+        p.add_argument("-" + name, default=None,
+                       help=f"growing throttle, local_faldoi -{name} "
+                            f"(JAX: {knob})")
+
+
+def throttle_argv(args) -> list:
+    """The throttle flags that were given, as ``local_faldoi`` arguments."""
+    from faldoi_tpu_torch.cli.local_faldoi import THROTTLE_FLAGS
+
+    out = []
+    for name in THROTTLE_FLAGS:
+        val = getattr(args, name)
+        if val is not None:
+            out += ["-" + name, val]
+    return out
 
 
 def find_binary(bin_dir: str, name: str) -> str:
@@ -156,7 +186,8 @@ def run_local_global(args, sp1, sp2, rg, sim, var, timer, stats):
                  "-split_img", args.split_img, "-h_parts", args.h_parts,
                  "-v_parts", args.v_parts, "-fb_thresh", args.fb_thresh,
                  "-partial_res", args.partial_res, "-verbose", args.verbose,
-                 "-device", args.device, "-bsz", args.bsz], stats=stats)
+                 "-device", args.device, "-bsz", args.bsz,
+                 *throttle_argv(args)], stats=stats)
         if rc:
             return rc
         with timer.stage("global step"):

@@ -6,9 +6,11 @@
         [occl_input.png occl_out.png] [-m method] [-w warps] [-p params_file] \
         [-glb_iters iters] [-verbose v] [-device cuda|cpu]
 
-Methods 0 (TV-L1), 1 (weighted TV-L1, whose global step is the TV-L1 one),
-2 (NLTV-L1) and 3 (weighted NLTV-L1, whose global step is the NLTV-L1 one)
-are ported; other methods exit with code 2.
+Methods 0-7 are ported: 0 (TV-L1), 1 (weighted TV-L1, whose global step is
+the TV-L1 one), 2 (NLTV-L1), 3 (weighted NLTV-L1, whose global step is the
+NLTV-L1 one), 4 (TV-CSAD), 5 (weighted TV-CSAD, the TV-CSAD global step), 6
+(NLTV-CSAD) and 7 (weighted NLTV-CSAD, the NLTV-CSAD global step); method 8
+(occlusions) exits with code 2.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ import torch
 
 from faldoi_tpu_torch import params as P
 
-# the methods this slice of the port runs
-PORTED_METHODS = (P.M_TVL1, P.M_TVL1_W, P.M_NLTVL1, P.M_NLTVL1_W)
-NOT_PORTED = ("the port runs methods 0, TV-L1, 1, weighted TV-L1, 2, NLTV-L1, "
-              "and 3, weighted NLTV-L1")
+# the methods the port runs
+PORTED_METHODS = tuple(range(P.M_TVL1_OCC))
+NOT_PORTED = ("the port runs methods 0-7: TV-L1, NLTV-L1, TV-CSAD and "
+              "NLTV-CSAD, each plain and weighted; not 8, TV-L1 with "
+              "occlusions")
 
 
 def pick_option(args, name, default):

@@ -5,15 +5,38 @@
         out.flo sim_map.tiff [occlusions.png] [sal0.tiff sal1.tiff] \
         [-m method] [-wr radius] [-p params] [-loc_it n] [-max_pch_it n] \
         [-split_img 0/1] [-h_parts n] [-v_parts n] [-fb_thresh eps] \
-        [-partial_res v] [-verbose v] [-device cuda|cpu] [-bsz n]
+        [-partial_res v] [-verbose v] [-device cuda|cpu] [-bsz n] \
+        [-delta d] [-delta_rel r] [-floor n] [-floor_scale n] [-fs_hi n] \
+        [-qhi n] [-fs_late n] [-warm_band px] [-block n] [-fill f]
 
-Methods 0 (TV-L1), 1 (weighted TV-L1), 2 (NLTV-L1) and 3 (weighted
-NLTV-L1) are ported; other methods exit with code 2.  ``occlusions.png``
+Methods 0-7 (TV-L1, NLTV-L1, TV-CSAD and NLTV-CSAD, each plain and
+weighted) are ported; method 8 exits with code 2.  ``occlusions.png``
 holds the pixels that the FB pruning distrusted in any outer iteration, as
 JAX writes them.  ``-partial_res 1`` writes the forward growing's snapshots to
 ``partial_results/partial_fwd_{30,70,80,95}_iter_{it}.flo`` under the working
 directory, as the JAX CLI does.  ``-bsz`` is the growing's batch size (the
 counterpart of JAX's ``FALDOI_GROW_BSZ``; default 4096, as there).
+
+The growing's throttles (``match_growing``'s arguments), each the
+counterpart of a JAX environment knob, with JAX's defaults:
+
+* ``-delta`` (``FALDOI_GROW_DELTA``, 0.05) and ``-delta_rel``
+  (``FALDOI_GROW_DELTA_REL``, 0.5): the acceptance band e_min + max(delta,
+  delta_rel * e_min);
+* ``-floor`` (``FALDOI_GROW_FLOOR``, 4096): the cap of the rank floor;
+* ``-floor_scale`` (``FALDOI_GROW_FLOOR_SCALE``, 64): the floor's divisor in
+  outer iteration 0, min(floor, queue // floor_scale);
+* ``-fs_hi`` (``FALDOI_GROW_FS_HI``, 0 = off) and ``-qhi``
+  (``FALDOI_GROW_QHI``, 2^30): the divisor once the queue holds qhi
+  candidates;
+* ``-fs_late`` (``FALDOI_GROW_FS_LATE``; default min(floor_scale, 16)): the
+  divisor of the requeue and final drains;
+* ``-warm_band`` (``FALDOI_GROW_WARM_BAND``, 10 px; 0 = the cold requeue);
+* ``-block`` (``FALDOI_GROW_BLOCK``, 0 = off): block-local bands on
+  block x block tiles;
+* ``-fill`` (``FALDOI_GROW_FILL``, ``patch``): the patch fill, ``patch``
+  (exact for methods 4-7, red-black otherwise), ``patch_exact`` or
+  ``patch_rb``; JAX's ``dense`` is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +50,34 @@ from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.cli.global_faldoi import (
     NOT_PORTED, PORTED_METHODS, pick_option,
 )
+
+
+# the growing's throttle flags: name -> JAX's environment knob
+THROTTLE_FLAGS = {
+    "delta": "FALDOI_GROW_DELTA", "delta_rel": "FALDOI_GROW_DELTA_REL",
+    "floor": "FALDOI_GROW_FLOOR", "floor_scale": "FALDOI_GROW_FLOOR_SCALE",
+    "fs_hi": "FALDOI_GROW_FS_HI", "qhi": "FALDOI_GROW_QHI",
+    "fs_late": "FALDOI_GROW_FS_LATE", "warm_band": "FALDOI_GROW_WARM_BAND",
+    "block": "FALDOI_GROW_BLOCK", "fill": "FALDOI_GROW_FILL",
+}
+
+
+def throttle_options(args) -> dict:
+    """Take the throttle flags out of ``args``: ``match_growing``'s keyword
+    arguments (see the module's docstring)."""
+    floor = pick_option(args, "floor", "")
+    fs_late = pick_option(args, "fs_late", "")
+    return dict(
+        delta=float(pick_option(args, "delta", "0.05")),
+        delta_rel=float(pick_option(args, "delta_rel", "0.5")),
+        floor=int(floor) if floor else None,
+        floor_scale=int(pick_option(args, "floor_scale", "64")),
+        floor_scale_hi=int(pick_option(args, "fs_hi", "0")),
+        queue_hi=int(pick_option(args, "qhi", str(1 << 30))),
+        floor_scale_late=int(fs_late) if fs_late else None,
+        warm_band=int(pick_option(args, "warm_band", "10")),
+        block=int(pick_option(args, "block", "0")),
+        fill=pick_option(args, "fill", "patch"))
 
 
 def main(argv=None, stats=None):
@@ -52,6 +103,7 @@ def main(argv=None, stats=None):
     verbose = pick_option(args, "verbose", "0") not in ("0", "false", "False")
     device = pick_option(args, "device", "cuda")
     bsz = int(pick_option(args, "bsz", "4096"))
+    throttles = throttle_options(args)
 
     if len(args) < 5 or len(args) > 8:
         print(__doc__, file=sys.stderr)
@@ -117,7 +169,7 @@ def main(argv=None, stats=None):
     flow, ene, occ = match_growing(
         go, ba, i0n, i1n, prm, sal[0], sal[1], bsz=bsz, stats=stats,
         snapshot_dir="partial_results" if partial_res else None,
-        i0_planes=planes[0], i1_planes=planes[1])
+        i0_planes=planes[0], i1_planes=planes[1], **throttles)
     flow, ene, occ = flow.cpu().numpy(), ene.cpu().numpy(), occ.cpu().numpy()
     if verbose:
         print(f"(local) match growing took {time.time() - t0:.2f}s on "

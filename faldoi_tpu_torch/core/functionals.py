@@ -1,5 +1,5 @@
-"""Batched canvas patch solvers for methods 0-3: TV-L1, weighted TV-L1,
-NLTV-L1 and weighted NLTV-L1.
+"""Batched canvas patch solvers for methods 0-7: TV-L1, NLTV-L1, TV-CSAD and
+NLTV-CSAD, each plain and Gaussian-weighted.
 
 Port of ``faldoi_tpu/core/functionals.py::_solve_tvl1_family`` and
 ``_solve_nltv_family`` (reference ``tvl2_model.cpp:174-435``,
@@ -31,7 +31,16 @@ patch-restricted ``wt``; the PD loop of a warp is kernel K7
 (``nltv_patch_loop``, ``csrc/nltv.cu``), whose patch divergence is
 unnormalised (aux_energy_model.cpp:178-212).
 
-The TV-L1 patch PD arithmetic is plain PyTorch.
+The CSAD methods (4-7) replace the L1 threshold by the exact prox of the
+CSAD data term over the 7x7 window restricted to the box, the v-step of
+kernel K8 (``ops.csad.csad_vstep``), with ``grad = hypot(|grad I1w|^2,
+0.01)`` (tvcsad_model.cpp:361).  Methods 6 and 7 regularise with the NLTV
+duals of methods 2 and 3 (plain PyTorch here); methods 4 and 5 keep the
+reference's inert TV: its duals read flow-gradient buffers that are never
+written, so they stay 0 and the eval's TV term is 0 (``true_tv=True`` runs
+the per-component TV projection instead, JAX's ``FALDOI_CSAD_TRUE_TV=1``).
+
+The TV-L1 and CSAD patch PD arithmetic is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -45,9 +54,12 @@ import torch
 from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.kernels import build as kb
 from faldoi_tpu_torch.core.pd_common import (
-    sqrt_rn, tvl1_threshold, tvl2_getD, tvl2_getP,
+    hypot, sqrt_rn, tvl1_threshold, tvl2_getD, tvl2_getP,
 )
 from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+from faldoi_tpu_torch.ops.csad import (
+    canvas_masks, csad_b, csad_vstep, neighbour_stack,
+)
 from faldoi_tpu_torch.ops.gaussian import gaussian1d_weight
 from faldoi_tpu_torch.ops.nonlocal_ops import (
     neighbor_offsets, nltv_weights, nonlocal_divergence_sum,
@@ -78,6 +90,10 @@ class SolverConsts(NamedTuple):
 
 
 NLTV_METHODS = (P.M_NLTVL1, P.M_NLTVL1_W)
+CSAD_METHODS = (P.M_TVCSAD, P.M_TVCSAD_W, P.M_NLTVCSAD, P.M_NLTVCSAD_W)
+# the methods whose consts carry the Gaussian window, and the NLTV weights
+WEIGHTED_METHODS = (P.M_TVL1_W, P.M_NLTVL1_W, P.M_TVCSAD_W, P.M_NLTVCSAD_W)
+NL_WEIGHT_METHODS = NLTV_METHODS + (P.M_NLTVCSAD, P.M_NLTVCSAD_W)
 NLTV_OFFS = tuple(neighbor_offsets(P.NL_BETA))
 
 
@@ -89,17 +105,18 @@ def make_solver_consts(i0: torch.Tensor, i1: torch.Tensor, lam, theta, tau,
                        tol, p: int, method: int = P.M_TVL1,
                        i0_planes: Optional[np.ndarray] = None) -> SolverConsts:
     """SolverConsts of one growing direction (source i0, target i1).  The
-    weighted methods (1, 3) add the window ``gaussian1d_weight(p // 2)``; the
-    NLTV methods (2, 3) add the local-scale weights of the source's raw
+    weighted methods (1, 3, 5, 7) add the window ``gaussian1d_weight(p //
+    2)``; the NLTV-regularised methods (2, 3, 6, 7) add the local-scale
+    weights of the source's raw
     (pd, h, w) colour planes ``i0_planes`` (0..255), zero-padded by p at the
     bottom and right as JAX pads them."""
     solver_for(method)
     i1x, i1y = centered_gradient(i1)
     dev = i0.device
     w1d = (torch.as_tensor(gaussian1d_weight(p // 2), device=dev)
-           if method in (P.M_TVL1_W, P.M_NLTVL1_W) else None)
+           if method in WEIGHTED_METHODS else None)
     wp_pad = None
-    if method in NLTV_METHODS:
+    if method in NL_WEIGHT_METHODS:
         if i0_planes is None:
             raise ValueError(f"method {method} (NLTV) needs the source's colour "
                              "planes (i0_planes)")
@@ -376,6 +393,14 @@ def nltv_patch_loop(u1, u2, v1, v2, duals, i1wx, i1wy, grad, rho_c, wp, wt,
 nltv_patch_loop.launches = 0   # K7 launches, raised only after a launch
 
 
+def _nltv_reg_energy(u1, u2, wp, wt):
+    """The NLTV regulariser of the eval: sum_j w_j (|u1 - u1_j| + |u2 -
+    u2_j|) / wt, summed over j in order (nltv_model.cpp:69-156)."""
+    n1 = shift_each(u1.expand_as(wp), NLTV_OFFS)
+    n2 = shift_each(u2.expand_as(wp), NLTV_OFFS)
+    return ordered_sum(wp * ((u1 - n1).abs() + (u2 - n2).abs())) / wt
+
+
 def _solve_nltv_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
                        p: int, warps: int, max_iters: int, weighted: bool):
     """Solve B NLTV-L1 patches, weighted (method 3) or not (method 2); the
@@ -425,9 +450,7 @@ def _solve_nltv_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     e1 = u1 - v1
     e2 = u2 - v2
     dc = (1.0 / (2.0 * sc.theta)) * (e1 * e1 + e2 * e2)
-    n1 = shift_each(u1.expand_as(wp), NLTV_OFFS)
-    n2 = shift_each(u2.expand_as(wp), NLTV_OFFS)
-    g = ordered_sum(wp * ((u1 - n1).abs() + (u2 - n2).abs())) / wt
+    g = _nltv_reg_energy(u1, u2, wp, wt)
     ener = canvas_sum(torch.where(inbox, dc + dt + g, zero)) / (ph * pw).to(u1.dtype)
     return u1, u2, ener
 
@@ -450,9 +473,170 @@ def solve_nltvl1_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
                               max_iters, weighted=True)
 
 
+def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
+                       p: int, warps: int, max_iters: int, weighted: bool,
+                       nltv_reg: bool, true_tv: bool = False):
+    """Solve B CSAD patches: TV-CSAD (method 4, weighted 5) or NLTV-CSAD (6,
+    weighted 7); the arguments and results of ``_solve_tvl1_family``.  Per
+    warp, K4 samples the warp, ``grad = hypot(|grad I1w|^2, 0.01)`` and the 48
+    breakpoint planes are built once, then the tol-gated masked unroll runs
+    K8's v-step, the regulariser's step and the primal step.  Out-of-box
+    cells take +-inf or NaN in the v-step (no neighbour counts there) and
+    carry them, as JAX does; every use masks them, and the eval zeroes them
+    first.  ``true_tv`` (methods 4, 5): the per-component TV projection
+    instead of the reference's inert TV (tvcsad_model.cpp:231-260)."""
+    if nltv_reg and sc.wp_pad is None:
+        raise ValueError("the NLTV-CSAD solvers need SolverConsts.wp_pad "
+                         "(method 6 or 7 consts)")
+    inert_tv = not nltv_reg and not true_tv
+    dev = u1.device
+    rows, cols = canvas_ids(p, dev)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    zero = torch.zeros((), dtype=u1.dtype, device=dev)
+    oy32, ox32 = oy.to(torch.int32).contiguous(), ox.to(torch.int32).contiguous()
+    ph32, pw32 = ph.to(torch.int32).contiguous(), pw.to(torch.int32).contiguous()
+    box = (oy32, ox32, ph32, pw32)
+    i0_patch = gather_patches(sc.i0pad[:, :, None], oy32, ox32, p)[:, :, 0, :]
+    i0_patch = i0_patch.permute(2, 0, 1)                        # (B, P, P)
+    masks, ncount = canvas_masks(ph32, pw32, p)
+    l_t = sc.lambda_ * sc.theta
+    if weighted:
+        w2d = _weight2d(sc.w1d, rows, cols, oy, ox, cj, ci, p // 2)
+        l_t = (l_t * w2d).contiguous()
+    tol2 = sc.tol * sc.tol
+    npx = (ph * pw).to(u1.dtype)
+
+    if nltv_reg:
+        wp, wt = nltv_crop_weights(sc.wp_pad, oy, ox, ph, pw, p)
+        reg = tuple(torch.zeros((len(NLTV_OFFS),) + tuple(u1.shape),
+                                dtype=u1.dtype, device=dev) for _ in range(2))
+    elif inert_tv:
+        reg = ()
+    else:
+        reg = tuple(torch.zeros_like(u1) for _ in range(4))
+    u1, u2 = u1.contiguous(), u2.contiguous()
+    v1, v2 = u1, u2
+    for _ in range(warps):
+        i1w, i1wx, i1wy = bicubic_sample_patches(sc.i1_stack, *box, u1, u2, 3)
+        grad = hypot(i1wx * i1wx + i1wy * i1wy, 0.01)   # tvcsad_model.cpp:361
+        b = csad_b(i0_patch, i1w, i1wx, i1wy, u1, u2, grad, masks)
+        st = (u1, u2, u1, u2, reg, v1, v2,
+              torch.full(u1.shape[:1], float("inf"), dtype=u1.dtype, device=dev),
+              torch.zeros(u1.shape[:1], dtype=torch.int32, device=dev))
+        for _ in range(max_iters):
+            c1, c2, c1_, c2_, rg, _, _, err, n = st
+            nv1, nv2 = csad_vstep(c1, c2, b, i1wx, i1wy, grad, l_t, masks,
+                                  ncount, ph32, pw32)
+            if nltv_reg:
+                sp = nonlocal_gradient_duals(rg[0], c1_, wp, wt, NLTV_OFFS, sc.tau)
+                sq = nonlocal_gradient_duals(rg[1], c2_, wp, wt, NLTV_OFFS, sc.tau)
+                nu1 = c1 - sc.tau * (nonlocal_divergence_sum(sp, wp, NLTV_OFFS)
+                                     + (c1 - nv1) / sc.theta)
+                nu2 = c2 - sc.tau * (nonlocal_divergence_sum(sq, wp, NLTV_OFFS)
+                                     + (c2 - nv2) / sc.theta)
+                rg = (sp, sq)
+            elif inert_tv:
+                # duals pinned at 0 (the reference's never-written buffers)
+                nu1 = c1 - sc.tau * ((c1 - nv1) / sc.theta)
+                nu2 = c2 - sc.tau * ((c2 - nv2) / sc.theta)
+            else:
+                x11, x12, x21, x22 = rg
+                u1x, u1y = forward_gradient_patch(c1_, ph, pw)
+                u2x, u2y = forward_gradient_patch(c2_, ph, pw)
+                n1 = torch.clamp(hypot(x11, x12), min=1.0)
+                n2 = torch.clamp(hypot(x21, x22), min=1.0)
+                x11, x12 = (x11 + sc.tau * u1x) / n1, (x12 + sc.tau * u1y) / n1
+                x21, x22 = (x21 + sc.tau * u2x) / n2, (x22 + sc.tau * u2y) / n2
+                d1 = divergence_patch(x11, x12, ph, pw)
+                d2 = divergence_patch(x21, x22, ph, pw)
+                nu1 = c1 - sc.tau * (-d1 + (c1 - nv1) / sc.theta)
+                nu2 = c2 - sc.tau * (-d2 + (c2 - nv2) / sc.theta)
+                rg = (x11, x12, x21, x22)
+            e1, e2 = nu1 - c1, nu2 - c2
+            nerr = canvas_sum(torch.where(inbox, e1 * e1 + e2 * e2, zero)) / npx
+            run = (err > tol2) & (n < max_iters)
+            lane = run.view(-1, 1, 1)
+            if not inert_tv:
+                rg = tuple(torch.where(run.view((1,) * (a.dim() - 3) + (-1, 1, 1)),
+                                       nw, a) for a, nw in zip(st[4], rg))
+            new = (nu1, nu2, 2 * nu1 - c1, 2 * nu2 - c2, nv1, nv2)
+            old = st[:4] + st[5:7]
+            u1, u2, u1b, u2b, v1, v2 = (torch.where(lane, nw, a)
+                                        for a, nw in zip(old, new))
+            st = (u1, u2, u1b, u2b, rg, v1, v2, torch.where(run, nerr, err),
+                  torch.where(run, n + 1, n))
+        u1, u2, reg, v1, v2 = st[0], st[1], st[4], st[5], st[6]
+
+    # eval (tvcsad_model.cpp:87-175 and the NLTV-CSAD analogues): zero the
+    # out-of-box cells first (0 * inf = NaN through the shifts)
+    u1 = torch.where(inbox, u1, zero)
+    u2 = torch.where(inbox, u2, zero)
+    v1 = torch.where(inbox, v1, zero)
+    v2 = torch.where(inbox, v2, zero)
+    i1w = bicubic_sample_patches(sc.i1_stack, *box, u1, u2, 1)[0]
+    i0n, i1wn = neighbour_stack(i0_patch), neighbour_stack(i1w)
+    dt = ordered_sum(torch.where(masks, (i0_patch - i0n - i1w + i1wn).abs(), zero))
+    dt = dt * sc.lambda_
+    if weighted:
+        dt = dt * w2d
+    e1 = u1 - v1
+    e2 = u2 - v2
+    dc = (1.0 / (2.0 * sc.theta)) * (e1 * e1 + e2 * e2)
+    if nltv_reg:
+        g = _nltv_reg_energy(u1, u2, wp, wt)
+    elif inert_tv:
+        g = zero                 # eval_tvcsad reads the same zero buffers
+    else:
+        u1x, u1y = forward_gradient_patch(u1, ph, pw)
+        u2x, u2y = forward_gradient_patch(u2, ph, pw)
+        g = sqrt_rn(u1x * u1x + u1y * u1y + u2x * u2x + u2y * u2y)
+    ener = canvas_sum(torch.where(inbox, dc + dt + g, zero)) / (ph * pw).to(u1.dtype)
+    return u1, u2, ener
+
+
+def solve_tvcsad(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                 warps: int, max_iters: int, true_tv: bool = False):
+    """Solve B method-4 (TV-CSAD) patches; see ``_solve_csad_family``."""
+    return _solve_csad_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=False, nltv_reg=False,
+                              true_tv=true_tv)
+
+
+def solve_tvcsad_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                   warps: int, max_iters: int, true_tv: bool = False):
+    """Solve B method-5 (Gaussian-weighted TV-CSAD) patches; ``sc.w1d`` must
+    hold the window."""
+    if sc.w1d is None:
+        raise ValueError("solve_tvcsad_w needs SolverConsts.w1d (method 5 consts)")
+    return _solve_csad_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=True, nltv_reg=False,
+                              true_tv=true_tv)
+
+
+def solve_nltvcsad(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                   warps: int, max_iters: int):
+    """Solve B method-6 (NLTV-CSAD) patches; ``sc.wp_pad`` must hold the
+    weights."""
+    return _solve_csad_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=False, nltv_reg=True)
+
+
+def solve_nltvcsad_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                     warps: int, max_iters: int):
+    """Solve B method-7 (Gaussian-weighted NLTV-CSAD) patches; ``sc.w1d`` and
+    ``sc.wp_pad`` must hold the window and the weights."""
+    if sc.w1d is None:
+        raise ValueError("solve_nltvcsad_w needs SolverConsts.w1d (method 7 "
+                         "consts)")
+    return _solve_csad_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                              max_iters, weighted=True, nltv_reg=True)
+
+
 # method -> patch solver (JAX's ``functionals.SOLVERS``, the ported part)
 SOLVERS = {P.M_TVL1: solve_tvl1, P.M_TVL1_W: solve_tvl1_w,
-           P.M_NLTVL1: solve_nltvl1, P.M_NLTVL1_W: solve_nltvl1_w}
+           P.M_NLTVL1: solve_nltvl1, P.M_NLTVL1_W: solve_nltvl1_w,
+           P.M_TVCSAD: solve_tvcsad, P.M_TVCSAD_W: solve_tvcsad_w,
+           P.M_NLTVCSAD: solve_nltvcsad, P.M_NLTVCSAD_W: solve_nltvcsad_w}
 
 
 def solver_for(method: int):

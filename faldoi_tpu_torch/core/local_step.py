@@ -21,10 +21,18 @@ and a payload scatter whose winners tie on the key keeps the LAST update in
 JAX's flattening order (what XLA's sequential CPU scatter does), on every
 device.
 
-Selection is exact: the accepted lanes are always a prefix of the sorted
-batch (every acceptance test is monotone in the sorted energy), so the port
-solves only those ``n_acc`` lanes.  JAX solves all ``bsz`` lanes and masks
-the rest; the masked lanes write nothing, so the results are the same.
+Selection is exact: the port solves only the ``n_acc`` accepted lanes, in
+the order of the sorted batch (a prefix of it unless block-local bands are
+on).  JAX solves all ``bsz`` lanes and masks the rest; the masked lanes
+write nothing, so the results are the same.
+
+The throttles of the acceptance are ``sweep_body``'s arguments, with JAX's
+``match_growing`` defaults: the delta band ``e_min + max(delta, delta_rel *
+e_min)``, optionally also per (block x block) tile; the rank floor
+``min(floor, queue // fscale)``, where the divisor is ``floor_scale_hi`` once
+the queue holds ``queue_hi`` candidates (if ``floor_scale_hi`` > 0) and
+``floor_scale`` before; and the patch fill, exact raster Gauss-Seidel or
+red-black (``fill``).
 """
 
 from __future__ import annotations
@@ -35,19 +43,17 @@ import numpy as np
 import torch
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.core.functionals import SolverConsts, solver_for
+from faldoi_tpu_torch.core.functionals import (
+    CSAD_METHODS, SolverConsts, solver_for,
+)
 from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
 from faldoi_tpu_torch.ops.poisson import poisson_fill_canvas
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 INF = float("inf")
 NAN = float("nan")
-# strict-mode acceptance of match_growing's defaults: the delta band is
-# e_min + max(DELTA, DELTA_REL * e_min), and the rank floor is
-# min(FLOOR, queue // floor_scale)
-DELTA = 0.05
-DELTA_REL = 0.5
-FLOOR = 4096
+# the patch fills ``sweep_body`` takes; "patch" resolves per method
+FILLS = ("patch", "patch_exact", "patch_rb")
 # 4-neighbour order of insert_candidates (and of JAX's concatenation)
 NEIGHBOURS = ((0, 1), (0, -1), (1, 0), (-1, 0))
 
@@ -195,18 +201,53 @@ def _fill_pair(u, v, ph, pw, exact):
     return f[:u.shape[0]], f[u.shape[0]:]
 
 
+def exact_fill(fill: str, method: int) -> bool:
+    """Whether ``fill`` means the exact raster Gauss-Seidel fill for
+    ``method`` (JAX's resolution, match_growing.py:628-637): "patch" is the
+    exact fill for the inert-TV CSAD family (methods 4-7), which passes the
+    Poisson init through to its output, and red-black for every other
+    method; "patch_exact" and "patch_rb" force one or the other.  JAX's
+    "dense" fill is not ported."""
+    if fill == "dense":
+        raise NotImplementedError('fill "dense" is not ported')
+    if fill not in FILLS:
+        raise ValueError(f"fill {fill!r}: expected one of {FILLS}")
+    return fill == "patch_exact" or (fill == "patch" and method in CSAD_METHODS)
+
+
+def _block_band(eligible, h, w, block, delta, delta_rel):
+    """Per pixel, whether its energy lies in the delta band of its
+    (block x block) tile, anchored at the tile's minimum eligible energy."""
+    by, bx = -(-h // block), -(-w // block)
+    e2d = torch.nn.functional.pad(eligible.view(h, w),
+                                  (0, bx * block - w, 0, by * block - h),
+                                  value=INF)
+    bmin = e2d.view(by, block, bx, block).amin(dim=(1, 3))
+    bmin_f = bmin.repeat_interleave(block, 0).repeat_interleave(block, 1)[:h, :w]
+    bband = bmin_f + torch.clamp(delta_rel * bmin_f, min=delta)
+    return eligible <= bband.reshape(-1)
+
+
 def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
-               max_iters: int, floor_scale: int, method: int = P.M_TVL1):
-    """One strict-mode wavefront sweep (``_sweep_body`` with relax=False,
-    fill="patch_rb", block=0, delta/delta_rel/floor at match_growing's
-    defaults, exact working-flow scatter of radius wr), solving with
-    ``method``'s patch solver.  Returns (new state, n_accepted)."""
+               max_iters: int, floor_scale: int, method: int = P.M_TVL1,
+               delta: float = 0.05, delta_rel: float = 0.5, floor: int = 4096,
+               floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
+               block: int = 0, fill: str = "patch"):
+    """One strict-mode wavefront sweep (``_sweep_body`` with relax=False and
+    the exact working-flow scatter of radius wr), solving with ``method``'s
+    patch solver.  The throttles default to ``match_growing``'s values:
+    ``delta``, ``delta_rel`` (the band), ``floor``, ``floor_scale``,
+    ``floor_scale_hi``, ``queue_hi`` (the rank floor), ``block`` (0: no
+    block-local bands) and ``fill`` (see ``exact_fill``).
+    Returns (new state, n_accepted)."""
     solver = solver_for(method)
+    exact = exact_fill(fill, method)
     n = h * w
     dump = n
     p = 2 * wr + 1
     dev = state.cand_e.device
+    delta = float(np.float32(delta))
 
     # --- selection: top-bsz eligible, delta band, queue-adaptive floor
     eligible = torch.where(state.fixed[:n], torch.full((), INF, device=dev),
@@ -215,17 +256,25 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     e_pop = vals[:bsz]
     idx = order[:bsz]
     e_min = e_pop[0]
-    band = e_min + torch.clamp(DELTA_REL * e_min, min=float(np.float32(DELTA)))
+    band = e_min + torch.clamp(delta_rel * e_min, min=delta)
+    e_ok = e_pop <= band
+    if block:
+        # a candidate passes with its tile's band or the global one
+        e_ok = e_ok | _block_band(eligible, h, w, block, delta, delta_rel)[idx]
     queue = torch.isfinite(eligible).sum()
-    fscale = max(int(floor_scale), 1)
-    floor_dyn = (queue // fscale).clamp(min=1).clamp(max=FLOOR) \
-        if fscale > 1 else FLOOR
+    floor_base = max(int(floor), 1)
+    fscale = torch.full_like(queue, max(int(floor_scale), 1))
+    if floor_scale_hi > 0:
+        # staged divisor: floor_scale_hi once the queue reaches queue_hi
+        fscale = torch.where(queue >= queue_hi, int(floor_scale_hi), fscale)
+    floor_dyn = torch.where(fscale > 1, (queue // fscale).clamp(1, floor_base),
+                            floor_base)
     rank = torch.arange(e_pop.shape[0], device=dev)
-    valid = torch.isfinite(e_pop) & ((e_pop <= band) | (rank < floor_dyn))
-    k = int(valid.sum())
+    valid = torch.isfinite(e_pop) & (e_ok | (rank < floor_dyn))
+    idx = idx[valid]
+    k = idx.shape[0]
     if k == 0:
         return state, 0
-    idx = idx[:k]
 
     i, j, oy, ox, ph, pw = patch_geometry(idx, h, w, wr)
 
@@ -249,7 +298,7 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     nan = torch.full((), NAN, device=dev)
     zero = torch.zeros((), device=dev)
     fill_u, fill_v = _fill_pair(torch.where(fxp, ou, nan),
-                                torch.where(fxp, ov, nan), ph, pw, exact=False)
+                                torch.where(fxp, ov, nan), ph, pw, exact=exact)
     alt_u = torch.where(fxp, ou, wu_p)
     alt_v = torch.where(fxp, ov, wv_p)
     if iteration == 0:
@@ -374,10 +423,10 @@ CHUNK = 64
 def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
           iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
           max_iters: int, floor_scale: int, method: int = P.M_TVL1,
-          on_chunk=None):
+          on_chunk=None, **throttles):
     """Sweep until a sweep accepts nothing (``grow_to_completion``).
     Returns (state, sweeps); the count includes the final empty sweep, as
-    JAX's does.
+    JAX's does.  ``throttles`` go to every ``sweep_body``.
 
     ``on_chunk(state)``, if given, is called after every ``CHUNK`` sweeps
     and after the last one: the sync points of JAX's chunked ``grow``
@@ -386,7 +435,8 @@ def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     sweeps = 0
     while True:
         state, k = sweep_body(state, sconsts, trust2d, sal, iteration, h, w,
-                              wr, bsz, warps, max_iters, floor_scale, method)
+                              wr, bsz, warps, max_iters, floor_scale, method,
+                              **throttles)
         sweeps += 1
         if on_chunk is not None and (k == 0 or sweeps % CHUNK == 0):
             on_chunk(state)

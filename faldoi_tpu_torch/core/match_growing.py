@@ -1,4 +1,4 @@
-"""Iterated FALDOI local minimization for methods 0-3 (``match_growing``).
+"""Iterated FALDOI local minimization for methods 0-7 (``match_growing``).
 
 Port of ``faldoi_tpu/core/match_growing.py`` in the semantics of its CPU
 default, ``mode="fused"`` (``_iterated_growing``, local_faldoi.cpp:
@@ -7,7 +7,10 @@ pruning, and a requeue; then a final forward-only drain.  The requeue is the
 warm one with band 10 by default; ``warm_band=0`` gives the cold requeue, the
 reference's full re-grow of every outer iteration (``_delete_untrusted`` +
 ``_insert_potential``, local_faldoi.cpp:283-311, 813-870).  The floor scale
-is 64 in iteration 0 and 16 after.  JAX drains the two directions in
+is ``floor_scale`` (64) in iteration 0 and ``floor_scale_late`` (by default
+``min(floor_scale, 16)``) after.  The throttles are arguments here, where
+JAX also reads them from its ``FALDOI_GROW_*`` environment; the port reads
+no environment.  JAX drains the two directions in
 lockstep; a drained lane's sweeps are no-ops there, so draining them one
 after the other, as here, gives the same states.
 
@@ -29,17 +32,12 @@ import torch
 from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.core.functionals import make_solver_consts, solver_for
 from faldoi_tpu_torch.core.local_step import (
-    GrowState, drain, init_state, insert_seeds,
+    GrowState, drain, exact_fill, init_state, insert_seeds,
 )
 from faldoi_tpu_torch.core.pruning import prune
 from faldoi_tpu_torch.io.flo import write_flo
 from faldoi_tpu_torch.models import method_local_params
 
-# match_growing's defaults (floor scale of iteration 0 and of the requeue
-# drains; warm-requeue band in px)
-FLOOR_SCALE = 64
-FLOOR_SCALE_LATE = 16
-WARM_BAND = 10
 # partial-results snapshots: forward fixed fraction thresholds, in percent
 # (local_faldoi.cpp:895), checked at the forward drains' sync points
 SNAPSHOT_PCTS = (30, 70, 80, 95)
@@ -154,22 +152,32 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                   i1n: torch.Tensor, prm: P.Parameters,
                   sal_go: Optional[np.ndarray] = None,
                   sal_ba: Optional[np.ndarray] = None, bsz: int = 4096,
-                  seed_bsz: int = 2048, stats=None, warm_band: int = WARM_BAND,
+                  seed_bsz: int = 2048, stats=None, warm_band: int = 10,
                   snapshot_dir: Optional[str] = None,
                   i0_planes: Optional[np.ndarray] = None,
-                  i1_planes: Optional[np.ndarray] = None):
+                  i1_planes: Optional[np.ndarray] = None,
+                  delta: float = 0.05, delta_rel: float = 0.5,
+                  floor: Optional[int] = None, floor_scale: int = 64,
+                  floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
+                  floor_scale_late: Optional[int] = None, block: int = 0,
+                  fill: str = "patch"):
     """Grow the (h, w, 2) NaN-sparse forward seeds ``go`` and backward seeds
     ``ba`` over the normalized, smoothed frames ``i0n``, ``i1n`` (tensors on
-    the run's device) with method ``prm.val_method`` (0 to 3).  Returns
+    the run's device) with method ``prm.val_method`` (0 to 7).  Returns
     (flow (h, w, 2), energy (h, w), occlusions (h, w) float32 0/1) of the
     forward direction, as tensors on that device.
 
     ``i0_planes``, ``i1_planes``: the raw (pd, h, w) colour planes of the two
-    frames (0..255), which the NLTV methods (2, 3) need for their weights:
-    the forward lane's from I0, the backward lane's from I1.
+    frames (0..255), which the NLTV methods (2, 3, 6, 7) need for their
+    weights: the forward lane's from I0, the backward lane's from I1.
 
-    ``warm_band``: the requeue band in px (JAX reads it from
-    ``FALDOI_GROW_WARM_BAND``); 0 = the cold requeue.
+    The throttles, each the counterpart of JAX's argument or environment
+    knob of the same meaning: ``warm_band`` (the requeue band in px, 0 = the
+    cold requeue; ``FALDOI_GROW_WARM_BAND``), ``delta``, ``delta_rel``,
+    ``floor`` (None = 4096), ``floor_scale``, ``floor_scale_hi``,
+    ``queue_hi``, ``block``, ``fill`` (see ``local_step.sweep_body``) and
+    ``floor_scale_late`` (the requeue and final drains' scale; None =
+    ``min(floor_scale, 16)``, ``FALDOI_GROW_FS_LATE``).
     ``snapshot_dir``: where the partial-results snapshots go (the CLIs'
     ``-partial_res``); None = none.
     ``stats`` (a dict, optional) receives the stage seconds and the sweeps
@@ -188,6 +196,13 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
           make_solver_consts(i1n, i0n, lam, theta, tau, prm.tol_OF, p, method,
                              i0_planes=i1_planes))
     max_iters = max(prm.max_iter_patch, 1)
+    if floor_scale_late is None:
+        floor_scale_late = min(floor_scale, 16)
+    throttles = dict(delta=delta, delta_rel=delta_rel,
+                     floor=4096 if floor is None else floor,
+                     floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
+                     block=block, fill=fill)
+    exact_fill(fill, method)
     stats = {} if stats is None else stats
     stats.setdefault("sweeps", [])
     stats.setdefault("seconds", {})
@@ -225,13 +240,13 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
         marks["it"] = it
         s, k = drain(st[lane], sc[lane], trust2d[lane], sal[lane], it, h, w,
                      wr, bsz, prm.warps, max_iters, fs, method,
-                     on_chunk=snapshot if lane == 0 else None)
+                     on_chunk=snapshot if lane == 0 else None, **throttles)
         st[lane] = s
         stats["sweeps"].append({"it": it, "lane": ("fwd", "bwd")[lane],
                                 "sweeps": k})
 
     for it in range(prm.iterations_of):
-        fs = FLOOR_SCALE if it == 0 else FLOOR_SCALE_LATE
+        fs = floor_scale if it == 0 else floor_scale_late
         for lane in (0, 1):
             run_drain(lane, it, fs)
             tick(f"drain_it{it}_{('fwd', 'bwd')[lane]}")
@@ -247,6 +262,6 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                         insert_potential(delete_untrusted(st[lane], trust)))
         tick(f"prune_requeue_it{it}")
 
-    run_drain(0, prm.iterations_of, FLOOR_SCALE_LATE)
+    run_drain(0, prm.iterations_of, floor_scale_late)
     tick("drain_final_fwd")
     return flow_of(st[0], h, w), st[0].ene[:n].view(h, w), occ

@@ -19,6 +19,21 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return x.double().sqrt().to(x.dtype)
 
 
+def hypot(x, y):
+    """``jnp.hypot``'s formula, max * sqrt(1 + (min/max)^2) with a correctly
+    rounded sqrt (``torch.hypot`` rounds otherwise), so that it rounds as in
+    the JAX reference on every device; +inf where either is infinite."""
+    if not isinstance(y, torch.Tensor):
+        y = torch.full_like(x, y)
+    a, b = x.abs(), y.abs()
+    is_inf = torch.isposinf(a) | torch.isposinf(b)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    safe = torch.where(hi == 0, torch.ones_like(hi), hi)
+    q = lo / safe
+    r = torch.where(hi == 0, hi, hi * sqrt_rn(1 + q * q))
+    return torch.where(is_inf, torch.full_like(r, float("inf")), r)
+
+
 def tvl1_threshold(u1, u2, rho_c, i1wx, i1wy, grad, l_t):
     """TH operator (tvl2_model.cpp:364-391): v = u + d, d from the three-way
     threshold on rho.  ``l_t`` may be a scalar or a per-cell tensor."""

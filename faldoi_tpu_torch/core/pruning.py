@@ -14,20 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from faldoi_tpu_torch.core.pd_common import sqrt_rn
+from faldoi_tpu_torch.core.pd_common import hypot
 from faldoi_tpu_torch.ops.bicubic import bicubic_warp, bicubic_warp_stack
-
-
-def _hypot(x, y):
-    """``jnp.hypot``'s formula (max * sqrt(1 + (min/max)^2)), so the trust
-    threshold rounds as in the JAX reference on every device."""
-    a, b = x.abs(), y.abs()
-    is_inf = torch.isposinf(a) | torch.isposinf(b)
-    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
-    safe = torch.where(hi == 0, torch.ones_like(hi), hi)
-    q = lo / safe
-    r = torch.where(hi == 0, hi, hi * sqrt_rn(1 + q * q))
-    return torch.where(is_inf, torch.full_like(r, float("inf")), r)
 
 
 def fb_consistency_check(u1, u2, bu1, bu2, epsilon):
@@ -35,7 +23,7 @@ def fb_consistency_check(u1, u2, bu1, bu2, epsilon):
     (u1, u2) given the backward flow (bu1, bu2)."""
     bstack = torch.stack([torch.nan_to_num(bu1), torch.nan_to_num(bu2)])
     u1w, u2w = bicubic_warp_stack(bstack, u1, u2, True)
-    tol = _hypot(u1 + u1w, u2 + u2w)
+    tol = hypot(u1 + u1w, u2 + u2w)
     return (tol <= epsilon).to(torch.int32)
 
 

@@ -1,12 +1,14 @@
 """Functional registry of the port — methods 0 (TV-L1), 1 (weighted
-TV-L1), 2 (NLTV-L1) and 3 (weighted NLTV-L1).
+TV-L1), 2 (NLTV-L1), 3 (weighted NLTV-L1), 4 (TV-CSAD), 5 (weighted
+TV-CSAD), 6 (NLTV-CSAD) and 7 (weighted NLTV-CSAD).
 
 Port of ``faldoi_tpu/models/__init__.py``: the per-method hardcoded
 (lambda, theta, tau) of the local step (energy_model.cpp:704-800), those of
 the global step (global_faldoi.cpp:2132-2158) and its dispatch
 (global_faldoi.cpp:2132-2167).  The weighted methods' global steps are the
 unweighted ones: TV-L1 with the params file's (lambda, theta, tau) for
-methods 0 and 1, NLTV-L1 with the hardcoded ones for methods 2 and 3.
+methods 0 and 1, and with the hardcoded ones NLTV-L1 for methods 2 and 3,
+TV-CSAD for 4 and 5, NLTV-CSAD for 6 and 7.
 """
 
 from __future__ import annotations
@@ -47,18 +49,30 @@ def method_global_params(method: int, prm: P.Parameters):
 def global_refine(method: int, i0n, i1n, u1, u2, prm: P.Parameters,
                   stats=None, i0_planes=None):
     """Dispatch the global step; returns the refined (u1, u2).  The NLTV
-    methods need I0's raw (pd, h, w) colour planes, ``i0_planes``."""
-    if method not in (P.M_TVL1, P.M_TVL1_W, P.M_NLTVL1, P.M_NLTVL1_W):
+    methods (2, 3, 6, 7) need I0's raw (pd, h, w) colour planes,
+    ``i0_planes``."""
+    if method not in range(P.M_TVL1_OCC):
         raise NotImplementedError(f"method {method} not ported yet")
     lam, theta, tau = method_global_params(method, prm)
+    nltv = method in (P.M_NLTVL1, P.M_NLTVL1_W, P.M_NLTVCSAD, P.M_NLTVCSAD_W)
+    if nltv and i0_planes is None:
+        raise ValueError(f"method {method} (NLTV) needs I0's colour planes "
+                         "(i0_planes)")
     if method in (P.M_NLTVL1, P.M_NLTVL1_W):
         from faldoi_tpu_torch.core.global_step_nltv import nltvl1_global
 
-        if i0_planes is None:
-            raise ValueError(f"method {method} (NLTV) needs I0's colour planes "
-                             "(i0_planes)")
         return nltvl1_global(i0n, i1n, i0_planes, u1, u2, lam, theta, tau,
                              prm.warps, stats=stats)
+    if method in (P.M_TVCSAD, P.M_TVCSAD_W):
+        from faldoi_tpu_torch.core.global_step_csad import tvcsad_global
+
+        return tvcsad_global(i0n, i1n, u1, u2, lam, theta, tau, prm.tol_OF,
+                             prm.warps, stats=stats)
+    if method in (P.M_NLTVCSAD, P.M_NLTVCSAD_W):
+        from faldoi_tpu_torch.core.global_step_csad import nltvcsad_global
+
+        return nltvcsad_global(i0n, i1n, i0_planes, u1, u2, lam, theta, tau,
+                               prm.warps, stats=stats)
     from faldoi_tpu_torch.core.global_step import tvl2_global
 
     return tvl2_global(i0n, i1n, u1, u2, lam, theta, tau, prm.tol_OF,

@@ -34,27 +34,27 @@ def _level_sizes(p: int, scale: int):
     return sizes
 
 
-def _shift(y, dr, dc):
-    """Pull the neighbour at (+dr, +dc) into each cell, repeating the canvas
-    edge (clamping at the valid box is applied by the caller)."""
-    if dr == 1:
-        y = torch.cat([y[:, 1:, :], y[:, -1:, :]], dim=1)
-    elif dr == -1:
-        y = torch.cat([y[:, :1, :], y[:, :-1, :]], dim=1)
-    if dc == 1:
-        y = torch.cat([y[:, :, 1:], y[:, :, -1:]], dim=2)
-    elif dc == -1:
-        y = torch.cat([y[:, :, :1], y[:, :, :-1]], dim=2)
-    return y
+def _neighbour_index(ph, pw, p):
+    """Flat canvas indices (B, 4 * P * P) of each cell's right, left, down
+    and up neighbour as ``getpixel_1`` reads them: the cell itself where the
+    neighbour leaves the valid box [0, ph) x [0, pw) (the left and up
+    neighbours leave it only at column or row 0).  ph, pw: (B, 1, 1)."""
+    rows, cols = canvas_ids(p, ph.device)
+    cell = rows * p + cols
+    right = torch.where(cols + 1 < pw, cell + 1, cell)
+    left = torch.where(cols - 1 >= 0, cell - 1, cell).expand_as(right)
+    down = torch.where(rows + 1 < ph, cell + p, cell)
+    up = torch.where(rows - 1 >= 0, cell - p, cell).expand_as(down)
+    return torch.stack([right, left, down.expand_as(right),
+                        up.expand_as(right)], dim=1).reshape(ph.shape[0], -1)
 
 
-def _laplacian(y, ph, pw, rows, cols):
-    """-4 y + the four getpixel_1 neighbours clamped at the valid box."""
-    right = torch.where(cols + 1 < pw, _shift(y, 0, 1), y)
-    left = torch.where(cols - 1 >= 0, _shift(y, 0, -1), y)
-    down = torch.where(rows + 1 < ph, _shift(y, 1, 0), y)
-    up = torch.where(rows - 1 >= 0, _shift(y, -1, 0), y)
-    return -4.0 * y + right + left + down + up
+def _laplacian(y, nbr):
+    """-4 y + the four getpixel_1 neighbours (``_neighbour_index``), summed
+    right, left, down, up."""
+    b, p = y.shape[0], y.shape[-1]
+    n = torch.gather(y.reshape(b, p * p), 1, nbr).view(b, 4, p, p)
+    return -4.0 * y + n[:, 0] + n[:, 1] + n[:, 2] + n[:, 3]
 
 
 def _relax(y, hole, ph, pw, timestep, niter, p, exact):
@@ -64,17 +64,18 @@ def _relax(y, hole, ph, pw, timestep, niter, p, exact):
     inbox = (rows < ph) & (cols < pw)
     diag = rows + cols
     upd = hole & inbox
+    nbr = _neighbour_index(ph, pw, p)
     if not exact:
-        red = diag % 2 == 0
+        red = upd & (diag % 2 == 0)
         for _ in range(niter):
-            for color in (red, ~red):
-                lap = _laplacian(y, ph, pw, rows, cols)
-                y = torch.where(upd & color, y + timestep * lap, y)
+            for mask in (red, upd & ~red):
+                y = torch.where(mask, y + timestep * _laplacian(y, nbr), y)
         return y
+    fronts = upd[None] & (diag == torch.arange(2 * p - 1, device=y.device)
+                          .view(-1, 1, 1, 1))
     for _ in range(niter):
         for d in range(2 * p - 1):
-            lap = _laplacian(y, ph, pw, rows, cols)
-            y = torch.where(upd & (diag == d), y + timestep * lap, y)
+            y = torch.where(fronts[d], y + timestep * _laplacian(y, nbr), y)
     return y
 
 

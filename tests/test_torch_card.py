@@ -629,3 +629,199 @@ def test_nltv_wrappers_raise_on_bad_card_tensors(dev):
     bad[9] = args[9][:, :10]
     with pytest.raises(ValueError, match="wp"):
         nltv_patch_loop(*bad, 4)
+
+
+def _csad_global_inputs(dev, h, w, seed, ltg="finite"):
+    """Whole-image K8 inputs on ``dev``: random planes, b from ``csad_b``,
+    grad at the TV-CSAD floor, l_t a value (``ltg``: "finite", or "inf" /
+    "nan" to take the kernel's sorted-B path)."""
+    from faldoi_tpu_torch.core.pd_common import hypot
+    from faldoi_tpu_torch.ops.csad import csad_b, image_masks
+
+    rng = np.random.default_rng(seed)
+    i0, i1w, gx, gy, u1, u2 = (torch.as_tensor(rng.normal(0, s, (h, w)).astype(
+        np.float32), device=dev) for s in (0.3, 0.3, 0.05, 0.05, 2.0, 2.0))
+    grad = hypot(gx * gx + gy * gy, 0.01)
+    m, n = image_masks(h, w, dev)
+    b = csad_b(i0, i1w, gx, gy, u1, u2, grad, m)
+    l_t = {"finite": float(np.float32(0.85) * np.float32(0.3)),
+           "inf": float("inf"), "nan": float("nan")}[ltg]
+    return (u1, u2, b, gx.contiguous(), gy.contiguous(), grad.contiguous(), l_t,
+            m, n)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w,ltg", [(436, 1024, "finite"), (5, 7, "finite"),
+                                     (61, 83, "finite"), (9, 11, "inf"),
+                                     (9, 11, "nan")])
+def test_k8_global_matches_twin_on_card(dev, h, w, ltg):
+    """K8's whole-image form against its twin on the card, bit for bit, at
+    436x1024, a ragged 5x7 (every pixel near an edge) and 61x83; l_t = inf
+    and NaN take the kernel's path that sorts the second list."""
+    from faldoi_tpu_torch.ops.csad import csad_vstep, csad_vstep_plain
+
+    args = _csad_global_inputs(dev, h, w, 160 + h, ltg)
+    before = csad_vstep.launches
+    v1, v2 = csad_vstep(*args)
+    assert csad_vstep.launches == before + 1
+    w1, w2 = csad_vstep_plain(*args)
+    assert _same_bits(v1, w1) and _same_bits(v2, w2)
+    if ltg == "finite":
+        assert torch.isfinite(v1).all() and bool((v1 != args[0]).any())
+        assert args[8][0, 0] == 15             # a corner pixel
+
+
+def _csad_patch_inputs(dev, p, b, seed, weighted):
+    """Patch-form K8 inputs on ``dev``: boxes clamped at the edges of a
+    40x56 image (out-of-box cells, where no neighbour counts), canvases of a
+    constant flow plus noise, b from ``csad_b``; l_t one value, or one a
+    cell (the weighted methods' window); i1wx 0 on some out-of-box cells."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.core.pd_common import hypot
+    from faldoi_tpu_torch.ops.csad import canvas_masks, csad_b
+
+    h, w = 40, 56
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.integers(0, h * w, b))
+    idx[:4] = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w])[:b]
+    _, _, _, _, ph, pw = patch_geometry(idx, h, w, p // 2)
+    ph, pw = ph.to(torch.int32).to(dev), pw.to(torch.int32).to(dev)
+    i0, i1w, gx, gy, u1, u2 = (torch.as_tensor(rng.normal(mu, s, (b, p, p)).astype(
+        np.float32), device=dev) for mu, s in ((0, .3), (0, .3), (0, .05),
+                                               (0, .05), (2.6, .3), (-1.4, .3)))
+    gx[:, -1, :] = 0.0
+    grad = hypot(gx * gx + gy * gy, 0.01)
+    m, n = canvas_masks(ph, pw, p)
+    bb = csad_b(i0, i1w, gx, gy, u1, u2, grad, m)
+    l_t = torch.tensor(np.float32(0.85) * np.float32(0.3), device=dev)
+    if weighted:
+        l_t = (l_t * torch.as_tensor(rng.uniform(0.1, 1, (b, p, p)).astype(
+            np.float32), device=dev)).contiguous()
+    return (u1, u2, bb, gx.contiguous(), gy.contiguous(), grad.contiguous(), l_t,
+            m, n, ph, pw)
+
+
+@pytest.mark.parametrize("p,b,weighted", [(11, 8192, False), (11, 1, False),
+                                          (11, 1900, True), (3, 333, False)])
+def test_k8_patch_matches_twin_on_card(dev, p, b, weighted):
+    """K8's patch form against its twin on the card, bit for bit, NaN and
+    +-inf of the out-of-box cells included."""
+    from faldoi_tpu_torch.ops.csad import csad_vstep, csad_vstep_plain
+
+    args = _csad_patch_inputs(dev, p, b, 170 + b, weighted)
+    before = csad_vstep.launches
+    v1, v2 = csad_vstep(*args)
+    assert csad_vstep.launches == before + 1
+    w1, w2 = csad_vstep_plain(*args[:9])
+    assert _same_bits(v1, w1) and _same_bits(v2, w2)
+    if b > 1:
+        out = args[8] == 0
+        assert bool(out.any()) and bool(v1[out].isnan().any())
+
+
+def test_k8_wrapper_raises_on_bad_card_tensors(dev):
+    from faldoi_tpu_torch.ops.csad import csad_vstep
+
+    args = list(_csad_global_inputs(dev, 9, 11, 180))
+    bad = list(args)
+    bad[2] = args[2][:47]
+    with pytest.raises(ValueError, match="b"):
+        csad_vstep(*bad)
+    bad = list(args)
+    bad[5] = args[5].double()
+    with pytest.raises(TypeError, match="denom"):
+        csad_vstep(*bad)
+    pargs = list(_csad_patch_inputs(dev, 11, 20, 181, False))
+    bad = list(pargs)
+    bad[9] = pargs[9].to(torch.int64)
+    with pytest.raises(TypeError, match="ph"):
+        csad_vstep(*bad)
+
+
+@pytest.mark.parametrize("method", [4, 5, 6, 7])
+def test_csad_solver_on_card_matches_cpu(dev, method):
+    """The CSAD patch solvers on the card (K0, K4, K8) against their CPU run
+    (the twins), bit for bit, at P 11 and 3."""
+    from faldoi_tpu_torch.core.functionals import solver_for
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    h, w = 40, 56
+    scs = {d: _nltv_consts(d, h, w, method)[0] for d in ("cpu", dev)}
+    rng = np.random.default_rng(185)
+    idx = torch.as_tensor(rng.choice(h * w, 200, replace=False))
+    idx[:4] = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w])
+    for p in (11, 3):
+        geo = patch_geometry(idx, h, w, p // 2)
+        u0 = torch.as_tensor(rng.normal(2.6, 0.3, (200, p, p)).astype(np.float32))
+        v0 = torch.as_tensor(rng.normal(-1.4, 0.3, (200, p, p)).astype(np.float32))
+        outs = [solver_for(method)(scs[d], *(g.to(d) for g in geo), u0.to(d),
+                                   v0.to(d), p, 1, 4) for d in ("cpu", dev)]
+        for x, y in zip(outs[1], outs[0]):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_csad_sweep_on_card_matches_cpu(dev):
+    """``sweep_body`` with fill "patch" (the exact raster fill, m4's) on the
+    card against the CPU, bit for bit: the seeds inserted and three sweeps
+    on each device from the same seeds.  The dump slot, which takes the
+    masked writes in no fixed order, is left out."""
+    from faldoi_tpu_torch.core.local_step import (
+        init_state, insert_seeds, state_to_numpy, sweep_body,
+    )
+    from faldoi_tpu_torch.ops.csad import csad_vstep
+
+    h, w = 40, 56
+    rng = np.random.default_rng(186)
+    sc, _, gf = _nltv_consts("cpu", h, w, 4)
+    seeds = syn.make_seeds(gf, syn.random_seed_positions(h, w, 30, rng), rng)
+    states = []
+    for d in ("cpu", dev):
+        sc = _nltv_consts(d, h, w, 4)[0]
+        sal = torch.ones(h * w + 1, device=d)
+        st = insert_seeds(init_state(h, w, d), seeds, sc, sal, 1, 4, method=4)
+        tr = torch.ones((h, w), device=d)
+        before = csad_vstep.launches
+        for _ in range(3):
+            st, k = sweep_body(st, sc, tr, sal, 0, h, w, 5, 256, 1, 4, 64, 4,
+                               fill="patch")
+            assert k > 0
+        assert (csad_vstep.launches > before) == (d != "cpu")
+        states.append(state_to_numpy(st))
+    for k in states[0]:                          # the dump slot left out
+        assert np.array_equal(states[0][k][:h * w], states[1][k][:h * w],
+                              equal_nan=True), k
+
+
+@pytest.mark.parametrize("method", [4, 6])
+def test_csad_global_on_card_matches_cpu(dev, method):
+    """tvcsad_global / nltvcsad_global on the card (K4, K8) against their
+    CPU run, bit for bit, with the same PD iterations per warp (2 warps of
+    at most 40 iterations at 40x56)."""
+    from faldoi_tpu_torch.core.global_step_csad import (
+        nltvcsad_global, tvcsad_global,
+    )
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    h, w = 40, 56
+    i0, i1, gf, _ = syn.make_pair(h, w, seed=187)
+    flow = (gf + np.random.default_rng(188).normal(0, 0.3, gf.shape)
+            ).astype(np.float32)
+    outs = []
+    for d in ("cpu", dev):
+        a, b = prepare_pair(i0, i1, device=d)
+        f1 = torch.as_tensor(flow[..., 0], device=d)
+        f2 = torch.as_tensor(flow[..., 1], device=d)
+        st = {}
+        if method == 4:
+            u1, u2 = tvcsad_global(a, b, f1, f2, 0.85, 0.3, 0.125, 0.1, 2,
+                                   max_iters=40, stats=st)
+        else:
+            u1, u2 = nltvcsad_global(a, b, i0, f1, f2, 0.85, 0.3, 0.1, 2,
+                                     max_iters=40, stats=st)
+        outs.append((u1.cpu(), u2.cpu(), st["global_iters"]))
+    assert outs[0][2] == outs[1][2]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

@@ -223,6 +223,6 @@ def test_global_refine_dispatch(frames):
                            T(flow[..., 1]), prm)
     w1, w2 = tvl2_global(T(a), T(b), T(flow[..., 0]), T(flow[..., 1]), warps=1)
     assert torch.equal(u1, w1) and torch.equal(u2, w2)
-    with pytest.raises(NotImplementedError, match="method 4 not ported yet"):
-        global_refine(P.M_TVCSAD, T(a), T(b), T(flow[..., 0]),
+    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+        global_refine(P.M_TVL1_OCC, T(a), T(b), T(flow[..., 0]),
                       T(flow[..., 1]), prm)

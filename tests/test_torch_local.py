@@ -273,7 +273,7 @@ def test_match_growing_is_method_0_only(setup):
     from faldoi_tpu_torch.core.match_growing import match_growing
 
     prm = P.Parameters()
-    prm.val_method = P.M_TVCSAD
+    prm.val_method = P.M_TVL1_OCC
     z = torch.zeros((H, W))
-    with pytest.raises(NotImplementedError, match="method 4 not ported yet"):
+    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
         match_growing(setup["seeds"], setup["seeds"], z, z, prm)

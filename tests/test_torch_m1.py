@@ -94,8 +94,8 @@ def test_consts_carry_the_window(setup):
         close(got, want)
     assert make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01,
                               11).w1d is None
-    with pytest.raises(NotImplementedError, match="method 4 not ported yet"):
-        make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01, 11, 4)
+    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+        make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01, 11, 8)
 
 
 def _patches(p, b, seed):
@@ -161,7 +161,7 @@ def test_unported_methods_raise():
 
     assert solver_for(0) is solve_tvl1 and solver_for(1) is solve_tvl1_w
     assert solver_for(2) is solve_nltvl1 and solver_for(3) is solve_nltvl1_w
-    for m in range(4, 9):
+    for m in (8, 9):
         with pytest.raises(NotImplementedError, match=f"method {m} not ported"):
             solver_for(m)
 
@@ -372,8 +372,8 @@ def test_method_global_params_match_jax():
     for m in range(9):
         assert method_global_params(m, prm) == jgp(m, jprm)
     z = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="method 4 not ported yet"):
-        global_refine(4, z, z, z, z, prm)
+    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+        global_refine(8, z, z, z, z, prm)
 
 
 def _snapshot_fills(d):

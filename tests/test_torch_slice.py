@@ -178,7 +178,8 @@ def test_cli_round_trip(tmp_path, pair):
                          flow[..., 1].contiguous())
     np.testing.assert_array_equal(read_flo(var),
                                   torch.stack([u1, u2], -1).numpy())
+    # methods 0-7 are ported; with two frames 8 falls back to 0, so 9
     assert local_faldoi.main([ims, str(tmp_path / "go.flo"),
-                              str(tmp_path / "ba.flo"), out, sim, "-m", "4",
+                              str(tmp_path / "ba.flo"), out, sim, "-m", "9",
                               "-device", "cpu"]) != 0
-    assert global_faldoi.main([ims, out, var, "-m", "4", "-device", "cpu"]) != 0
+    assert global_faldoi.main([ims, out, var, "-m", "9", "-device", "cpu"]) != 0

@@ -24,8 +24,9 @@ just before it and read just after:
   the pair written as ``.npy`` frames: K0 crops the 24 weight planes, K7
   runs the patch PD loops and K6 the global ones;
 * the m4 (TV-CSAD) path the same way, ``local_faldoi -m 4`` then
-  ``global_faldoi -m 4``: K8 (the CSAD median prox) runs the v-step of every
-  patch PD iteration and of every global PD iteration;
+  ``global_faldoi -m 4``: the K8 loop runs the whole PD loop of every patch
+  solve batch and warp in one launch, and K8 (the CSAD median prox) the
+  v-step of every global PD iteration;
 * the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
 * the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
@@ -52,10 +53,16 @@ an iteration), K7
 methods 2 and 3, and K0's planes form on the 24 weight planes at the same
 shapes.  K8 is held bit for bit to its twin in its whole-image form at
 436x1024 (a corner pixel has 15 neighbours) and 5x7, and in its patch form
-at P 11 with B 8192, 1 and 1900 on boxes clipped at the image edge (out-of-box
-cells: NaN and +-inf included) and, after the paths, at the m4 path's median
-B; it is timed beside its twin and beside ``torch.sort`` + ``gather`` of the
-97 stacked entries (no single PyTorch call selects a per-cell rank).  The m0
+at P 11 with B 8192, 297, 1 and 1900 on boxes clipped at the image edge
+(out-of-box cells: NaN and +-inf included); it is timed beside its twin,
+beside ``torch.sort`` + ``gather`` of the 97 stacked entries (no single
+PyTorch call selects a per-cell rank) and beside the times of its former
+design (a thread a cell, insertion sort; a constant).  The K8 loop is held bit for bit to its twin and to
+the per-iteration form it replaced (K8's patch form and plain ops an
+iteration) at P 11 with B 8192, 297, 1 and 1900 (m5's per-cell l_t), P 3 at
+the seed count and B 297 under a tol that stops every canvas after one
+step, and after the paths at the m4 path's median B; the m4 path's loop
+calls are then replayed through both forms and their times summed.  The m0
 and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
@@ -85,7 +92,8 @@ SEED = 0
 EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_sift",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
-         "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes")
+         "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
+         "per_iteration_ms", "path_calls", "path_per_iteration_s", "path_loop_s")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -97,7 +105,14 @@ ITERS_SIFT = [400] * 5
 # the kernels whose main path is the m2 one, and the m4 one (every other
 # kernel's is the faldoi_sift path, and it runs on the m0 path too)
 M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
-M4_KERNELS = ("csad_vstep",)
+M4_KERNELS = ("csad_vstep", "csad_patch_loop")
+# K8's card times in its former design (a thread a cell, insertion sort), a
+# graph of 20 calls on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table), printed beside this run's
+FORMER_K8_MS = {"436x1024": "1.0456-1.0480", "5x7": "0.080-0.081",
+                "P 11 B 8192": "2.942-2.958", "P 11 B 1": "0.054",
+                "P 11 B 1900 m5, per-cell l_t": "0.736-0.746",
+                "P 11 B 297": "0.166-0.171"}
 # the CPU-vs-card crops of methods 4-7: smaller than CROP, as their CPU
 # twins (the 97-entry sort, the exact raster fill) take ~2 min at 48x64 on
 # one thread
@@ -831,8 +846,8 @@ def k8_bytes(cells, lt_cells=False, boxes=0):
     return cells * 4 * (48 + 5 + (1 if lt_cells else 0) + 2) + boxes * 8
 
 
-def k8_patch_args(dev, rng, sc, b, weighted=False):
-    """K8's patch-form call as the m4 solver makes it: B canvases of P 11
+def k8_patch_args(dev, rng, sc, b, weighted=False, p=11):
+    """K8's patch-form call as the m4 solver makes it: B canvases of P (11)
     from ``solver_patches`` (boxes clipped at the image edge: out-of-box
     cells, with no neighbour), the source crop (K0), the warp (K4), grad at
     the TV-CSAD floor, the breakpoints; l_t one value, or one a cell."""
@@ -843,17 +858,17 @@ def k8_patch_args(dev, rng, sc, b, weighted=False):
     from faldoi_tpu_torch.ops.patch_gather import gather_patches
     from faldoi_tpu_torch.ops.stencils import canvas_ids
 
-    oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, b, 11, centres=True)
+    oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, b, p, centres=True)
     i1w, gx, gy = bicubic_sample_patches(sc.i1_stack, oy, ox, ph, pw, u1, u2, 3)
-    i0p = gather_patches(sc.i0pad[:, :, None], oy, ox, 11)[:, :, 0, :].permute(2, 0, 1)
+    i0p = gather_patches(sc.i0pad[:, :, None], oy, ox, p)[:, :, 0, :].permute(2, 0, 1)
     grad = hypot(gx * gx + gy * gy, 0.01).contiguous()
-    m, n = canvas_masks(ph, pw, 11)
+    m, n = canvas_masks(ph, pw, p)
     bb = csad_b(i0p, i1w, gx, gy, u1, u2, grad, m)
     l_t = sc.lambda_ * sc.theta
     if weighted:
-        rows, cols = canvas_ids(11, dev)
+        rows, cols = canvas_ids(p, dev)
         l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy.long(), ox.long(), cj, ci,
-                               5)).contiguous()
+                               p // 2)).contiguous()
     return (u1, u2, bb, gx.contiguous(), gy.contiguous(), grad, l_t, m, n, ph, pw)
 
 
@@ -891,7 +906,8 @@ def k8_row(shape, args, patch):
                **bound(k8_bytes(u1.numel(), lt_cells, u1.shape[0] if patch else 0),
                        k8_ops(n)))
     log(f"K8 csad_vstep {shape}: bit-exact (non-finite cells "
-        f"{row['nonfinite']}); kernel {row['ms']:.4f} ms  twin {row['plain_ms']:.4f} "
+        f"{row['nonfinite']}); kernel {row['ms']:.4f} ms (former kernel: "
+        f"{FORMER_K8_MS.get(shape, 'not measured')} ms)  twin {row['plain_ms']:.4f} "
         f"ms  torch.sort + gather of the 97 entries {row['sort_ms']:.4f} ms  bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
@@ -902,9 +918,9 @@ def check_k8(dev, rng, a, b, gf, scs):
     at 436x1024 from a warp of the synthetic pair (TV-CSAD's grad and
     breakpoints; a corner pixel has n = 15) and at a ragged 5x7; the patch
     form at P 11 from the m4 and m5 solvers' stages (``scs``: their consts
-    by method) at B 8192, 1 and a ragged 1900 (the last m5's, with its
-    per-cell l_t, the window), on boxes clipped at the image edge.  The
-    record is 436x1024's."""
+    by method) at B 8192, 297 (the m4 path's median batch), 1 and a
+    ragged 1900 (the last m5's, with its per-cell l_t, the window), on boxes
+    clipped at the image edge.  The record is 436x1024's."""
     from faldoi_tpu_torch.core.pd_common import hypot
     from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
     from faldoi_tpu_torch.ops.csad import csad_b, image_masks
@@ -933,7 +949,7 @@ def check_k8(dev, rng, a, b, gf, scs):
     rows.append(k8_row("5x7", (u1s, u2s, csad_b(i0s, i1ws, gxs, gys, u1s, u2s, gs,
                                                  ms), gxs, gys, gs, l_t, ms, ns),
                        False))
-    for bsz, weighted in ((BSZ, False), (1, False), (1900, True)):
+    for bsz, weighted in ((BSZ, False), (297, False), (1, False), (1900, True)):
         rows.append(k8_row(f"P 11 B {bsz}" + (" m5, per-cell l_t" if weighted else ""),
                            k8_patch_args(dev, rng, scs[5 if weighted else 4], bsz,
                                          weighted), True))
@@ -942,6 +958,150 @@ def check_k8(dev, rng, a, b, gf, scs):
                 replaces="faldoi_tpu/core/global_step_csad.py:68",
                 library_ms=None, corner_n=corner, shapes=rows,
                 **{k: v for k, v in rows[0].items() if k != "nonfinite"})
+
+
+def k8_per_iteration_loop(u1, u2, v1, v2, b, i1wx, i1wy, grad, l_t, m, n, ph,
+                          pw, theta, tau, tol2, max_iters):
+    """The inert-TV patch PD loop as the m4 / m5 solver ran it before the K8
+    loop: K8's patch form a PD iteration, the primal step, err and the
+    masked updates as plain ops, ``max_iters`` iterations, no host sync.
+    Returns (u1, u2, v1, v2, iterations)."""
+    from faldoi_tpu_torch.ops.csad import csad_vstep
+    from faldoi_tpu_torch.ops.stencils import canvas_ids, canvas_sum
+
+    rows, cols = canvas_ids(u1.shape[-1], u1.device)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    zero = torch.zeros((), dtype=u1.dtype, device=u1.device)
+    npx = (ph * pw).to(u1.dtype)
+    st = (u1, u2, u1, u2, v1, v2,
+          torch.full(u1.shape[:1], float("inf"), dtype=u1.dtype, device=u1.device),
+          torch.zeros(u1.shape[:1], dtype=torch.int32, device=u1.device))
+    for _ in range(max_iters):
+        c1, c2, _, _, _, _, err, it = st
+        nv1, nv2 = csad_vstep(c1, c2, b, i1wx, i1wy, grad, l_t, m, n, ph, pw)
+        nu1 = c1 - tau * ((c1 - nv1) / theta)
+        nu2 = c2 - tau * ((c2 - nv2) / theta)
+        e1, e2 = nu1 - c1, nu2 - c2
+        nerr = canvas_sum(torch.where(inbox, e1 * e1 + e2 * e2, zero)) / npx
+        run = (err > tol2) & (it < max_iters)
+        lane = run.view(-1, 1, 1)
+        new = (nu1, nu2, 2 * nu1 - c1, 2 * nu2 - c2, nv1, nv2)
+        st = tuple(torch.where(lane, nw, a) for a, nw in zip(st[:6], new)) + (
+            torch.where(run, nerr, err), torch.where(run, it + 1, it))
+    return st[0], st[1], st[4], st[5], st[7]
+
+
+def k8_loop_bound(args, iters):
+    """The K8 loop's bound for one call: its inputs read once (u, v, the 48
+    b planes, i1wx, i1wy, grad, l_t where one a cell, the boxes), u, v and
+    the iteration counts written once; K8's operations a cell (``k8_ops``)
+    and 12 for the primal step and err, for every step a canvas takes."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound
+
+    u1, l_t, n = args[0], args[8], args[10]
+    nb, cells = u1.shape[0], u1.numel()
+    lt_cells = l_t.dim() != 0
+    nbytes = cells * 4 * (4 + 48 + 3 + (1 if lt_cells else 0) + 4) + nb * 12
+    ops = int(((5 * n + 26).sum(dim=(1, 2)) * iters.to(n.dtype)).sum())
+    return bound(nbytes, ops)
+
+
+def k8_loop_args(dev, rng, sc, b, weighted=False, p=11, tol2=None):
+    """The K8 loop's call for one warp of the m4 (m5) solve: K8's patch
+    inputs (``k8_patch_args``), v = u, the consts' theta, tau and tol^2."""
+    args = list(k8_patch_args(dev, rng, sc, b, weighted, p))
+    return args[:2] + args[:2] + args[2:] + [
+        sc.theta, sc.tau, sc.tol * sc.tol if tol2 is None else
+        torch.tensor(tol2, dtype=torch.float32, device=dev)]
+
+
+def k8_loop_row(shape, args):
+    """The K8 loop on one call's arguments: bit for bit against its twin and
+    against the per-iteration form (K8's patch form in the loop it
+    replaced), canvases and iteration counts; timed as a graph of 20 calls
+    (the card's time), eagerly (with the wrapper's host work), beside the
+    per-iteration form (eager) and the twin.  Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop, csad_patch_loop_plain
+
+    got = csad_patch_loop(*args, 4)
+    want = csad_patch_loop_plain(*args, 4)
+    per = k8_per_iteration_loop(*args, 4)
+    torch.cuda.synchronize()
+    for other, name in ((want, "its twin"), (per, "the per-iteration form")):
+        if not all(same_bits(x, y) for x, y in zip(got, other)):
+            raise AssertionError(f"K8 loop {shape} differs from {name}")
+    iters = got[4]
+    row = dict(shape=shape, max_abs_err=0.0,
+               ms=cuda_ms(lambda: csad_patch_loop(*args, 4), graph=True),
+               eager_ms=cuda_ms(lambda: csad_patch_loop(*args, 4)),
+               per_iteration_ms=cuda_ms(lambda: k8_per_iteration_loop(*args, 4),
+                                        reps=5),
+               plain_ms=cuda_ms(lambda: csad_patch_loop_plain(*args, 4), reps=3,
+                                warmup=1),
+               iterations={str(k): int((iters == k).sum()) for k in range(5)},
+               **k8_loop_bound(args, iters))
+    log(f"K8 loop csad_patch_loop {shape}: bit-exact (canvases, iteration "
+        f"counts {row['iterations']}); kernel {row['ms']:.4f} ms (eager "
+        f"{row['eager_ms']:.4f})  per-iteration form {row['per_iteration_ms']:.4f} "
+        f"ms  twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_k8_loop(dev, rng, scs, n_seeds):
+    """The K8 loop at the solver's shapes, bit for bit against its twin and
+    the per-iteration form: P 11 at B 8192, 297 and 1 (m4), 1900 (m5's
+    per-cell l_t), P 3 at the seed count, and B 297 with a tol^2 of 1e10
+    (every canvas stops after one step); boxes clipped at the image edge.
+    The record is the first row's."""
+    rows = [k8_loop_row(f"P {p} B {b}" + (" m5, per-cell l_t" if m == 5 else "")
+                        + (" tol^2 1e10" if big else ""),
+                        k8_loop_args(dev, rng, scs[m], b, m == 5, p,
+                                     1e10 if big else None))
+            for p, b, m, big in ((11, BSZ, 4, False), (11, 297, 4, False),
+                                 (11, 1, 4, False), (11, 1900, 5, False),
+                                 (3, n_seeds, 4, False), (11, 297, 4, True))]
+    if any(r["iterations"]["1"] != int(r["shape"].split()[3]) for r in rows
+           if "tol" in r["shape"]):
+        raise AssertionError("K8 loop: a canvas ran past one step under tol^2 1e10")
+    return dict(name="csad_patch_loop", route="cuda",
+                source="faldoi_tpu_torch/csrc/csad.cu",
+                replaces="faldoi_tpu/core/functionals.py:579", library_ms=None,
+                **{k: v for k, v in rows[0].items() if k != "iterations"},
+                shapes=rows)
+
+
+def replay_k8_path(dev, rng, sc, calls):
+    """K8's patch-form work of the m4 path, measured: the loop calls the
+    path made (``calls``: (B, P) each) replayed on synthetic canvases of the
+    same B and P, through the per-iteration form and through the K8 loop,
+    each call timed between CUDA events; returns the two sums in seconds.
+    The per-iteration form runs every iteration of every call, the loop
+    stops each canvas at its tol as the path's does."""
+    from collections import Counter
+
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop
+
+    sums = {"per_iteration": 0.0, "loop": 0.0}
+    for p in sorted({cp for _, cp in calls}):
+        counts = Counter(b for b, cp in calls if cp == p)
+        pool = k8_loop_args(dev, rng, sc, max(counts), p=p)
+        for b, k in sorted(counts.items()):
+            args = [x[:, :b].contiguous() if x.dim() == 4 else
+                    (x[:b].contiguous() if x.dim() else x) for x in pool]
+            for name, fn in (("per_iteration", k8_per_iteration_loop),
+                             ("loop", csad_patch_loop)):
+                fn(*args, 4)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(k):
+                    fn(*args, 4)
+                end.record()
+                torch.cuda.synchronize()
+                sums[name] += start.elapsed_time(end) / 1e3
+    return sums
 
 
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
@@ -984,28 +1144,28 @@ def write_frames(tmp, i0, i1):
     return ims
 
 
-class k8_calls:
-    """While active, keeps the batch size of every patch-form K8 call the
-    CSAD solvers make (``functionals.csad_vstep``), so that the kernel can be
-    timed at the path's typical B afterwards.  Launches are counted as
+class k8_loop_calls:
+    """While active, keeps (B, P) of every K8 loop call the CSAD solvers
+    make (``functionals.csad_patch_loop``), so that the path's patch-form
+    work can be replayed and timed afterwards.  Launches are counted as
     ever (by the wrapper it calls)."""
 
     def __enter__(self):
         from faldoi_tpu_torch.core import functionals
 
-        self.sizes, self.inner = [], functionals.csad_vstep
+        self.calls, self.inner = [], functionals.csad_patch_loop
 
         def keep(*args, **kw):
-            self.sizes.append(args[0].shape[0])
+            self.calls.append(tuple(args[0].shape[:2]))
             return self.inner(*args, **kw)
 
-        functionals.csad_vstep = keep
-        return self.sizes
+        functionals.csad_patch_loop = keep
+        return self.calls
 
     def __exit__(self, *exc):
         from faldoi_tpu_torch.core import functionals
 
-        functionals.csad_vstep = self.inner
+        functionals.csad_patch_loop = self.inner
 
 
 def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
@@ -1078,15 +1238,16 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
         iters = st["global_iters"]
         if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
             raise AssertionError(f"m4 global iterations {iters}")
-        for name in ("csad_vstep", "gather_plane_patches", "gather_patches",
-                     "bicubic_sample_patches", "bicubic_warp_planes"):
+        for name in ("csad_vstep", "csad_patch_loop", "gather_plane_patches",
+                     "gather_patches", "bicubic_sample_patches",
+                     "bicubic_warp_planes"):
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the m4 path")
-        # K8: one launch a PD iteration of every global warp, the rest in
-        # the patch solves
-        if launches["csad_vstep"] <= sum(iters):
+        # K8: one launch a PD iteration of every global warp and no other
+        # (the patch solves run the K8 loop)
+        if launches["csad_vstep"] != sum(iters):
             raise AssertionError(f"K8 launched {launches['csad_vstep']} times, "
-                                 f"not more than the {sum(iters)} global ones")
+                                 f"not the {sum(iters)} global PD iterations")
     return launches, st, secs
 
 
@@ -1227,7 +1388,7 @@ def run_all(jobs, tmp):
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.kernels import build as kb
     from faldoi_tpu_torch.models import method_local_params
-    from faldoi_tpu_torch.ops.csad import csad_vstep
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop, csad_vstep
     from faldoi_tpu_torch.ops.bicubic import (
         bicubic_sample, bicubic_sample_patches, bicubic_warp_planes,
     )
@@ -1269,8 +1430,8 @@ def run_all(jobs, tmp):
     del scs
     sc45 = {m: make_solver_consts(a, b, *method_local_params(m, 5), 0.01, 11, m)
             for m in (4, 5)}
-    k8_rec = check_k8(dev, rng, a, b, gf, sc45)
-    kernels.append(k8_rec)
+    kernels += [check_k8(dev, rng, a, b, gf, sc45),
+                check_k8_loop(dev, rng, sc45, len(pos_f))]
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -1313,7 +1474,7 @@ def run_all(jobs, tmp):
     # launches it any more (the whole-image warps take the flow form)
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
-                nltv_patch_loop, csad_vstep, bicubic_sample)
+                nltv_patch_loop, csad_vstep, csad_patch_loop, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -1342,20 +1503,22 @@ def run_all(jobs, tmp):
                              f"{ITERS_M0}")
 
     # phase 5b: the m2 (NLTV-L1) and m4 (TV-CSAD) paths through the stage
-    # CLIs at full width, counting launches; K8's patch-form batch sizes
-    # are kept on the m4 path
+    # CLIs at full width, counting launches; the K8 loop's (B, P) are kept
+    # on the m4 path
     launches_m2, _, _ = run_stage_path(2, i0, i1, go, ba, gf, wrappers)
-    with k8_calls() as k8_sizes:
+    with k8_loop_calls() as loop_calls:
         launches_m4, st_m4, _ = run_stage_path(4, i0, i1, go, ba, gf, wrappers)
-    patch_calls = len(k8_sizes)
-    if launches_m4["csad_vstep"] != patch_calls + sum(st_m4["global_iters"]):
-        raise AssertionError(f"K8 launched {launches_m4['csad_vstep']} times on the "
-                             f"m4 path: {patch_calls} patch calls and "
-                             f"{sum(st_m4['global_iters'])} global iterations")
-    bs = sorted(k8_sizes)
-    log(f"K8 on the m4 path: {patch_calls} patch-form calls (B min {bs[0]}, "
-        f"median {bs[len(bs) // 2]}, max {bs[-1]}, sum {sum(bs)}) and "
-        f"{sum(st_m4['global_iters'])} whole-image calls (one a global PD iteration)")
+    loop_calls = [c for c in loop_calls if c[0] > 0]
+    if launches_m4["csad_patch_loop"] != len(loop_calls):
+        raise AssertionError(f"the K8 loop launched {launches_m4['csad_patch_loop']} "
+                             f"times on the m4 path, not once for each of its "
+                             f"{len(loop_calls)} solve batches a warp")
+    bs = sorted(b for b, _ in loop_calls)
+    log(f"K8 on the m4 path: {len(loop_calls)} K8 loop calls, one a patch solve "
+        f"batch a warp (B min {bs[0]}, median {bs[len(bs) // 2]}, max {bs[-1]}, "
+        f"sum {sum(bs)}; {sum(p == 3 for _, p in loop_calls)} at P 3), and "
+        f"{launches_m4['csad_vstep']} whole-image K8 calls (one a global PD "
+        "iteration)")
 
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
@@ -1375,14 +1538,26 @@ def run_all(jobs, tmp):
         launches_sift = run_sift_path(i0, i1, gf, wrappers)
 
     # phase 8: K4's flow form on the flows the two paths gave the FB check,
-    # and K8's patch form at the m4 path's median B (after the paths, so
-    # these launches are in no path's count)
+    # the K8 loop at the m4 path's median B, and the m4 path's loop calls
+    # replayed through the per-iteration form and the loop (after the
+    # paths, so these launches are in no path's count)
     flow_rec = [k for k in kernels if k["name"] == "bicubic_warp_planes"][0]
     flow_rec["shapes"] = (flow_rec["shapes"] + check_k4_path("m0", fb_m0)
                           + check_k4_path("faldoi_sift", fb_sift))
-    k8_rec["shapes"].append(k8_row(f"P 11 B {bs[len(bs) // 2]} (the m4 path's "
-                                   "median)", k8_patch_args(
-                                       dev, rng, sc45[4], bs[len(bs) // 2]), True))
+    loop_rec = [k for k in kernels if k["name"] == "csad_patch_loop"][0]
+    loop_rec["shapes"].append(k8_loop_row(
+        f"P 11 B {bs[len(bs) // 2]} (the m4 path's median)",
+        k8_loop_args(dev, rng, sc45[4], bs[len(bs) // 2])))
+    t0 = time.perf_counter()
+    sums = replay_k8_path(dev, rng, sc45[4], loop_calls)
+    loop_rec.update(path_calls=len(loop_calls),
+                    path_per_iteration_s=sums["per_iteration"],
+                    path_loop_s=sums["loop"])
+    log(f"K8's patch-form work of the m4 path, its {len(loop_calls)} loop calls "
+        f"replayed on synthetic canvases of their B and P, CUDA events around "
+        f"each: per-iteration form (K8's patch form and ~20 plain ops an "
+        f"iteration, 4 iterations) {sums['per_iteration']:.4f} s, the K8 loop "
+        f"{sums['loop']:.4f} s ({time.perf_counter() - t0:.1f} s)")
 
     paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
                  sift=launches_sift)

@@ -37,10 +37,13 @@ kernel K8 (``ops.csad.csad_vstep``), with ``grad = hypot(|grad I1w|^2,
 0.01)`` (tvcsad_model.cpp:361).  Methods 6 and 7 regularise with the NLTV
 duals of methods 2 and 3 (plain PyTorch here); methods 4 and 5 keep the
 reference's inert TV: its duals read flow-gradient buffers that are never
-written, so they stay 0 and the eval's TV term is 0 (``true_tv=True`` runs
-the per-component TV projection instead, JAX's ``FALDOI_CSAD_TRUE_TV=1``).
+written, so they stay 0 and the eval's TV term is 0, and a warp's whole
+PD loop is one launch of the K8 loop (``ops.csad.csad_patch_loop``)
+(``true_tv=True`` runs the per-component TV projection instead, JAX's
+``FALDOI_CSAD_TRUE_TV=1``).
 
-The TV-L1 and CSAD patch PD arithmetic is plain PyTorch.
+The TV-L1 patch PD arithmetic, and that of the CSAD methods but the inert
+TV's loop, is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ from faldoi_tpu_torch.core.pd_common import (
 )
 from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
 from faldoi_tpu_torch.ops.csad import (
-    canvas_masks, csad_b, csad_vstep, neighbour_stack,
+    canvas_masks, csad_b, csad_patch_loop, csad_vstep, neighbour_stack,
 )
 from faldoi_tpu_torch.ops.gaussian import gaussian1d_weight
 from faldoi_tpu_torch.ops.nonlocal_ops import (
@@ -69,7 +72,8 @@ from faldoi_tpu_torch.ops.patch_gather import (
     gather_patches, gather_plane_patches, pad_for_crops,
 )
 from faldoi_tpu_torch.ops.stencils import (
-    canvas_ids, centered_gradient, divergence_patch, forward_gradient_patch,
+    canvas_ids, canvas_sum, centered_gradient, divergence_patch,
+    forward_gradient_patch,
 )
 
 
@@ -142,18 +146,6 @@ def solver_consts_from_numpy(sc, device) -> SolverConsts:
                         t(sc.theta), t(sc.tau), t(sc.tol),
                         None if sc.w1d is None else t(sc.w1d),
                         None if sc.wp_pad is None else t(sc.wp_pad).contiguous())
-
-
-def canvas_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum (B, P, P) canvases in a fixed order (columns, then rows), so the
-    patch energy rounds the same on every device."""
-    s = x[:, :, 0]
-    for c in range(1, x.shape[2]):
-        s = s + x[:, :, c]
-    t = s[:, 0]
-    for r in range(1, x.shape[1]):
-        t = t + s[:, r]
-    return t
 
 
 def _weight2d(w1d, rows, cols, oy, ox, cj, ci, wr):
@@ -480,7 +472,9 @@ def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     weighted 7); the arguments and results of ``_solve_tvl1_family``.  Per
     warp, K4 samples the warp, ``grad = hypot(|grad I1w|^2, 0.01)`` and the 48
     breakpoint planes are built once, then the tol-gated masked unroll runs
-    K8's v-step, the regulariser's step and the primal step.  Out-of-box
+    K8's v-step, the regulariser's step and the primal step; with the inert
+    TV (methods 4, 5) that whole loop is one launch of the K8 loop
+    (``ops.csad.csad_patch_loop``).  Out-of-box
     cells take +-inf or NaN in the v-step (no neighbour counts there) and
     carry them, as JAX does; every use masks them, and the eval zeroes them
     first.  ``true_tv`` (methods 4, 5): the per-component TV projection
@@ -520,6 +514,13 @@ def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
         i1w, i1wx, i1wy = bicubic_sample_patches(sc.i1_stack, *box, u1, u2, 3)
         grad = hypot(i1wx * i1wx + i1wy * i1wy, 0.01)   # tvcsad_model.cpp:361
         b = csad_b(i0_patch, i1w, i1wx, i1wy, u1, u2, grad, masks)
+        if inert_tv:
+            # the duals stay 0 (the reference's never-written buffers): the
+            # whole loop is the K8 loop, one launch
+            u1, u2, v1, v2, _ = csad_patch_loop(
+                u1, u2, v1, v2, b, i1wx, i1wy, grad, l_t, masks, ncount, ph32,
+                pw32, sc.theta, sc.tau, tol2, max_iters)
+            continue
         st = (u1, u2, u1, u2, reg, v1, v2,
               torch.full(u1.shape[:1], float("inf"), dtype=u1.dtype, device=dev),
               torch.zeros(u1.shape[:1], dtype=torch.int32, device=dev))
@@ -535,10 +536,6 @@ def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
                 nu2 = c2 - sc.tau * (nonlocal_divergence_sum(sq, wp, NLTV_OFFS)
                                      + (c2 - nv2) / sc.theta)
                 rg = (sp, sq)
-            elif inert_tv:
-                # duals pinned at 0 (the reference's never-written buffers)
-                nu1 = c1 - sc.tau * ((c1 - nv1) / sc.theta)
-                nu2 = c2 - sc.tau * ((c2 - nv2) / sc.theta)
             else:
                 x11, x12, x21, x22 = rg
                 u1x, u1y = forward_gradient_patch(c1_, ph, pw)
@@ -556,9 +553,8 @@ def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
             nerr = canvas_sum(torch.where(inbox, e1 * e1 + e2 * e2, zero)) / npx
             run = (err > tol2) & (n < max_iters)
             lane = run.view(-1, 1, 1)
-            if not inert_tv:
-                rg = tuple(torch.where(run.view((1,) * (a.dim() - 3) + (-1, 1, 1)),
-                                       nw, a) for a, nw in zip(st[4], rg))
+            rg = tuple(torch.where(run.view((1,) * (a.dim() - 3) + (-1, 1, 1)),
+                                   nw, a) for a, nw in zip(st[4], rg))
             new = (nu1, nu2, 2 * nu1 - c1, 2 * nu2 - c2, nv1, nv2)
             old = st[:4] + st[5:7]
             u1, u2, u1b, u2b, v1, v2 = (torch.where(lane, nw, a)

@@ -71,6 +71,9 @@ _SIGNATURES = {
     "faldoi_csad_vstep_global": (_P,) * 7 + (_F, _I, _P, _P, _I, _I, _P),
     # u1 u2 b i1wx i1wy denom lt, lt_val, lt_cells, ph pw v1 v2, b, p, stream
     "faldoi_csad_vstep_patch": (_P,) * 7 + (_F, _I) + (_P,) * 4 + (_I, _I, _P),
+    # u1 u2 v1 v2 b i1wx i1wy denom lt scal ph pw, u1o u2o v1o v2o iters, b,
+    # p, lt_cells, max_iters, stream
+    "faldoi_csad_patch_loop": (_P,) * 17 + (_I,) * 4 + (_P,),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

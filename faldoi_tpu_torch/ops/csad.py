@@ -15,7 +15,9 @@ The v-step is the exact prox of the CSAD data term: the median of 2n + 1
 breakpoints, with the reference's index ``it/2 + 1`` (one past the median;
 global_faldoi.cpp:1567).  ``csad_vstep`` is kernel K8 (``csrc/csad.cu``) on
 CUDA tensors and its plain twin ``csad_vstep_plain``, a sort of the 97
-entries, on CPU tensors.
+entries, on CPU tensors.  ``csad_patch_loop`` (the K8 loop, the same source)
+runs one warp's whole inert-TV patch PD loop of methods 4 and 5 in one
+launch; its twin ``csad_patch_loop_plain`` is that loop in plain ops.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from faldoi_tpu_torch.kernels import build as kb
 from faldoi_tpu_torch.ops.nonlocal_ops import neighbor_offsets, valid_mask
-from faldoi_tpu_torch.ops.stencils import canvas_ids
+from faldoi_tpu_torch.ops.stencils import canvas_ids, canvas_sum
 from faldoi_tpu_torch.params import DT_R
 
 # the 48 (dy, dx) offsets of the CSAD window, in the reference's order
@@ -112,6 +114,10 @@ def csad_vstep(u1, u2, b, i1wx, i1wy, denom, l_t, masks, ncount, ph=None,
     if u1.device.type == "cpu":
         return csad_vstep_plain(u1, u2, b, i1wx, i1wy, denom, l_t, masks, ncount)
     dev, shape = u1.device, tuple(u1.shape)
+    if not patch and min(shape) < 3:
+        # below 3 px image_masks, as JAX's valid_mask, wraps a negative slice
+        # end and counts neighbours past the far edge; the kernel does not
+        raise ValueError(f"u1 {shape}: the whole-image form takes 3 x 3 and up")
     for name, t in (("u1", u1), ("u2", u2), ("i1wx", i1wx), ("i1wy", i1wy),
                     ("denom", denom)):
         kb.require_cuda_tensor(t, name, torch.float32, dev, shape)
@@ -146,3 +152,88 @@ def csad_vstep(u1, u2, b, i1wx, i1wy, denom, l_t, masks, ncount, ph=None,
 
 
 csad_vstep.launches = 0   # K8 launches (both forms), raised after a launch
+
+
+def csad_patch_loop_plain(u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t, masks,
+                          ncount, ph, pw, theta, tau, tol2, max_iters: int):
+    """Plain twin of the K8 loop: the masked unroll of one warp's PD loop of
+    the inert-TV CSAD solve (methods 4, 5; JAX's ``_bounded_pd_loop`` of
+    ``_solve_csad_family``) on B (P, P) canvases.  Per step, while a
+    canvas's err > tol2 (err starts at +inf) and its count < max_iters: the
+    v-step (``csad_vstep_plain``), ``u = u - tau ((u - v) / theta)`` (the
+    duals stay 0), err = the in-box mean squared update.  Returns (u1, u2,
+    v1, v2, iterations (B,) int32)."""
+    dev = u1.device
+    rows, cols = canvas_ids(u1.shape[-1], dev)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    zero = torch.zeros((), dtype=u1.dtype, device=dev)
+    npx = (ph * pw).to(u1.dtype)
+    err = torch.full(u1.shape[:1], float("inf"), dtype=u1.dtype, device=dev)
+    n = torch.zeros(u1.shape[:1], dtype=torch.int32, device=dev)
+    for _ in range(max_iters):
+        run = (err > tol2) & (n < max_iters)
+        if not bool(run.any()):
+            break
+        nv1, nv2 = csad_vstep_plain(u1, u2, b, i1wx, i1wy, denom, l_t, masks,
+                                    ncount)
+        nu1 = u1 - tau * ((u1 - nv1) / theta)
+        nu2 = u2 - tau * ((u2 - nv2) / theta)
+        e1, e2 = nu1 - u1, nu2 - u2
+        nerr = canvas_sum(torch.where(inbox, e1 * e1 + e2 * e2, zero)) / npx
+        lane = run.view(-1, 1, 1)
+        u1, u2, v1, v2 = (torch.where(lane, nw, a) for a, nw in
+                          zip((u1, u2, v1, v2), (nu1, nu2, nv1, nv2)))
+        err = torch.where(run, nerr, err)
+        n = torch.where(run, n + 1, n)
+    return u1, u2, v1, v2, n
+
+
+def csad_patch_loop(u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t, masks, ncount,
+                    ph, pw, theta, tau, tol2, max_iters: int):
+    """The K8 loop: one warp's inert-TV PD loop of the m4 / m5 patch solve
+    on B (P, P) float32 canvases u1, u2, v1, v2 (v: the last warp's, kept
+    where a canvas takes no step), the warp's b (48, B, P, P), i1wx, i1wy and
+    denom (grad); l_t a 0-d tensor or a (B, P, P) canvas (method 5); masks,
+    ncount from ``canvas_masks`` (the twin reads them; the kernel derives
+    them from the boxes); ph, pw (B,) int32; theta, tau, tol2 0-d float32
+    tensors.  Returns new (u1, u2, v1, v2, iterations (B,) int32); the inputs
+    are not changed.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise), one launch for the whole loop.  ``launches`` counts launches."""
+    if u1.dim() != 3 or u1.shape[1] != u1.shape[2]:
+        raise ValueError(f"u1 must be (B, P, P), got {tuple(u1.shape)}")
+    nb, p = u1.shape[0], u1.shape[1]
+    if p * p > 1024:
+        raise ValueError(f"patch side {p}: the kernel takes P*P <= 1024")
+    if u1.device.type == "cpu":
+        return csad_patch_loop_plain(u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t,
+                                     masks, ncount, ph, pw, theta, tau, tol2,
+                                     max_iters)
+    dev, shape = u1.device, tuple(u1.shape)
+    for name, t in (("u1", u1), ("u2", u2), ("v1", v1), ("v2", v2),
+                    ("i1wx", i1wx), ("i1wy", i1wy), ("denom", denom)):
+        kb.require_cuda_tensor(t, name, torch.float32, dev, shape)
+    kb.require_cuda_tensor(b, "b", torch.float32, dev, (N_D,) + shape)
+    lt_cells = l_t.dim() != 0
+    kb.require_cuda_tensor(l_t, "l_t", torch.float32, dev,
+                           shape if lt_cells else ())
+    for name, t in (("ph", ph), ("pw", pw)):
+        kb.require_cuda_tensor(t, name, torch.int32, dev, (nb,))
+    scal = torch.stack([theta, tau, tol2]).to(torch.float32).contiguous()
+    kb.require_cuda_tensor(scal, "theta, tau, tol2", torch.float32, dev, (3,))
+    outs = [torch.empty_like(u1) for _ in range(4)]
+    iters = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return (*outs, iters)
+    code = kb.library().faldoi_csad_patch_loop(
+        *(t.data_ptr() for t in (u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t,
+                                 scal, ph, pw)),
+        *(t.data_ptr() for t in outs), iters.data_ptr(), nb, p, int(lt_cells),
+        int(max_iters), kb.stream_ptr(dev))
+    kb.check(code, "csad_patch_loop")
+    csad_patch_loop.launches += 1
+    return (*outs, iters)
+
+
+csad_patch_loop.launches = 0   # K8 loop launches, raised after a launch

@@ -48,6 +48,18 @@ def canvas_ids(p: int, device):
     return ar[:, None], ar[None, :]
 
 
+def canvas_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum (B, P, P) canvases in a fixed order (columns, then rows), so the
+    patch energy rounds the same on every device."""
+    s = x[:, :, 0]
+    for c in range(1, x.shape[2]):
+        s = s + x[:, :, c]
+    t = s[:, 0]
+    for r in range(1, x.shape[1]):
+        t = t + s[:, r]
+    return t
+
+
 def _box(t, f):
     """Per-canvas box size -> broadcastable against (..., P, P)."""
     t = torch.as_tensor(t, device=f.device)

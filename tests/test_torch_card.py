@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
-probes P1-P3) against their plain twins, on the card, and the weighted and
-the NLTV patch solvers on the card against their CPU runs.
+probes P1-P3, K8 in its whole-image and patch forms and the K8 loop)
+against their plain twins, on the card, and the weighted, the NLTV and the
+CSAD patch solvers on the card against their CPU runs.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -14,8 +15,9 @@ form the point form bit for bit; K4's point and flow forms and K5 their
 twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
-summation order).  K6, K7 and the NLTV solvers must equal their twins (and
-CPU runs) bit for bit: they sum in the twins' order."""
+summation order).  K6, K7, K8, the K8 loop and the NLTV and CSAD solvers
+must equal their twins (and CPU runs) bit for bit: they sum in the twins'
+order, and K8 selects one of the entries the twin sorts."""
 
 import numpy as np
 import pytest
@@ -723,6 +725,125 @@ def test_k8_patch_matches_twin_on_card(dev, p, b, weighted):
         assert bool(out.any()) and bool(v1[out].isnan().any())
 
 
+# adversarial K8 cells: case -> (values the b planes take, l_t values)
+K8_CASES = {
+    "ties-with-b": ([-1.0, -0.5, -0.25, 0.0, 0.25, 0.5, 0.75, 1.0], [0.25, 0.5]),
+    "signed-zeros": ([0.0, -0.0, 0.25, -0.25], [0.0, -0.0, 0.25, -0.25]),
+    "infinities": ([np.inf, -np.inf, 0.0, 1.5, -2.0], [0.3, -0.3]),
+    "nans": ([np.nan, 0.5, -0.5, np.inf, -0.0], [0.3, 0.0]),
+    "b-overflow": ([1e38, -1e38, 0.0, 3e38, -np.inf], [1e37, -1e37, 3e38]),
+    "lt-inf": ([0.0, 1.0, -1.0, np.inf, np.nan], [np.inf, -np.inf]),
+    "lt-nan": ([0.0, 1.0, -1.0, np.inf, np.nan], [np.nan]),
+}
+
+
+def _k8_adversarial(dev, shape, case, seed):
+    """K8 inputs of ``shape`` whose entries tie: u 0, i1wx 1, i1wy -1 and
+    denom 1, so A_j = -b_j exactly; b and a per-cell l_t drawn from the
+    case's values."""
+    pool, lts = K8_CASES[case]
+    rng = np.random.default_rng(seed)
+    b = np.asarray(pool, dtype=np.float32)[rng.integers(0, len(pool), (48,) + shape)]
+    lt = np.asarray(lts, dtype=np.float32)[rng.integers(0, len(lts), shape)]
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)   # noqa: E731
+    one = np.ones(shape, np.float32)
+    return f(0 * one), f(0 * one), f(b), f(one), f(-one), f(one), f(lt)
+
+
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_adversarial_cells_on_card(dev, case):
+    """Both forms on cells whose 97 entries tie within A and with B, hold
+    +-0, +-inf and NaN, with l_t negative, +-0, huge, inf or NaN, at every
+    n a clipped window has, 0 (out of the box) to 48 (boxes of every size
+    from 1x1): bit for bit with the twin, the sign of a selected zero
+    included."""
+    from faldoi_tpu_torch.ops.csad import (
+        canvas_masks, csad_vstep, csad_vstep_plain, image_masks,
+    )
+
+    seen = set()
+    shapes = [(h, w) for h in (3, 4, 8) for w in (3, 5, 9)] + [(13, 17)]
+    for k, (h, w) in enumerate(shapes):
+        u1, u2, b, gx, gy, den, lt = _k8_adversarial(dev, (h, w), case, 190 + k)
+        m, n = image_masks(h, w, dev)
+        b = torch.where(m, b, torch.zeros((), device=dev)).contiguous()
+        got = csad_vstep(u1, u2, b, gx, gy, den, lt, m, n)
+        want = csad_vstep_plain(u1, u2, b, gx, gy, den, lt, m, n)
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1]), (h, w)
+        seen.update(n.flatten().tolist())
+    for p, nb in ((11, 300), (3, 200)):
+        rng = np.random.default_rng(198 + p)
+        ph, pw = (torch.as_tensor(rng.integers(1, p + 1, nb).astype(np.int32),
+                                  device=dev) for _ in range(2))
+        u1, u2, b, gx, gy, den, lt = _k8_adversarial(dev, (nb, p, p), case, 199 + p)
+        m, n = canvas_masks(ph, pw, p)
+        b = torch.where(m, b, torch.zeros((), device=dev)).contiguous()
+        got = csad_vstep(u1, u2, b, gx, gy, den, lt, m, n, ph, pw)
+        want = csad_vstep_plain(u1, u2, b, gx, gy, den, lt, m, n)
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1]), p
+        seen.update(n.flatten().tolist())
+    # every n a window clipped to a box can have: rows x columns - 1
+    assert seen == {float(r * c - 1) for r in range(1, 8) for c in range(1, 8)}
+
+
+def _k8_loop_args(dev, p, b, seed, weighted, lt=None):
+    """The K8 loop's arguments for one warp: K8's patch inputs (boxes
+    clipped at the image edge), v = u, theta 0.3, tau 0.1, tol 0.01."""
+    u1, u2, bb, gx, gy, grad, l_t, m, n, ph, pw = _csad_patch_inputs(
+        dev, p, b, seed, weighted)
+    if lt is not None:
+        l_t = torch.tensor(lt, dtype=torch.float32, device=dev)
+    f = lambda x: torch.tensor(np.float32(x), device=dev)   # noqa: E731
+    return [u1, u2, u1, u2, bb, gx, gy, grad, l_t, m, n, ph, pw, f(0.3), f(0.1),
+            f(0.01) * f(0.01)]
+
+
+@pytest.mark.parametrize("p,b,weighted,tol2,lt", [
+    (11, 8192, False, None, None), (11, 297, False, None, None),
+    (11, 1, False, None, None), (3, 333, False, None, None),
+    (11, 1900, True, None, None), (11, 297, False, 1e10, None),
+    (11, 64, False, None, float("inf")), (7, 50, True, None, None),
+    (23, 20, False, None, None)],
+    ids=["p11-b8192", "p11-b297", "p11-b1", "p3-b333", "m5-b1900",
+         "large-tol", "lt-inf", "p7", "p23"])
+def test_k8_loop_matches_twin_on_card(dev, p, b, weighted, tol2, lt):
+    """The K8 loop (one launch a warp) against its twin on the card, bit for
+    bit: canvases (NaN and +-inf of the out-of-box cells included) and
+    iteration counts; a tol^2 of 1e10 stops every canvas after one step."""
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop, csad_patch_loop_plain
+
+    args = _k8_loop_args(dev, p, b, 210 + p + b, weighted, lt)
+    if tol2 is not None:
+        args[15] = torch.tensor(tol2, dtype=torch.float32, device=dev)
+    before = csad_patch_loop.launches
+    got = csad_patch_loop(*args, 4)
+    assert csad_patch_loop.launches == before + 1
+    want = csad_patch_loop_plain(*args, 4)
+    for x, y in zip(got, want):
+        assert _same_bits(x, y)
+    assert bool(((got[4] >= 1) & (got[4] <= 4)).all())
+    if tol2 is not None:
+        assert bool((got[4] == 1).all())
+
+
+def test_k8_loop_wrapper_raises_on_bad_card_tensors(dev):
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop
+
+    args = _k8_loop_args(dev, 11, 20, 230, False)
+    bad = list(args)
+    bad[4] = args[4][:47]
+    with pytest.raises(ValueError, match="b"):
+        csad_patch_loop(*bad, 4)
+    bad = list(args)
+    bad[11] = args[11].to(torch.int64)
+    with pytest.raises(TypeError, match="ph"):
+        csad_patch_loop(*bad, 4)
+    bad = list(args)
+    bad[8] = args[8].expand(20, 11, 11)
+    with pytest.raises(ValueError, match="l_t"):
+        csad_patch_loop(*bad, 4)
+
+
 def test_k8_wrapper_raises_on_bad_card_tensors(dev):
     from faldoi_tpu_torch.ops.csad import csad_vstep
 
@@ -735,6 +856,9 @@ def test_k8_wrapper_raises_on_bad_card_tensors(dev):
     bad[5] = args[5].double()
     with pytest.raises(TypeError, match="denom"):
         csad_vstep(*bad)
+    small = _csad_global_inputs(dev, 2, 9, 182)   # image_masks wraps below 3
+    with pytest.raises(ValueError, match="3 x 3"):
+        csad_vstep(*small)
     pargs = list(_csad_patch_inputs(dev, 11, 20, 181, False))
     bad = list(pargs)
     bad[9] = pargs[9].to(torch.int64)
@@ -772,7 +896,7 @@ def test_csad_sweep_on_card_matches_cpu(dev):
     from faldoi_tpu_torch.core.local_step import (
         init_state, insert_seeds, state_to_numpy, sweep_body,
     )
-    from faldoi_tpu_torch.ops.csad import csad_vstep
+    from faldoi_tpu_torch.ops.csad import csad_patch_loop
 
     h, w = 40, 56
     rng = np.random.default_rng(186)
@@ -784,12 +908,12 @@ def test_csad_sweep_on_card_matches_cpu(dev):
         sal = torch.ones(h * w + 1, device=d)
         st = insert_seeds(init_state(h, w, d), seeds, sc, sal, 1, 4, method=4)
         tr = torch.ones((h, w), device=d)
-        before = csad_vstep.launches
+        before = csad_patch_loop.launches
         for _ in range(3):
             st, k = sweep_body(st, sc, tr, sal, 0, h, w, 5, 256, 1, 4, 64, 4,
                                fill="patch")
             assert k > 0
-        assert (csad_vstep.launches > before) == (d != "cpu")
+        assert (csad_patch_loop.launches > before) == (d != "cpu")
         states.append(state_to_numpy(st))
     for k in states[0]:                          # the dump slot left out
         assert np.array_equal(states[0][k][:h * w], states[1][k][:h * w],

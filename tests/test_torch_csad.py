@@ -263,6 +263,34 @@ def test_consts_from_numpy_for_m6(consts):
             close(cm["own"].w1d, cm["jsc"].w1d, 0)
 
 
+# (method, p, true_tv) -> the crops and JAX's one-warp solve of them
+_JAX_SOLVES = {}
+
+
+def _jax_patch_solve(consts, method, p, true_tv):
+    """JAX's vmapped CSAD patch solver (one warp, four PD iterations, JAX's
+    window radius p // 2) on 80 crops of the module's frames; the init is a
+    constant flow plus 0.3 px of noise.  Returns (geometry, u0, v0, JAX's
+    u, v and energies), computed once a module."""
+    from faldoi_tpu.core.functionals import SOLVERS as JSOLVERS
+
+    key = (method, p, true_tv)
+    if key not in _JAX_SOLVES:
+        c = consts[method]
+        geo, u0, v0 = _patches(p, 80, 87 + p + method, noise=0.3)
+        jsolve = JSOLVERS[method]
+
+        def one(i_, j_, oy_, ox_, ph_, pw_, a_, b_):
+            return jsolve(c["jsc"], i_, j_, oy_, ox_, ph_, pw_, a_, b_,
+                          jnp.zeros_like(a_), p, 1, 4, p // 2)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("FALDOI_CSAD_TRUE_TV", "1" if true_tv else "0")
+            ju, jv, _, je = jax.vmap(one)(*map(jnp.asarray, geo + (u0, v0)))
+        _JAX_SOLVES[key] = (geo, u0, v0, ju, jv, je)
+    return _JAX_SOLVES[key]
+
+
 @pytest.mark.parametrize("method,p,true_tv", [
     (P.M_TVCSAD, 11, False), (P.M_TVCSAD, 3, False), (P.M_TVCSAD, 11, True),
     (P.M_TVCSAD_W, 11, False), (P.M_NLTVCSAD, 11, False),
@@ -288,21 +316,11 @@ def test_csad_patch_solver_matches_jax(consts, method, p, true_tv):
     0-0.7% of the cells beyond 1e-5 and at most 5.8e-5, energies within a
     relative 1.2e-5.  The gates: at most 1% of the cells beyond 1e-5, all
     within 1e-4, energies within a relative 1e-4."""
-    from faldoi_tpu.core.functionals import SOLVERS as JSOLVERS
     from faldoi_tpu_torch.core.functionals import solver_for
     from faldoi_tpu_torch.ops.csad import csad_vstep
 
     c = consts[method]
-    geo, u0, v0 = _patches(p, 80, 87 + p + method, noise=0.3)
-    jsolve = JSOLVERS[method]
-
-    def one(i_, j_, oy_, ox_, ph_, pw_, a_, b_):
-        return jsolve(c["jsc"], i_, j_, oy_, ox_, ph_, pw_, a_, b_,
-                      jnp.zeros_like(a_), p, 1, 4, p // 2)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("FALDOI_CSAD_TRUE_TV", "1" if true_tv else "0")
-        ju, jv, _, je = jax.vmap(one)(*map(jnp.asarray, geo + (u0, v0)))
+    geo, u0, v0, ju, jv, je = _jax_patch_solve(consts, method, p, true_tv)
     kw = dict(true_tv=True) if true_tv else {}
     before = csad_vstep.launches
     su, sv, ener = solver_for(method)(c["sc"], *map(T, geo), T(u0), T(v0), p,
@@ -323,6 +341,50 @@ def test_csad_patch_solver_matches_jax(consts, method, p, true_tv):
         pos = np.where(inbox, f + lo, np.nan)
         spread = np.nanmax(pos, axis=(1, 2)) - np.nanmin(pos, axis=(1, 2))
         assert spread.max() < 32 - 4
+
+
+@pytest.mark.parametrize("method,p", [(P.M_TVCSAD, 11), (P.M_TVCSAD, 3),
+                                      (P.M_TVCSAD_W, 11), (P.M_TVCSAD_W, 3)],
+                         ids=["m4-p11", "m4-p3", "m5-p11", "m5-p3"])
+def test_patch_loop_plain_matches_jax(consts, method, p):
+    """The K8 loop's twin, ``csad_patch_loop_plain``, on the port's own warp
+    of the crops of ``test_csad_patch_solver_matches_jax`` (K0's and K4's
+    twins, grad, the breakpoints, l_t with m5's window), against JAX's
+    inert-TV solve of one warp: the in-box cells within the gates of that
+    test (at most 1% beyond 1e-5, all within 1e-4; the same float32 chaos).
+    Every canvas takes 1 to 4 steps."""
+    from faldoi_tpu_torch.core.functionals import _weight2d
+    from faldoi_tpu_torch.core.pd_common import hypot
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+    from faldoi_tpu_torch.ops.csad import canvas_masks, csad_b, csad_patch_loop_plain
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    sc = consts[method]["sc"]
+    geo, u0, v0, ju, jv, _ = _jax_patch_solve(consts, method, p, False)
+    ci, cj, oy, ox, ph, pw = (T(g) for g in geo)
+    oy32, ox32, ph32, pw32 = (x.to(torch.int32).contiguous() for x in (oy, ox, ph, pw))
+    u1, u2 = T(u0), T(v0)
+    i1w, gx, gy = bicubic_sample_patches(sc.i1_stack, oy32, ox32, ph32, pw32,
+                                         u1, u2, 3)
+    i0p = gather_patches(sc.i0pad[:, :, None], oy32, ox32, p)[:, :, 0, :]
+    i0p = i0p.permute(2, 0, 1)
+    grad = hypot(gx * gx + gy * gy, 0.01)
+    m, n = canvas_masks(ph32, pw32, p)
+    l_t = sc.lambda_ * sc.theta
+    if method == P.M_TVCSAD_W:
+        rows, cols = canvas_ids(p, "cpu")
+        l_t = (l_t * _weight2d(sc.w1d, rows, cols, oy, ox, cj, ci, p // 2)).contiguous()
+    su, sv, _, _, iters = csad_patch_loop_plain(
+        u1, u2, u1, u2, csad_b(i0p, i1w, gx, gy, u1, u2, grad, m), gx, gy, grad,
+        l_t, m, n, ph32, pw32, sc.theta, sc.tau, sc.tol * sc.tol, 4)
+    inbox = n.numpy() > 0
+    d = np.abs(np.concatenate([(su.numpy() - np.asarray(ju))[inbox],
+                               (sv.numpy() - np.asarray(jv))[inbox]]))
+    assert np.isfinite(d).all()
+    assert (d > ATOL).mean() <= 0.01 and d.max() <= 1e-4
+    assert ((iters >= 1) & (iters <= 4)).all()
+    assert float((su - u1).abs()[T(inbox)].max()) > 1e-3
 
 
 def test_true_tv_changes_the_solve(consts):

@@ -89,7 +89,8 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_sift",
+EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m8",
+         "launches_sift", "launches_per_call",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
@@ -106,6 +107,7 @@ ITERS_SIFT = [400] * 5
 # kernel's is the faldoi_sift path, and it runs on the m0 path too)
 M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
 M4_KERNELS = ("csad_vstep", "csad_patch_loop")
+M8_KERNELS = ("occ_patch_loop", "occ_global_step")
 # K8's card times in its former design (a thread a cell, insertion sort), a
 # graph of 20 calls on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table), printed beside this run's
@@ -121,7 +123,11 @@ CSAD_CROP = (48, 64)
 # processes, one thread each, beside the card's phases
 CROPS = ((0, 10, CROP), (1, 0, CROP), (2, 10, CROP), (3, 0, CROP),
          (4, 10, CSAD_CROP), (5, 0, CSAD_CROP), (6, 10, CSAD_CROP),
-         (7, 0, CSAD_CROP))
+         (7, 0, CSAD_CROP), (8, 10, CSAD_CROP))
+# the crops that must give the card's results exactly: the CSAD ones and
+# method 8's (its binary chi feeds back into u, so the bound of 0.01 px the
+# TV-L1 crops keep would not say much)
+EXACT_CROPS = (4, 5, 6, 7, 8)
 
 
 def log(msg):
@@ -1072,6 +1078,127 @@ def check_k8_loop(dev, rng, scs, n_seeds):
                 shapes=rows)
 
 
+# K9's float operations a cell a PD iteration, counted from
+# csrc/occlusion.cu: the v-step 30, chi's gradient 2, 24 xi steps of 50 (g xi
+# 4, two divergences 6, v + theta div + theta beta grad chi 8, two gradients
+# 4, g grad 4, two norms 12, four updates 12), the primal step 18, the
+# squared update 5, F and G 14, div nu 3, 24 eta / chi steps of 29 (eta 13,
+# g eta 2, the divergence 3, chi 9, the gradient 2)
+K9_OPS = 30 + 2 + 24 * 50 + 18 + 5 + 14 + 3 + 24 * 29
+# K9's planes each way: the state (11) and the warp constants (8) and g in,
+# the state out
+K9_PLANES = 11 + 8 + 1 + 11
+
+
+def k9_patch_row(shape, args):
+    """K9's patch form on one call's arguments (three PD iterations at most,
+    the local step's cap): bit for bit against its twin, state and
+    iteration counts; timed as a graph of 20 calls beside its twin (eager).
+    The bound counts the in-box cells of every PD iteration a canvas runs.
+    Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.occlusion import occ_patch_loop, occ_patch_loop_plain
+
+    st, ph, pw = args[0], args[3], args[4]
+    got = occ_patch_loop(*args, 3)
+    want = occ_patch_loop_plain(*args, 3)
+    torch.cuda.synchronize()
+    if not (same_bits(got[0], want[0]) and torch.equal(got[1], want[1])):
+        d = torch.nan_to_num((got[0] - want[0]).abs(), nan=9.0).max().item()
+        raise AssertionError(f"K9 patch form {shape} differs from its twin "
+                             f"(max abs {d})")
+    iters = got[1]
+    cells = int((iters.to(torch.int64) * (ph * pw).to(torch.int64)).sum())
+    nb = st.shape[1]
+    row = dict(shape=shape, max_abs_err=0.0,
+               ms=cuda_ms(lambda: occ_patch_loop(*args, 3), graph=True),
+               plain_ms=cuda_ms(lambda: occ_patch_loop_plain(*args, 3), reps=3,
+                                warmup=1),
+               iterations={str(k): int((iters == k).sum()) for k in range(4)},
+               occluded=float(got[0][2].mean()),
+               **bound(st[0].numel() * 4 * K9_PLANES + nb * 12, cells * K9_OPS))
+    log(f"K9 occ_patch_loop {shape}: bit-exact (iteration counts "
+        f"{row['iterations']}, chi 1 at {100 * row['occluded']:.2f}% of the "
+        f"cells); kernel {row['ms']:.4f} ms  twin {row['plain_ms']:.3f} ms  "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def k9_global_row(shape, args):
+    """K9's whole-image form, one PD iteration: bit for bit against its twin
+    (state and err), timed as a graph of 20 calls beside its twin (eager);
+    its kernel launches a call counted in a captured graph of one call, and
+    held to the design's ``GLOBAL_LAUNCHES``.  Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.occlusion import (
+        GLOBAL_LAUNCHES, occ_global_step, occ_global_step_kernels,
+        occ_global_step_plain,
+    )
+
+    st = args[0]
+    got, gerr = occ_global_step(*args)
+    want, werr = occ_global_step_plain(*args)
+    torch.cuda.synchronize()
+    if not (same_bits(got, want) and float(gerr) == float(werr)):
+        d = torch.nan_to_num((got - want).abs(), nan=9.0).max().item()
+        raise AssertionError(f"K9 whole-image form {shape} differs from its twin "
+                             f"(max abs {d}; err {float(gerr)} vs {float(werr)})")
+    per_call = occ_global_step_kernels(*args)
+    if per_call != GLOBAL_LAUNCHES:
+        raise AssertionError(f"K9 whole-image form {shape}: one call enqueued "
+                             f"{per_call} kernels, not {GLOBAL_LAUNCHES}")
+    row = dict(shape=shape, max_abs_err=0.0,
+               ms=cuda_ms(lambda: occ_global_step(*args), graph=True),
+               plain_ms=cuda_ms(lambda: occ_global_step_plain(*args), reps=3,
+                                warmup=1),
+               launches_per_call=per_call,
+               **bound(st[0].numel() * 4 * K9_PLANES, st[0].numel() * K9_OPS))
+    log(f"K9 occ_global_step {shape}: bit-exact (err {float(gerr):.4g}); one PD "
+        f"iteration, {per_call} kernel launches (kernel nodes of a captured "
+        f"call): {row['ms']:.4f} ms  "
+        f"twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_k9(dev, n_seeds):
+    """K9 at every shape the m8 path launches, bit for bit against its
+    twins: the patch form at P 11 with B 8192, 1900, 297 (chi given all 0
+    and all 1 too) and 1, at P 3 with the seed count, and under a tol^2
+    that stops every canvas after one PD iteration; the whole-image form at
+    436x1024 (chi 0, and the known occlusions given) and 5x7.  The inputs
+    are ``synthetic.occ_patch_inputs`` / ``occ_global_inputs``.  Returns
+    the two records (their first rows')."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.core.occlusion import SCALARS
+
+    rows = []
+    for p, b, chi, tol2 in ((11, BSZ, "random", None), (11, 1900, "random", None),
+                            (11, 297, "random", None), (11, 297, "zeros", None),
+                            (11, 297, "ones", None), (11, 1, "random", None),
+                            (3, n_seeds, "random", None),
+                            (11, 297, "random", 1e10)):
+        args = list(syn.occ_patch_inputs(b, p, SEED + b + p, dev, chi))
+        if tol2 is not None:
+            args[5][SCALARS.index("tol2")] = tol2
+        rows.append(k9_patch_row(f"P {p} B {b}" + ("" if chi == "random" else
+                                                    f" chi all {chi}")
+                                 + ("" if tol2 is None else " tol^2 1e10"), args))
+    if rows[-1]["iterations"]["1"] != 297:
+        raise AssertionError("K9: a canvas ran past one step under tol^2 1e10")
+    grows = [k9_global_row(f"{h}x{w}" + (" occ_init" if occ else ""),
+                           syn.occ_global_inputs(h, w, SEED + h, dev, occ))
+             for h, w, occ in ((H, W, False), (H, W, True), (5, 7, True))]
+    src = "faldoi_tpu_torch/csrc/occlusion.cu"
+    return [dict(name="occ_patch_loop", route="cuda", source=src,
+                 replaces="faldoi_tpu/core/occlusion.py:173", library_ms=None,
+                 **{k: v for k, v in rows[0].items() if k != "iterations"},
+                 shapes=rows),
+            dict(name="occ_global_step", route="cuda", source=src,
+                 replaces="faldoi_tpu/core/occlusion.py:276", library_ms=None,
+                 **grows[0], shapes=grows)]
+
+
 def replay_k8_path(dev, rng, sc, calls):
     """K8's patch-form work of the m4 path, measured: the loop calls the
     path made (``calls``: (B, P) each) replayed on synthetic canvases of the
@@ -1104,27 +1231,47 @@ def replay_k8_path(dev, rng, sc, calls):
     return sums
 
 
-def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
+def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10,
+              later=None):
     """The port's main path: prepare_pair -> match_growing -> the method's
-    global step (``models.global_refine``), five warps."""
+    global step (``models.global_refine``), five warps.  Method 8 takes the
+    frames I-1 and I2 as ``later`` and runs as its CLIs do: the growing on
+    ``prepare_quad``'s frames, the global step on ``prepare_triple``'s from
+    the growing's occlusion mask; both masks go to ``stats["masks"]``."""
     from faldoi_tpu_torch import params as P
     from faldoi_tpu_torch.core.match_growing import match_growing
-    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.core.preprocess import (
+        prepare_pair, prepare_quad, prepare_triple,
+    )
     from faldoi_tpu_torch.models import global_refine
 
     dev = torch.device(device)
     t0 = time.perf_counter()
-    a, b = prepare_pair(i0, i1, device=device)
+    quad = {}
+    if method == 8:
+        a, b, a_1, b2 = prepare_quad(i0, i1, *later, device=device)
+        quad = dict(i_1n=a_1, i2n=b2)
+    else:
+        a, b = prepare_pair(i0, i1, device=device)
     prm = P.Parameters()
     prm.val_method = method
-    flow, _, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
-                               warm_band=warm_band, i0_planes=i0, i1_planes=i1)
+    flow, _, occ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
+                                 warm_band=warm_band, i0_planes=i0,
+                                 i1_planes=i1, **quad)
     t1 = time.perf_counter()
     prm = P.Parameters()
     prm.warps = P.PAR_DEFAULT_NWARPS_GLOBAL
-    u1, u2 = global_refine(method, a, b, flow[..., 0].contiguous(),
-                           flow[..., 1].contiguous(), prm, stats=stats,
-                           i0_planes=i0)
+    if method == 8:
+        # global_faldoi's parameters: its PD cap a warp is -glb_iters
+        prm = P.init_params(None, P.GLOBAL_STEP)
+        prm.iterations_of = P.MAX_ITERATIONS_GLOBAL
+        a, b, a_1 = prepare_triple(i0, i1, later[0], device=device)
+        quad = dict(i_1n=a_1, occ_init=occ.cpu().numpy())
+    u1, u2, chi = global_refine(method, a, b, flow[..., 0].contiguous(),
+                                flow[..., 1].contiguous(), prm, stats=stats,
+                                i0_planes=i0, **quad)
+    if chi is not None:
+        stats["masks"] = (occ.cpu().numpy(), chi.cpu().numpy())
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stats["seconds"]["global"] = time.perf_counter() - t1
@@ -1132,10 +1279,11 @@ def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10):
     return flow.cpu().numpy(), torch.stack([u1, u2], -1).cpu().numpy()
 
 
-def write_frames(tmp, i0, i1):
-    """The pair as ``.npy`` frames and their list file; returns its path."""
+def write_frames(tmp, *frames):
+    """The frames (a pair, or method 8's four) as ``.npy`` frames and their
+    list file; returns its path."""
     names = []
-    for k, im in enumerate((i0, i1)):
+    for k, im in enumerate(frames):
         names.append(os.path.join(tmp, f"frame_{k}.npy"))
         np.save(names[-1], np.round(im).astype(np.uint8).transpose(1, 2, 0))
     ims = os.path.join(tmp, "ims.txt")
@@ -1168,13 +1316,56 @@ class k8_loop_calls:
         functionals.csad_patch_loop = self.inner
 
 
-def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
+class k9_loop_times:
+    """While active, keeps (B, P) of every call of K9's patch form that the
+    m8 patch solver makes (``occlusion.occ_patch_loop``), with a CUDA event
+    recorded on the stream before and after each, so that the path's own
+    patch-form time can be summed afterwards (``seconds``; where the card
+    waits on the host, the wrapper's host time between the events counts).
+    Launches are counted as ever, by the wrapper it calls: the wrapper
+    raises the count of its module's name, which is ``keep`` while this is
+    active, so ``keep`` hands each launch on to the wrapper's own count."""
+
+    def __enter__(self):
+        from faldoi_tpu_torch.core import occlusion
+
+        self.calls, self.events, self.inner = [], [], occlusion.occ_patch_loop
+
+        def keep(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.inner(*args, **kw)
+            ev[1].record()
+            self.inner.launches += keep.launches
+            keep.launches = 0
+            self.calls.append(tuple(args[0].shape[1:3]))
+            self.events.append(ev)
+            return out
+
+        keep.launches = 0
+        occlusion.occ_patch_loop = keep
+        return self
+
+    def __exit__(self, *exc):
+        from faldoi_tpu_torch.core import occlusion
+
+        occlusion.occ_patch_loop = self.inner
+
+    def seconds(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
     """``local_faldoi -m <method>`` then ``global_faldoi -m <method>`` on the
     card, from the golden-position seeds on the pair written as ``.npy``
     frames; checks the final flow and the method's kernels' launches and
     returns the launches of ``wrappers`` on this path (with K0's planes-form
     launches on the 24 weight planes under ``gather_plane_patches_c24``),
-    the path's stats and its seconds."""
+    the path's stats and its seconds.  Method 8 takes (I-1, I2, the known
+    occlusions) as ``later``: four frames, and the local and global
+    occlusion masks as ``.npy`` (the card's machine has no imaging
+    library)."""
     from faldoi_tpu_torch import synthetic as syn
     from faldoi_tpu_torch.cli import global_faldoi, local_faldoi
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
@@ -1182,7 +1373,9 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
 
     tag = f"m{method}"
     with tempfile.TemporaryDirectory() as tmp:
-        ims = write_frames(tmp, i0, i1)
+        ims = write_frames(tmp, i0, i1, *(later[:2] if later else ()))
+        masks = ([os.path.join(tmp, f"occ_{k}.npy") for k in ("rg", "var")]
+                 if method == 8 else [])
         seeds = [os.path.join(tmp, f"{k}.flo") for k in ("go", "ba")]
         write_flo(seeds[0], go)
         write_flo(seeds[1], ba)
@@ -1193,12 +1386,12 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
         st = {}
         t0 = time.perf_counter()
         rc = local_faldoi.main([ims, *seeds, rg, os.path.join(tmp, "sim.tiff"),
-                                "-m", str(method), "-bsz", str(BSZ), "-device",
-                                "cuda"], stats=st)
+                                *masks[:1], "-m", str(method), "-bsz", str(BSZ),
+                                "-device", "cuda"], stats=st)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        rc = rc or global_faldoi.main([ims, rg, var, "-m", str(method), "-device",
-                                       "cuda"], stats=st)
+        rc = rc or global_faldoi.main([ims, rg, var, *masks, "-m", str(method),
+                                       "-device", "cuda"], stats=st)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = {fn.__name__: fn.launches for fn in wrappers}
@@ -1206,6 +1399,7 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
         if rc != 0:
             raise AssertionError(f"the {tag} stage CLIs exited {rc}")
         rg, var = read_flo(rg), read_flo(var)
+        masks = [np.load(m) for m in masks]
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = dict(local=t1 - t0, global_=t2 - t1, total=t2 - t0)
     log(f"{tag} path (local_faldoi -m {method}, global_faldoi -m {method}) "
@@ -1234,6 +1428,31 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers):
         if launches["nltv_global_loop"] != 5:
             raise AssertionError(f"K6 launched {launches['nltv_global_loop']} "
                                  "times, expected 5 (one a warp)")
+    if method == 8:
+        known = later[2] > 0
+        for name, m in zip(("local (rg_occ)", "global (var_occ)"), masks):
+            hit = ((m > 0) & known).sum()
+            log(f"m8 {name} occlusion mask against the known occlusions "
+                f"({100 * known.mean():.3f}% of the pixels): "
+                f"{100 * m.mean():.3f}% occluded, recall "
+                f"{100 * hit / known.sum():.2f}%, precision "
+                f"{100 * hit / max((m > 0).sum(), 1):.2f}%, IoU "
+                f"{hit / ((m > 0) | known).sum():.4f}")
+            if m.shape != (H, W) or not set(np.unique(m)) <= {0, 1}:
+                raise AssertionError(f"m8 {name} mask is not a binary {H}x{W} image")
+        iters = st["global_iters"]
+        if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
+            raise AssertionError(f"m8 global iterations {iters}")
+        for name in ("occ_patch_loop", "occ_global_step", "gather_plane_patches",
+                     "gather_patches", "bicubic_sample_patches",
+                     "bicubic_warp_planes"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on the m8 path")
+        # K9's whole-image form: one call a global PD iteration
+        if launches["occ_global_step"] != sum(iters):
+            raise AssertionError(f"K9's whole-image form made "
+                                 f"{launches['occ_global_step']} calls, not the "
+                                 f"{sum(iters)} global PD iterations")
     if method == 4:
         iters = st["global_iters"]
         if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
@@ -1314,6 +1533,15 @@ def run_sift_path(i0, i1, gf, wrappers):
     return launches
 
 
+def quad_frames():
+    """Method 8's frames I-1 and I2 of the synthetic sequence (``SEED``,
+    I0 and I1 are the pair's) and the known occlusions of I0."""
+    from faldoi_tpu_torch import synthetic as syn
+
+    _, _, i_1, i2, _, _, occ = syn.make_quad(H, W, seed=SEED)
+    return i_1, i2, occ
+
+
 def make_data():
     """The synthetic pair, its known flows and the seeds at the golden
     positions, made from ``SEED``: (i0, i1, gf, gb, pos_f, pos_b, go, ba,
@@ -1338,15 +1566,25 @@ def crop_of(data, shape):
     return i0[:, :ch, :cw], i1[:, :ch, :cw], go[cut], ba[cut]
 
 
+def later_crop(later, shape):
+    """Method 8's I-1 and I2 cut to the crop ``shape``."""
+    ch, cw = shape
+    return tuple(f[:, :ch, :cw] for f in later[:2])
+
+
 def cpu_crop(method, band, ch, cw, out):
     """A child process's job: the ch x cw crop of ``method`` through the CPU
-    twins, one thread; writes rg, var and the sweeps to ``out`` (.npz)."""
+    twins, one thread; writes rg, var, the sweeps and method 8's masks to
+    ``out`` (.npz)."""
     torch.set_num_threads(1)
     st = {"seconds": {}}
     t0 = time.perf_counter()
-    rg, var = run_slice(*crop_of(make_data(), (ch, cw)), "cpu", st, method, band)
+    later = later_crop(quad_frames(), (ch, cw)) if method == 8 else None
+    rg, var = run_slice(*crop_of(make_data(), (ch, cw)), "cpu", st, method, band,
+                        later)
+    masks = st.get("masks", (np.zeros(0), np.zeros(0)))
     np.savez(out, rg=rg, var=var, sweeps=[s["sweeps"] for s in st["sweeps"]],
-             seconds=time.perf_counter() - t0)
+             seconds=time.perf_counter() - t0, occ_rg=masks[0], occ_var=masks[1])
     return 0
 
 
@@ -1385,6 +1623,7 @@ def run_all(jobs, tmp):
     from faldoi_tpu_torch.core.functionals import make_solver_consts, nltv_patch_loop
     from faldoi_tpu_torch.core.global_step import global_pd_loop
     from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
+    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_patch_loop
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.kernels import build as kb
     from faldoi_tpu_torch.models import method_local_params
@@ -1431,7 +1670,9 @@ def run_all(jobs, tmp):
     sc45 = {m: make_solver_consts(a, b, *method_local_params(m, 5), 0.01, 11, m)
             for m in (4, 5)}
     kernels += [check_k8(dev, rng, a, b, gf, sc45),
-                check_k8_loop(dev, rng, sc45, len(pos_f))]
+                check_k8_loop(dev, rng, sc45, len(pos_f)),
+                *check_k9(dev, len(pos_f))]
+    later = quad_frames()
 
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
@@ -1441,12 +1682,13 @@ def run_all(jobs, tmp):
         log(kp.describe(r))
 
     # phase 4: crops through the CPU twins (the child processes) and
-    # through the card, m0, m2, m4 and m6 with the warm requeue, m1, m3, m5
-    # and m7 with the cold one; the CSAD crops must agree exactly
+    # through the card, m0, m2, m4, m6 and m8 with the warm requeue, m1, m3,
+    # m5 and m7 with the cold one; the CSAD and m8 crops must agree exactly
     for method, band, shape in CROPS:
         st = {}
         t0 = time.perf_counter()
-        rg, var = run_slice(*crop_of(data, shape), "cuda", st, method, band)
+        rg, var = run_slice(*crop_of(data, shape), "cuda", st, method, band,
+                            later_crop(later, shape) if method == 8 else None)
         card_s = time.perf_counter() - t0
         proc, out = jobs[method]
         t0 = time.perf_counter()
@@ -1454,7 +1696,7 @@ def run_all(jobs, tmp):
             raise AssertionError(f"the CPU crop of m{method} exited {proc.returncode}")
         cpu = np.load(out)
         e_rg, e_var = syn.epe(rg, cpu["rg"]), syn.epe(var, cpu["var"])
-        csad = method in range(4, 8)
+        csad = method in EXACT_CROPS
         log(f"crop {shape[0]}x{shape[1]} m{method} warm_band {band}: card "
             f"{card_s:.2f} s, sweeps {[s['sweeps'] for s in st['sweeps']]}; CPU "
             f"twins (a child process, one thread) {float(cpu['seconds']):.2f} s, "
@@ -1465,6 +1707,14 @@ def run_all(jobs, tmp):
                          and np.array_equal(np.isnan(rg), np.isnan(cpu["rg"]))):
             raise AssertionError(f"crop m{method} card vs CPU: rg EPE {e_rg}, "
                                  f"final EPE {e_var}, expected 0")
+        if method == 8:
+            same = [np.array_equal(m, cpu[k]) for m, k in
+                    zip(st["masks"], ("occ_rg", "occ_var"))]
+            log(f"crop m8 occlusion masks (rg, var) card vs CPU twins equal: "
+                f"{same}; occluded {[float(m.mean()) for m in st['masks']]}")
+            if not all(same):
+                raise AssertionError("crop m8: the card's occlusion masks differ "
+                                     "from the CPU twins'")
         if not e_var <= 0.01:
             raise AssertionError(f"crop m{method} card vs CPU: final EPE "
                                  f"{e_var} > 0.01")
@@ -1474,7 +1724,8 @@ def run_all(jobs, tmp):
     # launches it any more (the whole-image warps take the flow form)
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
-                nltv_patch_loop, csad_vstep, csad_patch_loop, bicubic_sample)
+                nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
+                occ_global_step, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -1520,6 +1771,26 @@ def run_all(jobs, tmp):
         f"{launches_m4['csad_vstep']} whole-image K8 calls (one a global PD "
         "iteration)")
 
+    # phase 5c: the m8 (TV-L1 with occlusions) path through the stage CLIs
+    # at full width on the four-frame sequence, counting launches; K9's
+    # patch-form calls timed where they run
+    with k9_loop_times() as k9_path:
+        launches_m8, _, _ = run_stage_path(8, i0, i1, go, ba, gf, wrappers, later)
+    k9_calls = [c for c in k9_path.calls if c[0] > 0]
+    if launches_m8["occ_patch_loop"] != len(k9_calls):
+        raise AssertionError(f"K9's patch form launched "
+                             f"{launches_m8['occ_patch_loop']} times on the m8 "
+                             f"path, not once for each of its {len(k9_calls)} "
+                             f"solve batches a warp")
+    k9_s = k9_path.seconds()
+    bs9 = sorted(b for b, _ in k9_calls)
+    log(f"K9 on the m8 path: {len(k9_calls)} patch-form calls, one a patch "
+        f"solve batch a warp (B min {bs9[0]}, median {bs9[len(bs9) // 2]}, max "
+        f"{bs9[-1]}, sum {sum(bs9)}; {sum(p == 3 for _, p in k9_calls)} at P 3), "
+        f"{k9_s:.4f} s in all between CUDA events around each call; "
+        f"{launches_m8['occ_global_step']} whole-image calls (one a global PD "
+        "iteration)")
+
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
 
@@ -1553,6 +1824,8 @@ def run_all(jobs, tmp):
     loop_rec.update(path_calls=len(loop_calls),
                     path_per_iteration_s=sums["per_iteration"],
                     path_loop_s=sums["loop"])
+    k9_rec = [k for k in kernels if k["name"] == "occ_patch_loop"][0]
+    k9_rec.update(path_calls=len(k9_calls), path_loop_s=k9_s)
     log(f"K8's patch-form work of the m4 path, its {len(loop_calls)} loop calls "
         f"replayed on synthetic canvases of their B and P, CUDA events around "
         f"each: per-iteration form (K8's patch form and ~20 plain ops an "
@@ -1560,9 +1833,10 @@ def run_all(jobs, tmp):
         f"{sums['loop']:.4f} s ({time.perf_counter() - t0:.1f} s)")
 
     paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
-                 sift=launches_sift)
+                 m8=launches_m8, sift=launches_sift)
     kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS else
                                  launches_m4 if k["name"] in M4_KERNELS else
+                                 launches_m8 if k["name"] in M8_KERNELS else
                                  launches_sift)[k["name"]],
                     **{f"launches_{p}": la[k["name"]] for p, la in paths.items()})
                for k in kernels]
@@ -1579,7 +1853,7 @@ def run_all(jobs, tmp):
             continue
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
-        if (k["name"] not in M2_KERNELS + M4_KERNELS
+        if (k["name"] not in M2_KERNELS + M4_KERNELS + M8_KERNELS
                 and k.get("launches_m0", 1) <= 0):
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 

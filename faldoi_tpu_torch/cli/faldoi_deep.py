@@ -2,7 +2,7 @@
 "Algorithm 2" (``scripts_python/faldoi_deep.py``), the contract of
 ``faldoi_tpu.cli.faldoi_deep`` plus ``-device`` and ``-bin_dir``::
 
-    python -m faldoi_tpu_torch.cli.faldoi_deep imgs.txt [-vm 0..7] ... \
+    python -m faldoi_tpu_torch.cli.faldoi_deep imgs.txt [-vm 0..8] ... \
         [-threshold 0.045] [-nt 4] [-downscale 2] [-max_scale 1.414] \
         [-rot_plus 45] [-rot_minus 45] [-device cuda|cpu] [-bsz n] [-bin_dir dir] \
         [throttles]

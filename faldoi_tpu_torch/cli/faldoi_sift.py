@@ -2,7 +2,7 @@
 "Algorithm 1" (``scripts_python/faldoi_sift.py``), the contract of
 ``faldoi_tpu.cli.faldoi_sift`` plus ``-device`` and ``-bin_dir``::
 
-    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0..7] [-wr 5] \
+    python -m faldoi_tpu_torch.cli.faldoi_sift imgs.txt [-vm 0..8] [-wr 5] \
         [-local_iter n] [-patch_iter n] [-fb_thresh eps] [-partial_res v] \
         [-warps n] [-glob_iter n] [-nsp n] [-res_path dir/] \
         [-energy_params file] [-verbose v] [-trace dir] \
@@ -170,9 +170,10 @@ def count_lines(path: str) -> int:
         return sum(1 for ln in fh if ln.strip())
 
 
-def run_local_global(args, sp1, sp2, rg, sim, var, timer, stats):
+def run_local_global(args, sp1, sp2, rg, sim, var, timer, stats, occ=()):
     """The local and global stage CLIs on the seeds (shared by the
-    drivers); returns the first non-zero exit code, or 0."""
+    frames-to-flow entry points); returns the first non-zero exit code, or
+    0.  ``occ``: the occlusion masks (rg_occ, var_occ) of method 8, or ()."""
     from faldoi_tpu_torch.cli import global_faldoi as global_cli
     from faldoi_tpu_torch.cli import local_faldoi as local_cli
     from faldoi_tpu_torch.profiling import device_trace
@@ -180,7 +181,7 @@ def run_local_global(args, sp1, sp2, rg, sim, var, timer, stats):
     with device_trace(args.trace or None):
         with timer.stage("local step"):
             rc = local_cli.main(
-                [args.file_images, sp1, sp2, rg, sim,
+                [args.file_images, sp1, sp2, rg, sim, *occ[:1],
                  "-m", args.vm, "-wr", args.wr, "-p", args.energy_params,
                  "-loc_it", args.local_iter, "-max_pch_it", args.patch_iter,
                  "-split_img", args.split_img, "-h_parts", args.h_parts,
@@ -192,7 +193,7 @@ def run_local_global(args, sp1, sp2, rg, sim, var, timer, stats):
             return rc
         with timer.stage("global step"):
             rc = global_cli.main(
-                [args.file_images, rg, var,
+                [args.file_images, rg, var, *occ,
                  "-m", args.vm, "-w", args.warps, "-p", args.energy_params,
                  "-glb_iters", args.glob_iter, "-verbose", args.verbose,
                  "-device", args.device], stats=stats)

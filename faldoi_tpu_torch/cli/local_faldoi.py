@@ -9,10 +9,12 @@
         [-delta d] [-delta_rel r] [-floor n] [-floor_scale n] [-fs_hi n] \
         [-qhi n] [-fs_late n] [-warm_band px] [-block n] [-fill f]
 
-Methods 0-7 (TV-L1, NLTV-L1, TV-CSAD and NLTV-CSAD, each plain and
-weighted) are ported; method 8 exits with code 2.  ``occlusions.png``
-holds the pixels that the FB pruning distrusted in any outer iteration, as
-JAX writes them.  ``-partial_res 1`` writes the forward growing's snapshots to
+Methods 0-8: TV-L1, NLTV-L1, TV-CSAD and NLTV-CSAD, each plain and
+weighted, and TV-L1 with occlusions (8), which takes a four-frame list (I0,
+I1, I-1, I2; with two frames it falls back to method 0, as JAX does).
+``occlusions.png`` holds the forward growing's chi for method 8, and for the
+others the pixels that the FB pruning distrusted in any outer iteration, as
+JAX writes them (``.npy`` as well, without an imaging library).  ``-partial_res 1`` writes the forward growing's snapshots to
 ``partial_results/partial_fwd_{30,70,80,95}_iter_{it}.flo`` under the working
 directory, as the JAX CLI does.  ``-bsz`` is the growing's batch size (the
 counterpart of JAX's ``FALDOI_GROW_BSZ``; default 4096, as there).
@@ -83,7 +85,9 @@ def throttle_options(args) -> dict:
 def main(argv=None, stats=None):
     """Run the CLI; ``stats`` (a dict, optional) receives the growing's
     counters (``match_growing(stats=)``)."""
-    from faldoi_tpu_torch.core.preprocess import prepare_pair, read_frame_list
+    from faldoi_tpu_torch.core.preprocess import (
+        prepare_pair, prepare_quad, read_frame_list,
+    )
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.io.image import (
         read_image_split, save_image_float, save_image_int,
@@ -128,8 +132,7 @@ def main(argv=None, stats=None):
               file=sys.stderr)
         method = P.M_TVL1
     if method not in PORTED_METHODS:
-        print(f"ERROR: method {method} not ported yet ({NOT_PORTED})",
-              file=sys.stderr)
+        print(f"ERROR: unknown method {method} ({NOT_PORTED})", file=sys.stderr)
         return 2
 
     prm = P.init_params(file_params, P.LOCAL_STEP)
@@ -165,11 +168,16 @@ def main(argv=None, stats=None):
     from faldoi_tpu_torch.core.match_growing import match_growing
 
     t0 = time.time()
-    i0n, i1n = prepare_pair(planes[0], planes[1], device=device)
+    quad = {}
+    if method == P.M_TVL1_OCC:
+        i0n, i1n, i_1n, i2n = prepare_quad(*planes[:4], device=device)
+        quad = dict(i_1n=i_1n, i2n=i2n)
+    else:
+        i0n, i1n = prepare_pair(planes[0], planes[1], device=device)
     flow, ene, occ = match_growing(
         go, ba, i0n, i1n, prm, sal[0], sal[1], bsz=bsz, stats=stats,
         snapshot_dir="partial_results" if partial_res else None,
-        i0_planes=planes[0], i1_planes=planes[1], **throttles)
+        i0_planes=planes[0], i1_planes=planes[1], **throttles, **quad)
     flow, ene, occ = flow.cpu().numpy(), ene.cpu().numpy(), occ.cpu().numpy()
     if verbose:
         print(f"(local) match growing took {time.time() - t0:.2f}s on "

@@ -1,5 +1,5 @@
-"""Batched canvas patch solvers for methods 0-7: TV-L1, NLTV-L1, TV-CSAD and
-NLTV-CSAD, each plain and Gaussian-weighted.
+"""Batched canvas patch solvers for methods 0-8: TV-L1, NLTV-L1, TV-CSAD and
+NLTV-CSAD, each plain and Gaussian-weighted, and TV-L1 with occlusions.
 
 Port of ``faldoi_tpu/core/functionals.py::_solve_tvl1_family`` and
 ``_solve_nltv_family`` (reference ``tvl2_model.cpp:174-435``,
@@ -41,6 +41,13 @@ written, so they stay 0 and the eval's TV term is 0, and a warp's whole
 PD loop is one launch of the K8 loop (``ops.csad.csad_patch_loop``)
 (``true_tv=True`` runs the per-component TV projection instead, JAX's
 ``FALDOI_CSAD_TRUE_TV=1``).
+
+Method 8 (TV-L1 with occlusions, ``solve_tvl1_occ``) solves u and a binary
+occlusion field chi jointly over three frames: ``core.occlusion.
+solve_occ_canvas``, whose PD loop of a warp is kernel K9's patch form.  Its
+solver takes the chi canvases as the keyword ``chi`` and returns (u1, u2,
+chi, ener); the solvers of methods 0-7 take no chi and return (u1, u2,
+ener).
 
 The TV-L1 patch PD arithmetic, and that of the CSAD methods but the inert
 TV's loop, is plain PyTorch.
@@ -91,6 +98,12 @@ class SolverConsts(NamedTuple):
     tol: torch.Tensor
     w1d: Optional[torch.Tensor] = None   # (2wr+1,) window of methods 1, 3
     wp_pad: Optional[torch.Tensor] = None  # (24, h+P, w+P) NLTV weights
+    # method 8: (3, h, w) stacked (I_1, I_1x, I_1y) of the frame warped at -u
+    # (I-1 forward, I2 backward), K4's planes; the padded weight g = 1 / (1 +
+    # gamma |grad I0|) (h+P, w+P); (alpha, beta, mu, tau_u, tau_eta, tau_chi)
+    i_1_stack: Optional[torch.Tensor] = None
+    gpad: Optional[torch.Tensor] = None
+    occ_prm: Optional[torch.Tensor] = None
 
 
 NLTV_METHODS = (P.M_NLTVL1, P.M_NLTVL1_W)
@@ -107,13 +120,18 @@ def _scalar(x, dev):
 
 def make_solver_consts(i0: torch.Tensor, i1: torch.Tensor, lam, theta, tau,
                        tol, p: int, method: int = P.M_TVL1,
-                       i0_planes: Optional[np.ndarray] = None) -> SolverConsts:
+                       i0_planes: Optional[np.ndarray] = None,
+                       i_1: Optional[torch.Tensor] = None,
+                       occ_prm=None) -> SolverConsts:
     """SolverConsts of one growing direction (source i0, target i1).  The
     weighted methods (1, 3, 5, 7) add the window ``gaussian1d_weight(p //
     2)``; the NLTV-regularised methods (2, 3, 6, 7) add the local-scale
     weights of the source's raw
     (pd, h, w) colour planes ``i0_planes`` (0..255), zero-padded by p at the
-    bottom and right as JAX pads them."""
+    bottom and right as JAX pads them.  Method 8 adds the frame warped at -u,
+    ``i_1`` (h, w), with its centred gradient, the weight g of i0, edge-padded
+    by p, and ``occ_prm`` = (alpha, beta, mu, tau_u, tau_eta, tau_chi) as
+    float32 (JAX's 4-frame set-up, match_growing.py:662-690)."""
     solver_for(method)
     i1x, i1y = centered_gradient(i1)
     dev = i0.device
@@ -128,10 +146,22 @@ def make_solver_consts(i0: torch.Tensor, i1: torch.Tensor, lam, theta, tau,
                                 float(P.NL_BETA), float(P.NL_INTENSITY))
         wp_pad = torch.nn.functional.pad(torch.as_tensor(wp, device=dev),
                                          (0, p, 0, p)).contiguous()
+    occ = {}
+    if method == P.M_TVL1_OCC:
+        from faldoi_tpu_torch.core.occlusion import init_weight
+
+        if i_1 is None or occ_prm is None:
+            raise ValueError("method 8 needs the frame warped at -u (i_1) and "
+                             "the occlusion parameters (occ_prm)")
+        i_1x, i_1y = centered_gradient(i_1)
+        occ = dict(i_1_stack=torch.stack([i_1, i_1x, i_1y]).contiguous(),
+                   gpad=pad_for_crops(init_weight(*centered_gradient(i0)), p),
+                   occ_prm=torch.tensor(np.asarray(occ_prm, np.float32),
+                                        device=dev))
     return SolverConsts(pad_for_crops(i0, p), i1, i1x, i1y,
                         torch.stack([i1, i1x, i1y]).contiguous(),
                         _scalar(lam, dev), _scalar(theta, dev), _scalar(tau, dev),
-                        _scalar(tol, dev), w1d, wp_pad)
+                        _scalar(tol, dev), w1d, wp_pad, **occ)
 
 
 def solver_consts_from_numpy(sc, device) -> SolverConsts:
@@ -141,11 +171,17 @@ def solver_consts_from_numpy(sc, device) -> SolverConsts:
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
 
+    occ = {}
+    if sc.gpad is not None:
+        occ = dict(i_1_stack=torch.stack([t(sc.i_1), t(sc.i_1x),
+                                          t(sc.i_1y)]).contiguous(),
+                   gpad=t(sc.gpad).contiguous(), occ_prm=t(sc.occ_prm))
     return SolverConsts(t(sc.i0pad).contiguous(), t(sc.i1), t(sc.i1x),
                         t(sc.i1y), t(sc.i1_stack).contiguous(), t(sc.lambda_),
                         t(sc.theta), t(sc.tau), t(sc.tol),
                         None if sc.w1d is None else t(sc.w1d),
-                        None if sc.wp_pad is None else t(sc.wp_pad).contiguous())
+                        None if sc.wp_pad is None else t(sc.wp_pad).contiguous(),
+                        **occ)
 
 
 def _weight2d(w1d, rows, cols, oy, ox, cj, ci, wr):
@@ -628,15 +664,39 @@ def solve_nltvcsad_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
                               max_iters, weighted=True, nltv_reg=True)
 
 
-# method -> patch solver (JAX's ``functionals.SOLVERS``, the ported part)
+def solve_tvl1_occ(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
+                   warps: int, max_iters: int, chi):
+    """Solve B method-8 (TV-L1 with occlusions) patches from the u1, u2 and
+    ``chi`` init canvases; ``sc`` must hold method 8's
+    consts.  The source and weight crops go through K0's stack form, the
+    rest is ``core.occlusion.solve_occ_canvas``.  Returns (u1, u2, chi,
+    ener).  The caller passes the PD cap ``iterations_of``, not
+    ``max_iter_patch`` (tvl2_model_occ.cpp:653)."""
+    from faldoi_tpu_torch.core.occlusion import local_scalars, solve_occ_canvas
+
+    if sc.gpad is None:
+        raise ValueError("solve_tvl1_occ needs method 8's SolverConsts "
+                         "(i_1_stack, gpad, occ_prm)")
+    oy32, ox32 = oy.to(torch.int32).contiguous(), ox.to(torch.int32).contiguous()
+    ph32, pw32 = ph.to(torch.int32).contiguous(), pw.to(torch.int32).contiguous()
+    i0_patch, g_patch = (
+        gather_patches(pl[:, :, None], oy32, ox32, p)[:, :, 0, :]
+        .permute(2, 0, 1).contiguous() for pl in (sc.i0pad, sc.gpad))
+    scal = local_scalars(sc.lambda_, sc.theta, sc.occ_prm, sc.tol)
+    return solve_occ_canvas(i0_patch, sc.i1_stack, sc.i_1_stack, g_patch, oy32,
+                            ox32, ph32, pw32, u1, u2, chi, scal, warps, max_iters)
+
+
+# method -> patch solver (JAX's ``functionals.SOLVERS``)
 SOLVERS = {P.M_TVL1: solve_tvl1, P.M_TVL1_W: solve_tvl1_w,
            P.M_NLTVL1: solve_nltvl1, P.M_NLTVL1_W: solve_nltvl1_w,
            P.M_TVCSAD: solve_tvcsad, P.M_TVCSAD_W: solve_tvcsad_w,
-           P.M_NLTVCSAD: solve_nltvcsad, P.M_NLTVCSAD_W: solve_nltvcsad_w}
+           P.M_NLTVCSAD: solve_nltvcsad, P.M_NLTVCSAD_W: solve_nltvcsad_w,
+           P.M_TVL1_OCC: solve_tvl1_occ}
 
 
 def solver_for(method: int):
-    """The patch solver of ``method``; methods not ported yet raise."""
+    """The patch solver of ``method``; an unknown method raises."""
     if method not in SOLVERS:
-        raise NotImplementedError(f"method {method} not ported yet")
+        raise ValueError(f"unknown method {method} (the methods are 0-8)")
     return SOLVERS[method]

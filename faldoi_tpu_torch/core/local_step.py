@@ -13,7 +13,12 @@ sweep, the centre update when its energy improves, and max-energy wins for
 the persistent working flow over the whole patch.
 
 State layout: flat (h*w+1,) planes; the extra slot is the dump for masked
-writes, as in JAX.
+writes, as in JAX.  The occlusion planes ``out_chi``, ``cand_chi`` and
+``wchi`` flow through the sweeps only for method 8 (``with_chi``): the fix
+takes the candidate's chi, the state crop takes seven planes, the chi init
+is ``out_chi`` at fixed pixels and the working chi elsewhere (0 where it is
+not finite, and outside the box), and chi rides as a payload on every
+scatter.  For methods 0-7 no sweep reads or writes them.
 
 Ties, which JAX leaves to the backend: candidate selection breaks equal
 energies by the lower flat index (``lax.top_k``'s rule; a stable sort here),
@@ -68,6 +73,9 @@ class GrowState(NamedTuple):
     cand_e: torch.Tensor  # inf = no candidate
     wu: torch.Tensor      # (N+1,) persistent working flow
     wv: torch.Tensor
+    out_chi: torch.Tensor  # (N+1,) occlusion output (method 8; the pruned
+    cand_chi: torch.Tensor  # pixels of the requeues for every method)
+    wchi: torch.Tensor
 
 
 def init_state(h: int, w: int, device) -> GrowState:
@@ -82,12 +90,13 @@ def init_state(h: int, w: int, device) -> GrowState:
         out_u=full(NAN), out_v=full(NAN), ene=full(INF),
         cand_u=full(0.0), cand_v=full(0.0), cand_e=full(INF),
         wu=full(NAN), wv=full(NAN),
+        out_chi=full(0.0), cand_chi=full(0.0), wchi=full(0.0),
     )
 
 
 def state_from_numpy(st, device) -> GrowState:
     """Carry a JAX ``GrowState`` (any object with its field names, or a
-    mapping) into the port; the method-8 chi planes are not used by m0."""
+    mapping) into the port, the method-8 chi planes included."""
     get = st.get if isinstance(st, dict) else (lambda k: getattr(st, k))
     dev = torch.device(device)
     out = {}
@@ -128,40 +137,72 @@ def _positions(q, pos):
     return torch.arange(q.shape[0], device=q.device) if pos is None else pos
 
 
-def scatter_min_payload(tgt_e, tgt_u, tgt_v, q, e, u, v, ok, dump, pos=None):
+def _put_payloads(qw, tgts, vals):
+    return tuple(t.index_put((qw,), x) for t, x in zip(tgts, vals))
+
+
+def scatter_min_payload(tgt_e, tgt_u, tgt_v, q, e, u, v, ok, dump, pos=None,
+                        tgt_c=None, c=None):
     """Scatter (e, u, v) to q where ok, keeping per slot the minimum e
     (``_scatter_min_payload``).  ``pos`` orders tied winners (default: the
-    update order)."""
+    update order).  With ``tgt_c`` and ``c`` (method 8's chi) the winner's c
+    goes to tgt_c as well, and the result has it fourth."""
     qs = torch.where(ok, q, torch.full_like(q, dump))
     e_m = torch.where(ok, e, torch.full_like(e, INF))
     tgt_e = tgt_e.scatter_reduce(0, qs, e_m, "amin", include_self=True)
     winner = ok & (e_m <= tgt_e[qs])
     sel = _last_winner(qs, winner, _positions(q, pos), tgt_e.shape[0])
     qw = torch.where(sel, q, torch.full_like(q, dump))
-    return tgt_e, tgt_u.index_put((qw,), u), tgt_v.index_put((qw,), v)
+    tgts, vals = (tgt_u, tgt_v), (u, v)
+    if tgt_c is not None:
+        tgts, vals = tgts + (tgt_c,), vals + (c,)
+    return (tgt_e,) + _put_payloads(qw, tgts, vals)
 
 
 def scatter_max_payload(key_buf, tgt_u, tgt_v, q, key, u, v, ok, dump,
-                        pos=None):
+                        pos=None, tgt_c=None, c=None):
     """Scatter (u, v) to q where ok, keeping the payload of the maximum key
-    (``_scatter_max_payload`` in its exact form)."""
+    (``_scatter_max_payload`` in its exact form); ``tgt_c``, ``c`` as in
+    ``scatter_min_payload``."""
     qs = torch.where(ok, q, torch.full_like(q, dump))
     k_m = torch.where(ok, key, torch.full_like(key, -INF))
     key_buf = key_buf.scatter_reduce(0, qs, k_m, "amax", include_self=True)
     winner = ok & (k_m >= key_buf[qs])
     sel = _last_winner(qs, winner, _positions(q, pos), key_buf.shape[0])
     qw = torch.where(sel, q, torch.full_like(q, dump))
-    return key_buf, tgt_u.index_put((qw,), u), tgt_v.index_put((qw,), v)
+    tgts, vals = (tgt_u, tgt_v), (u, v)
+    if tgt_c is not None:
+        tgts, vals = tgts + (tgt_c,), vals + (c,)
+    return (key_buf,) + _put_payloads(qw, tgts, vals)
 
 
-def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p):
+def _chi_payload(tgt_c, c):
+    """The chi payload's keyword arguments of a scatter (none where c is
+    None: methods 0-7)."""
+    return {} if c is None else dict(tgt_c=tgt_c, c=c)
+
+
+def _solve(solver, sc, i, j, oy, ox, ph, pw, u0, v0, p, warps, max_iters,
+           chi):
+    """The method's patch solve: (u, v, chi, ener).  ``chi`` is method 8's
+    init canvases and None for methods 0-7, whose solvers take and return
+    no chi."""
+    if chi is None:
+        su, sv, ener = solver(sc, i, j, oy, ox, ph, pw, u0, v0, p, warps,
+                              max_iters)
+        return su, sv, None, ener
+    return solver(sc, i, j, oy, ox, ph, pw, u0, v0, p, warps, max_iters,
+                  chi=chi)
+
+
+def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p, schi=None):
     """The 4-neighbour candidates of B solved patches, concatenated in
-    ``NEIGHBOURS`` order: (q, in_image, energy, u, v).  q is the dump slot
-    where the neighbour leaves the image; (u, v) come from the patch cell
-    next to the centre."""
+    ``NEIGHBOURS`` order: (q, in_image, energy, u, v, chi or None).  q is the
+    dump slot where the neighbour leaves the image; (u, v) and chi (given
+    ``schi``) come from the patch cell next to the centre."""
     cy, cx = j - oy, i - ox
     bidx = torch.arange(i.shape[0], device=i.device)
-    qs, inbs, nus, nvs = [], [], [], []
+    qs, inbs, nus, nvs, ncs = [], [], [], [], []
     for dx, dy in NEIGHBOURS:
         qi, qj = i + dx, j + dy
         inb = (qi >= 0) & (qi < w) & (qj >= 0) & (qj < h)
@@ -171,13 +212,18 @@ def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p):
         c = (cx + dx).clamp(0, p - 1)
         nus.append(su[bidx, r, c])
         nvs.append(sv[bidx, r, c])
+        if schi is not None:
+            ncs.append(schi[bidx, r, c])
     q = torch.cat(qs)
     return (q, torch.cat(inbs), ener.repeat(len(NEIGHBOURS)) * sal[q],
-            torch.cat(nus), torch.cat(nvs))
+            torch.cat(nus), torch.cat(nvs),
+            torch.cat(ncs) if schi is not None else None)
 
 
-def _wflow_scatter(state_wu, state_wv, su, sv, ener, oy, ox, inbox, h, w, p):
-    """Max-energy-wins working-flow scatter over every in-box patch cell."""
+def _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox, h, w, p):
+    """Max-energy-wins working-flow scatter over every in-box patch cell;
+    the working chi rides along where ``schi`` is given.  Returns (wu, wv,
+    wchi)."""
     n = h * w
     k = su.shape[0]
     rows, cols = canvas_ids(p, su.device)
@@ -188,10 +234,11 @@ def _wflow_scatter(state_wu, state_wv, su, sv, ener, oy, ox, inbox, h, w, p):
     bidx = torch.arange(k, device=su.device)[:, None, None]
     pos = (rows * p + cols) * k + bidx          # JAX order: cell-major
     key_buf = torch.full((n + 1,), -INF, dtype=torch.float32, device=su.device)
-    _, wu, wv = scatter_max_payload(
-        key_buf, state_wu, state_wv, flat_q.reshape(-1), key.reshape(-1),
-        su.reshape(-1), sv.reshape(-1), inbox.reshape(-1), n, pos.reshape(-1))
-    return wu, wv
+    out = scatter_max_payload(
+        key_buf, state.wu, state.wv, flat_q.reshape(-1), key.reshape(-1),
+        su.reshape(-1), sv.reshape(-1), inbox.reshape(-1), n, pos.reshape(-1),
+        **_chi_payload(state.wchi, None if schi is None else schi.reshape(-1)))
+    return out[1], out[2], out[3] if schi is not None else state.wchi
 
 
 def _fill_pair(u, v, ph, pw, exact):
@@ -243,6 +290,7 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     Returns (new state, n_accepted)."""
     solver = solver_for(method)
     exact = exact_fill(fill, method)
+    with_chi = method == P.M_TVL1_OCC
     n = h * w
     dump = n
     p = 2 * wr + 1
@@ -285,13 +333,19 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     out_v = state.out_v.index_put((idx,), state.cand_v[idx])
     ene = state.ene.index_put((idx,), state.cand_e[idx])
     cand_e = state.cand_e.index_put((idx,), torch.full((), INF, device=dev))
+    out_chi = (state.out_chi.index_put((idx,), state.cand_chi[idx]) if with_chi
+               else state.out_chi)
 
     # --- per-patch init (add_neighbors :688-705): one launch of K0's planes
     # form crops the five state planes where they lie (the flat planes with
-    # their dump slot, the trust map in the dtype the caller holds) into
-    # five contiguous (k, p, p) canvases; the edge pad is the kernel's clamp
-    ou, ov, wu_p, wv_p, tr = gather_plane_patches(
-        (out_u, out_v, state.wu, state.wv, trust2d), oy, ox, p, h, w).unbind(0)
+    # their dump slot, the trust map in the dtype the caller holds), and
+    # out_chi and wchi for method 8, into contiguous (k, p, p) canvases; the
+    # edge pad is the kernel's clamp
+    planes = (out_u, out_v, state.wu, state.wv, trust2d)
+    if with_chi:
+        planes += (out_chi, state.wchi)
+    crops = gather_plane_patches(planes, oy, ox, p, h, w).unbind(0)
+    ou, ov, wu_p, wv_p, tr = crops[:5]
     rows, cols = canvas_ids(p, dev)
     inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
     fxp = torch.isfinite(ou) & inbox
@@ -313,18 +367,31 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     v_init = torch.where(inbox, torch.where(uf, fill_v, alt_v), zero)
 
     # --- batched patch solve
-    su, sv, ener = solver(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
-                          p, warps, max_iters)
+    c_init = None
+    if with_chi:
+        # chi init: fixed pixels take out_chi, the others the working chi
+        # where it is finite, else 0; 0 outside the box
+        oc, wc_p = crops[5], crops[6]
+        c_init = torch.where(fxp, oc, torch.where(torch.isfinite(wc_p), wc_p,
+                                                  zero))
+        c_init = torch.where(inbox, c_init, zero)
+    su, sv, schi, ener = _solve(solver, sconsts, i, j, oy, ox, ph, pw, u_init,
+                                v_init, p, warps, max_iters, c_init)
 
     # --- 4-neighbour candidates and same-sweep donations (:497-537)
-    q4, inb4, e4, nu4, nv4 = _neighbour_candidates(su, sv, ener, i, j, oy, ox,
-                                                   sal, h, w, p)
+    q4, inb4, e4, nu4, nv4, nc4 = _neighbour_candidates(
+        su, sv, ener, i, j, oy, ox, sal, h, w, p, schi)
     ok = inb4 & ~fixed[q4] & (e4 < cand_e[q4])
     okd = inb4 & fixed[q4] & ~state.fixed[q4] & (e4 < ene[q4])
-    cand_e, cand_u, cand_v = scatter_min_payload(
-        cand_e, state.cand_u, state.cand_v, q4, e4, nu4, nv4, ok, dump)
-    ene, out_u, out_v = scatter_min_payload(
-        ene, out_u, out_v, q4, e4, nu4, nv4, okd, dump)
+    cand = scatter_min_payload(cand_e, state.cand_u, state.cand_v, q4, e4,
+                               nu4, nv4, ok, dump,
+                               **_chi_payload(state.cand_chi, nc4))
+    don = scatter_min_payload(ene, out_u, out_v, q4, e4, nu4, nv4, okd, dump,
+                              **_chi_payload(out_chi, nc4))
+    cand_e, cand_u, cand_v = cand[:3]
+    ene, out_u, out_v = don[:3]
+    cand_chi = cand[3] if with_chi else state.cand_chi
+    out_chi = don[3] if with_chi else out_chi
 
     # --- centre update (add_neighbors :718-726), after the donations
     cy, cx = j - oy, i - ox
@@ -333,14 +400,16 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     upd = torch.where(better, idx, torch.full_like(idx, dump))
     out_u = out_u.index_put((upd,), su[bidx, cy, cx])
     out_v = out_v.index_put((upd,), sv[bidx, cy, cx])
+    if with_chi:
+        out_chi = out_chi.index_put((upd,), schi[bidx, cy, cx])
     ene = ene.index_put((upd,), torch.where(better, ener,
                                             torch.full_like(ener, INF)))
 
     # --- persistent working flow (max energy wins == later pop wins)
-    wu, wv = _wflow_scatter(state.wu, state.wv, su, sv, ener, oy, ox, inbox,
-                            h, w, p)
+    wu, wv, wchi = _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox,
+                                  h, w, p)
     return GrowState(fixed, out_u, out_v, ene, cand_u, cand_v, cand_e,
-                     wu, wv), k
+                     wu, wv, out_chi, cand_chi, wchi), k
 
 
 def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
@@ -348,8 +417,10 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
                max_iters: int, method: int = P.M_TVL1) -> GrowState:
     """insert_initial_seeds (:748-796): 3x3 solves around each seed with only
     the seed fixed (exact raster Gauss-Seidel fill), 4-neighbour candidates,
-    and the working-flow scatter.  Every lane here is a real seed."""
+    and the working-flow scatter.  Every lane here is a real seed.  Method
+    8's solves start from chi 0, and their chi rides along."""
     solver = solver_for(method)
+    with_chi = method == P.M_TVL1_OCC
     n = h * w
     dump = n
     wr, p = 1, 3
@@ -366,18 +437,21 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
                         ph, pw, exact=True)
     u_init = torch.where(inbox, fu, zero)
     v_init = torch.where(inbox, fv, zero)
-    su, sv, ener = solver(sconsts, i, j, oy, ox, ph, pw, u_init, v_init,
-                          p, warps, max_iters)
+    su, sv, schi, ener = _solve(
+        solver, sconsts, i, j, oy, ox, ph, pw, u_init, v_init, p, warps,
+        max_iters, torch.zeros_like(u_init) if with_chi else None)
 
-    q4, inb4, e4, nu4, nv4 = _neighbour_candidates(su, sv, ener, i, j, oy, ox,
-                                                   sal, h, w, p)
-    cand_e, cand_u, cand_v = scatter_min_payload(
+    q4, inb4, e4, nu4, nv4, nc4 = _neighbour_candidates(
+        su, sv, ener, i, j, oy, ox, sal, h, w, p, schi)
+    out = scatter_min_payload(
         state.cand_e, state.cand_u, state.cand_v, q4, e4, nu4, nv4,
-        inb4 & (e4 < state.cand_e[q4]), dump)
-    wu, wv = _wflow_scatter(state.wu, state.wv, su, sv, ener, oy, ox, inbox,
-                            h, w, p)
-    return state._replace(cand_u=cand_u, cand_v=cand_v, cand_e=cand_e,
-                          wu=wu, wv=wv)
+        inb4 & (e4 < state.cand_e[q4]), dump,
+        **_chi_payload(state.cand_chi, nc4))
+    wu, wv, wchi = _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox,
+                                  h, w, p)
+    return state._replace(cand_e=out[0], cand_u=out[1], cand_v=out[2],
+                          cand_chi=out[3] if with_chi else state.cand_chi,
+                          wu=wu, wv=wv, wchi=wchi)
 
 
 def refix_seeds(state: GrowState, idx, su, sv) -> GrowState:

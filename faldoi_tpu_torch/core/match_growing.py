@@ -1,4 +1,4 @@
-"""Iterated FALDOI local minimization for methods 0-7 (``match_growing``).
+"""Iterated FALDOI local minimization for methods 0-8 (``match_growing``).
 
 Port of ``faldoi_tpu/core/match_growing.py`` in the semantics of its CPU
 default, ``mode="fused"`` (``_iterated_growing``, local_faldoi.cpp:
@@ -14,10 +14,17 @@ no environment.  JAX drains the two directions in
 lockstep; a drained lane's sweeps are no-ops there, so draining them one
 after the other, as here, gives the same states.
 
-The occlusion output is JAX's ``out_chi`` of the forward lane for methods
-0-7: every requeue, warm or cold, sets it to 1 at the pixels the pruning
-distrusted (match_growing.py:73,152), and no sweep resets it, so it is the
-union of the forward lane's pruned masks.
+Method 8 (TV-L1 with occlusions) grows over four frames: the forward lane
+warps I1 at +u and I-1 at -u with g from I0's gradient, the backward lane
+I0 at +u and I2 at -u with g from I1's (JAX's match_growing.py:662-690), and
+its patch PD cap is ``prm.iterations_of``, not ``max_iter_patch``
+(:702-705).
+
+The occlusion output is JAX's ``out_chi`` of the forward lane: every
+requeue, warm or cold, sets it to 1 at the pixels the pruning distrusted
+(match_growing.py:73,152).  For methods 0-7 no sweep touches it, so it is
+the union of the forward lane's pruned masks; for method 8 the sweeps carry
+the solved chi into it.
 """
 
 from __future__ import annotations
@@ -45,10 +52,8 @@ SNAPSHOT_PCTS = (30, 70, 80, 95)
 
 def delete_untrusted(state: GrowState, trust) -> GrowState:
     """delete_not_trustable_candidates (local_faldoi.cpp:283-311): untrusted
-    pixels lose their flow and energy and poison the working flow.  JAX also
-    marks them occluded (``out_chi``); the port keeps that mask beside the
-    state (``match_growing``'s occlusion output), since no sweep of methods
-    0-7 reads or changes it."""
+    pixels lose their flow and energy, poison the working flow and are
+    marked occluded (``out_chi``)."""
     bad = trust == 0
     dev = trust.device
     nan = torch.full((), float("nan"), device=dev)
@@ -59,6 +64,7 @@ def delete_untrusted(state: GrowState, trust) -> GrowState:
         ene=torch.where(bad, torch.full((), float("inf"), device=dev), state.ene),
         wu=state.wu + nanv,
         wv=state.wv + nanv,
+        out_chi=torch.where(bad, torch.ones((), device=dev), state.out_chi),
     )
 
 
@@ -84,8 +90,9 @@ def warm_requeue(state: GrowState, trust, h: int, w: int,
                  band: int) -> GrowState:
     """``_warm_requeue``: trusted pixels farther than ``band`` px from any
     pruned hole stay fixed; trusted pixels inside the band re-queue as
-    candidates; pruned pixels lose their flow and poison the working flow.
-    The dilation does not wrap at the image edge."""
+    candidates; pruned pixels lose their flow, poison the working flow and
+    are marked occluded (``out_chi``).  The dilation does not wrap at the
+    image edge."""
     n = h * w
     bad2d = trust[:n].view(h, w) == 0
     x = bad2d.to(torch.float32)[None, None]
@@ -112,6 +119,8 @@ def warm_requeue(state: GrowState, trust, h: int, w: int,
         out_v=torch.where(keep, state.out_v, nan),
         wu=state.wu + nanv,
         wv=state.wv + nanv,
+        out_chi=torch.where(bad, torch.ones((), device=trust.device),
+                            state.out_chi),
     )
 
 
@@ -160,16 +169,19 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                   floor: Optional[int] = None, floor_scale: int = 64,
                   floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
                   floor_scale_late: Optional[int] = None, block: int = 0,
-                  fill: str = "patch"):
+                  fill: str = "patch", i_1n: Optional[torch.Tensor] = None,
+                  i2n: Optional[torch.Tensor] = None):
     """Grow the (h, w, 2) NaN-sparse forward seeds ``go`` and backward seeds
     ``ba`` over the normalized, smoothed frames ``i0n``, ``i1n`` (tensors on
-    the run's device) with method ``prm.val_method`` (0 to 7).  Returns
+    the run's device) with method ``prm.val_method`` (0 to 8).  Returns
     (flow (h, w, 2), energy (h, w), occlusions (h, w) float32 0/1) of the
     forward direction, as tensors on that device.
 
     ``i0_planes``, ``i1_planes``: the raw (pd, h, w) colour planes of the two
     frames (0..255), which the NLTV methods (2, 3, 6, 7) need for their
     weights: the forward lane's from I0, the backward lane's from I1.
+    ``i_1n``, ``i2n``: method 8's frames I-1 and I2, normalized with I0 and
+    I1 (``preprocess.prepare_quad``).
 
     The throttles, each the counterpart of JAX's argument or environment
     knob of the same meaning: ``warm_band`` (the requeue band in px, 0 = the
@@ -191,11 +203,20 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     wr = prm.w_radio
     p = 2 * wr + 1
     lam, theta, tau = method_local_params(method, wr)
+    occ = ({}, {})
+    if method == P.M_TVL1_OCC:
+        if i_1n is None or i2n is None:
+            raise ValueError("method 8 needs 4 frames (i_1n and i2n)")
+        occ_prm = (prm.alpha, prm.beta, prm.mu, prm.tau_u, prm.tau_eta,
+                   prm.tau_chi)
+        occ = (dict(i_1=i_1n, occ_prm=occ_prm), dict(i_1=i2n, occ_prm=occ_prm))
     sc = (make_solver_consts(i0n, i1n, lam, theta, tau, prm.tol_OF, p, method,
-                             i0_planes=i0_planes),
+                             i0_planes=i0_planes, **occ[0]),
           make_solver_consts(i1n, i0n, lam, theta, tau, prm.tol_OF, p, method,
-                             i0_planes=i1_planes))
-    max_iters = max(prm.max_iter_patch, 1)
+                             i0_planes=i1_planes, **occ[1]))
+    # the occlusion solver's PD cap is iterations_of (tvl2_model_occ.cpp:653)
+    max_iters = max(prm.iterations_of if method == P.M_TVL1_OCC
+                    else prm.max_iter_patch, 1)
     if floor_scale_late is None:
         floor_scale_late = min(floor_scale, 16)
     throttles = dict(delta=delta, delta_rel=delta_rel,
@@ -234,7 +255,6 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
 
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
     trust2d = [ones, ones]
-    occ = torch.zeros((h, w), dtype=torch.float32, device=dev)
 
     def run_drain(lane, it, fs):
         marks["it"] = it
@@ -252,7 +272,6 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
             tick(f"drain_it{it}_{('fwd', 'bwd')[lane]}")
         tg, tb = prune(i0n, i1n, flow_of(st[0], h, w), flow_of(st[1], h, w),
                        prm.epsilon)
-        occ = torch.where(tg == 0, torch.ones((), device=dev), occ)
         for lane, tr in enumerate((tg, tb)):
             trust = torch.cat([tr.reshape(-1),
                                torch.ones((1,), dtype=tr.dtype, device=dev)])
@@ -264,4 +283,5 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
 
     run_drain(0, prm.iterations_of, floor_scale_late)
     tick("drain_final_fwd")
-    return flow_of(st[0], h, w), st[0].ene[:n].view(h, w), occ
+    return (flow_of(st[0], h, w), st[0].ene[:n].view(h, w),
+            st[0].out_chi[:n].view(h, w))

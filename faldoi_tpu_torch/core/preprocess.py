@@ -17,7 +17,7 @@ from faldoi_tpu_torch.params import PRESMOOTHING_SIGMA
 from faldoi_tpu_torch.device import resolve_device
 from faldoi_tpu_torch.ops.gaussian import gaussian_smooth
 from faldoi_tpu_torch.ops.normalize import (
-    image_normalization, image_normalization_3,
+    image_normalization, image_normalization_3, image_normalization_4,
 )
 
 
@@ -53,6 +53,16 @@ def prepare_triple(i0_planes, i1_planes, i_1_planes, device="cuda"):
     dev = resolve_device(device)
     ims = image_normalization_3(_gray(i0_planes, dev), _gray(i1_planes, dev),
                                 _gray(i_1_planes, dev))
+    return tuple(gaussian_smooth(im, PRESMOOTHING_SIGMA) for im in ims)
+
+
+def prepare_quad(i0_planes, i1_planes, i_1_planes, i2_planes, device="cuda"):
+    """The occlusion method's 4-frame preprocessing (energy_model.cpp:
+    609-658): gray, joint normalization of I0, I1, I-1, I2, presmoothing.
+    Returns four (h, w) float32 tensors in that order."""
+    dev = resolve_device(device)
+    ims = image_normalization_4(*(_gray(p, dev) for p in
+                                  (i0_planes, i1_planes, i_1_planes, i2_planes)))
     return tuple(gaussian_smooth(im, PRESMOOTHING_SIGMA) for im in ims)
 
 

@@ -91,9 +91,13 @@ def save_image_float(path: str, img: np.ndarray) -> None:
 
 
 def save_image_int(path: str, img: np.ndarray) -> None:
-    """Save an int image (occlusion masks as PNG)."""
+    """Save an int image (occlusion masks as PNG; ``.npy`` needs no imaging
+    library)."""
+    arr = np.asarray(img)
+    if path.endswith(".npy"):
+        np.save(path, arr.astype(np.int32))
+        return
     from PIL import Image
 
-    arr = np.asarray(img)
     arr = arr.astype(np.uint8) if arr.max(initial=0) <= 255 else arr.astype(np.int32)
     Image.fromarray(arr).save(path)

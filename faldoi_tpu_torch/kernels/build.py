@@ -74,6 +74,12 @@ _SIGNATURES = {
     # u1 u2 v1 v2 b i1wx i1wy denom lt scal ph pw, u1o u2o v1o v2o iters, b,
     # p, lt_cells, max_iters, stream
     "faldoi_csad_patch_loop": (_P,) * 17 + (_I,) * 4 + (_P,),
+    # st wc g ph pw scal out iters, b, p, max_iters, stream
+    "faldoi_occ_patch_loop": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # st wc g scal scratch err, h, w, stream
+    "faldoi_occ_global_step": (_P,) * 6 + (_I, _I, _P),
+    # st wc g scal scratch err, h, w, n_kernels (int*)
+    "faldoi_occ_global_step_kernels": (_P,) * 6 + (_I, _I, _P),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

@@ -1,6 +1,7 @@
 """Functional registry of the port — methods 0 (TV-L1), 1 (weighted
 TV-L1), 2 (NLTV-L1), 3 (weighted NLTV-L1), 4 (TV-CSAD), 5 (weighted
-TV-CSAD), 6 (NLTV-CSAD) and 7 (weighted NLTV-CSAD).
+TV-CSAD), 6 (NLTV-CSAD), 7 (weighted NLTV-CSAD) and 8 (TV-L1 with
+occlusions).
 
 Port of ``faldoi_tpu/models/__init__.py``: the per-method hardcoded
 (lambda, theta, tau) of the local step (energy_model.cpp:704-800), those of
@@ -8,7 +9,8 @@ the global step (global_faldoi.cpp:2132-2158) and its dispatch
 (global_faldoi.cpp:2132-2167).  The weighted methods' global steps are the
 unweighted ones: TV-L1 with the params file's (lambda, theta, tau) for
 methods 0 and 1, and with the hardcoded ones NLTV-L1 for methods 2 and 3,
-TV-CSAD for 4 and 5, NLTV-CSAD for 6 and 7.
+TV-CSAD for 4 and 5, NLTV-CSAD for 6 and 7; method 8's is the occlusion
+step ``core.occlusion.tvl2_occ_global``, which also returns chi.
 """
 
 from __future__ import annotations
@@ -47,12 +49,27 @@ def method_global_params(method: int, prm: P.Parameters):
 
 
 def global_refine(method: int, i0n, i1n, u1, u2, prm: P.Parameters,
-                  stats=None, i0_planes=None):
-    """Dispatch the global step; returns the refined (u1, u2).  The NLTV
+                  stats=None, i0_planes=None, i_1n=None, occ_init=None):
+    """Dispatch the global step; returns the refined (u1, u2, chi), chi None
+    but for method 8 (as JAX's ``global_refine``).  The NLTV
     methods (2, 3, 6, 7) need I0's raw (pd, h, w) colour planes,
-    ``i0_planes``."""
-    if method not in range(P.M_TVL1_OCC):
-        raise NotImplementedError(f"method {method} not ported yet")
+    ``i0_planes``; method 8 needs the frame I-1, ``i_1n`` (normalized with
+    I0 and I1), and takes the input occlusion mask ``occ_init`` (None: chi
+    starts at 0)."""
+    if method not in range(P.M_TVL1_OCC + 1):
+        raise ValueError(f"unknown method {method} (the methods are 0-8)")
+    if method == P.M_TVL1_OCC:
+        from faldoi_tpu_torch.core.occlusion import tvl2_occ_global
+
+        if i_1n is None:
+            raise ValueError("method 8 needs the frame I-1 (i_1n)")
+        return tvl2_occ_global(i0n, i1n, i_1n, u1, u2, occ_init, prm,
+                               stats=stats)
+    return (*_refine(method, i0n, i1n, u1, u2, prm, stats, i0_planes), None)
+
+
+def _refine(method, i0n, i1n, u1, u2, prm, stats, i0_planes):
+    """The global step of methods 0-7; returns (u1, u2)."""
     lam, theta, tau = method_global_params(method, prm)
     nltv = method in (P.M_NLTVL1, P.M_NLTVL1_W, P.M_NLTVCSAD, P.M_NLTVCSAD_W)
     if nltv and i0_planes is None:

@@ -9,7 +9,8 @@ Port of ``faldoi_tpu/ops/stencils.py``:
   valid box ``[0, ph) x [0, pw)``, where the box edge acts as the image edge
   (the reference's patch-edge-as-image-edge quirk, ``utils.cpp:63-220``).
   They take a batch of canvases (..., P, P) and per-canvas ``ph``/``pw`` of
-  the batch shape.
+  the batch shape; a canvas may be (H, W), not square (method 8's global
+  step runs them on the whole image with the box (h, w)).
 """
 
 from __future__ import annotations
@@ -48,6 +49,12 @@ def canvas_ids(p: int, device):
     return ar[:, None], ar[None, :]
 
 
+def grid_ids(f: torch.Tensor):
+    """(rows (H, 1), cols (1, W)) index grids of f's trailing (H, W)."""
+    return (torch.arange(f.shape[-2], device=f.device)[:, None],
+            torch.arange(f.shape[-1], device=f.device)[None, :])
+
+
 def canvas_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum (B, P, P) canvases in a fixed order (columns, then rows), so the
     patch energy rounds the same on every device."""
@@ -69,7 +76,7 @@ def _box(t, f):
 def forward_gradient_patch(f: torch.Tensor, ph, pw):
     """Forward differences on the valid box; the box edge acts as the image
     edge (utils.cpp:175-220).  Values outside the box are zero."""
-    rows, cols = canvas_ids(f.shape[-1], f.device)
+    rows, cols = grid_ids(f)
     ph, pw = _box(ph, f), _box(pw, f)
     right = torch.cat([f[..., :, 1:], f[..., :, -1:]], dim=-1)
     down = torch.cat([f[..., 1:, :], f[..., -1:, :]], dim=-2)
@@ -82,7 +89,7 @@ def forward_gradient_patch(f: torch.Tensor, ph, pw):
 def divergence_patch(v1: torch.Tensor, v2: torch.Tensor, ph, pw) -> torch.Tensor:
     """Backward-difference divergence with Chambolle BCs at the valid-box
     edges (utils.cpp:63-112).  Values outside the box are zero."""
-    rows, cols = canvas_ids(v1.shape[-1], v1.device)
+    rows, cols = grid_ids(v1)
     ph, pw = _box(ph, v1), _box(pw, v1)
     left = torch.cat([v1[..., :, :1], v1[..., :, :-1]], dim=-1)
     up = torch.cat([v2[..., :1, :], v2[..., :-1, :]], dim=-2)

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
-probes P1-P3, K8 in its whole-image and patch forms and the K8 loop)
-against their plain twins, on the card, and the weighted, the NLTV and the
-CSAD patch solvers on the card against their CPU runs.
+probes P1-P3, K8 in its whole-image and patch forms, the K8 loop and the
+occlusion PD loop K9 in its patch and whole-image forms) against their plain
+twins, on the card, and the weighted, the NLTV, the CSAD and the occlusion
+solvers and global steps on the card against their CPU runs.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -15,8 +16,8 @@ form the point form bit for bit; K4's point and flow forms and K5 their
 twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
-summation order).  K6, K7, K8, the K8 loop and the NLTV and CSAD solvers
-must equal their twins (and CPU runs) bit for bit: they sum in the twins'
+summation order).  K6, K7, K8, the K8 loop, K9 and the NLTV, CSAD and
+occlusion solvers must equal their twins (and CPU runs) bit for bit: they sum in the twins'
 order, and K8 selects one of the entries the twin sorts."""
 
 import numpy as np
@@ -949,3 +950,172 @@ def test_csad_global_on_card_matches_cpu(dev, method):
         outs.append((u1.cpu(), u2.cpu(), st["global_iters"]))
     assert outs[0][2] == outs[1][2]
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(_bits(a.cpu()), _bits(b.cpu()))
+
+
+@pytest.mark.parametrize("p,b,chi,tol2", [
+    (11, 8192, "random", None), (11, 1900, "random", None),
+    (11, 297, "zeros", None), (11, 297, "ones", None), (11, 1, "random", None),
+    (3, 1703, "random", None), (11, 297, "random", 1e10), (7, 61, "ones", None),
+], ids=["P11-B8192", "P11-B1900", "P11-B297-chi0", "P11-B297-chi1", "P11-B1",
+        "P3-B1703", "P11-one-iteration", "P7-B61"])
+def test_k9_patch_matches_twin_on_card(dev, p, b, chi, tol2):
+    """K9's patch form against its twin (the plain loop, run on the card)
+    bit for bit, every state plane and the iterations: boxes clipped at the
+    image edge (the warps at -u there too), chi given all 0 and all 1, and
+    a tol^2 that stops every canvas after one PD iteration."""
+    from faldoi_tpu_torch.core.occlusion import (
+        SCALARS, occ_patch_loop, occ_patch_loop_plain,
+    )
+
+    st, wc, g, ph, pw, scal = syn.occ_patch_inputs(b, p, 190 + p + b, dev, chi)
+    if tol2 is not None:
+        scal[SCALARS.index("tol2")] = tol2
+    assert (ph < p).any() or b == 1
+    want, wn = occ_patch_loop_plain(st, wc, g, ph, pw, scal, 3)
+    before = occ_patch_loop.launches
+    got, gn = occ_patch_loop(st, wc, g, ph, pw, scal, 3)
+    torch.cuda.synchronize()
+    assert occ_patch_loop.launches == before + 1
+    assert _same_bits(got, want) and torch.equal(gn.cpu(), wn.cpu())
+    if tol2 is not None:
+        assert (gn == 1).all()
+    assert got[2].unique().tolist() in ([0.0], [1.0], [0.0, 1.0])
+
+
+@pytest.mark.parametrize("h,w,occ_init", [(436, 1024, False), (436, 1024, True),
+                                          (5, 7, True), (40, 56, False)])
+def test_k9_global_matches_twin_on_card(dev, h, w, occ_init):
+    """K9's whole-image form against its twin bit for bit over three PD
+    iterations in a row, the err of each equal, chi given or 0; one call
+    enqueues ``GLOBAL_LAUNCHES`` kernels (counted in a captured graph)."""
+    from faldoi_tpu_torch.core.occlusion import (
+        GLOBAL_LAUNCHES, occ_global_step, occ_global_step_kernels,
+        occ_global_step_plain,
+    )
+
+    st, wc, g, scal = syn.occ_global_inputs(h, w, 200 + h, dev, occ_init)
+    want = got = st
+    for _ in range(3):
+        want, werr = occ_global_step_plain(want, wc, g, scal)
+        before = occ_global_step.launches
+        got, gerr = occ_global_step(got, wc, g, scal)
+        torch.cuda.synchronize()
+        assert occ_global_step.launches == before + 1
+        assert _same_bits(got, want), "state"
+        assert float(gerr) == float(werr)
+    assert GLOBAL_LAUNCHES == 99
+    before = occ_global_step.launches
+    assert occ_global_step_kernels(st, wc, g, scal) == GLOBAL_LAUNCHES
+    assert occ_global_step.launches == before
+    assert got[2].unique().tolist() in ([0.0], [1.0], [0.0, 1.0])
+
+
+def test_k9_wrappers_raise_on_bad_card_tensors(dev):
+    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_patch_loop
+
+    st, wc, g, ph, pw, scal = syn.occ_patch_inputs(5, 11, 209, dev)
+    with pytest.raises(TypeError):
+        occ_patch_loop(st.double(), wc, g, ph, pw, scal, 3)
+    with pytest.raises(ValueError):
+        occ_patch_loop(st, wc[:7], g, ph, pw, scal, 3)
+    with pytest.raises(TypeError):
+        occ_patch_loop(st, wc, g, ph.long(), pw, scal, 3)
+    with pytest.raises(ValueError):
+        occ_patch_loop(st, wc, g.cpu(), ph, pw, scal, 3)
+    with pytest.raises(ValueError, match="P\\*P <= 1024"):
+        z = torch.zeros((11, 1, 33, 33), device=dev)
+        occ_patch_loop(z, z[:8], z[0], ph[:1], pw[:1], scal, 3)
+    gst, gwc, gg, gscal = syn.occ_global_inputs(9, 11, 210, dev, True)
+    with pytest.raises(ValueError):
+        occ_global_step(gst.transpose(1, 2), gwc, gg, gscal)
+    with pytest.raises(ValueError):
+        occ_global_step(gst, gwc, gg, gscal[:13])
+
+
+def _occ_consts(d, h, w, seed):
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.functionals import make_solver_consts
+    from faldoi_tpu_torch.core.preprocess import prepare_quad
+    from faldoi_tpu_torch.models import method_local_params
+
+    *frames, gf, _, _ = syn.make_quad(h, w, seed)
+    i0n, i1n, i_1n, _ = prepare_quad(*frames, device=d)
+    prm = P.Parameters()
+    sc = make_solver_consts(i0n, i1n, *method_local_params(8, 5), prm.tol_OF,
+                            11, 8, i_1=i_1n,
+                            occ_prm=(prm.alpha, prm.beta, prm.mu, prm.tau_u,
+                                     prm.tau_eta, prm.tau_chi))
+    return sc, gf
+
+
+def test_occ_solver_and_sweep_on_card_match_cpu(dev):
+    """The m8 patch solver (K0, K4's patch form at u and -u, K9) and an m8
+    sweep on the card against their CPU runs, bit for bit; the seeds
+    inserted and three sweeps on each device (the dump slot left out)."""
+    from faldoi_tpu_torch.core.functionals import solve_tvl1_occ
+    from faldoi_tpu_torch.core.local_step import (
+        init_state, insert_seeds, patch_geometry, state_to_numpy, sweep_body,
+    )
+    from faldoi_tpu_torch.core.occlusion import occ_patch_loop
+
+    h, w = 40, 56
+    rng = np.random.default_rng(211)
+    idx = torch.as_tensor(rng.choice(h * w, 300, replace=False))
+    _, gf = _occ_consts("cpu", h, w, 212)
+    seeds = syn.make_seeds(gf, syn.random_seed_positions(h, w, 30, rng), rng)
+    outs, states = [], []
+    for d in ("cpu", dev):
+        sc, _ = _occ_consts(d, h, w, 212)
+        i, j, oy, ox, ph, pw = (t.to(d) for t in patch_geometry(idx, h, w, 5))
+        u0 = torch.full((300, 11, 11), 2.0, device=d)
+        c0 = torch.zeros_like(u0)
+        c0[::3] = 1.0
+        outs.append([t.cpu() for t in solve_tvl1_occ(
+            sc, i, j, oy, ox, ph, pw, u0, -u0, 11, 1, 3, chi=c0)])
+        sal = torch.ones(h * w + 1, device=d)
+        st = insert_seeds(init_state(h, w, d), seeds, sc, sal, 1, 3, method=8)
+        tr = torch.ones((h, w), device=d)
+        before = occ_patch_loop.launches
+        for _ in range(3):
+            st, k = sweep_body(st, sc, tr, sal, 0, h, w, 5, 256, 1, 3, 64, 8)
+            assert k > 0
+        assert (occ_patch_loop.launches > before) == (d != "cpu")
+        states.append(state_to_numpy(st))
+    for a, b in zip(*outs):
+        assert _same_bits(a, b)
+    for k in states[0]:
+        assert np.array_equal(states[0][k][:h * w], states[1][k][:h * w],
+                              equal_nan=True), k
+
+
+@pytest.mark.parametrize("occ_init", [False, True])
+def test_occ_global_on_card_matches_cpu(dev, occ_init):
+    """tvl2_occ_global on the card (K4's flow form, K9's whole-image form)
+    against its CPU run, bit for bit, with the same PD iterations per warp
+    (2 warps of at most 12 iterations at 40x56)."""
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.occlusion import tvl2_occ_global
+    from faldoi_tpu_torch.core.preprocess import prepare_triple
+
+    h, w = 40, 56
+    i0, i1, i_1, _, gf, _, occ = syn.make_quad(h, w, seed=213)
+    flow = (gf + np.random.default_rng(214).normal(0, 0.3, gf.shape)
+            ).astype(np.float32)
+    prm = P.init_params(None, P.GLOBAL_STEP)
+    prm.warps, prm.iterations_of = 2, 12
+    outs = []
+    for d in ("cpu", dev):
+        a, b, c = prepare_triple(i0, i1, i_1, device=d)
+        st = {}
+        u1, u2, chi = tvl2_occ_global(
+            a, b, c, torch.as_tensor(flow[..., 0], device=d),
+            torch.as_tensor(flow[..., 1], device=d),
+            occ if occ_init else None, prm, stats=st)
+        outs.append((u1.cpu(), u2.cpu(), chi.cpu(), st["global_iters"]))
+    assert outs[0][3] == outs[1][3]
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        assert _same_bits(a, b)

@@ -76,9 +76,9 @@ def csad_slice(method, sh, sw, seed, seed_noise=np.float32(0), jax_too=True):
                                stats=stats, i0_planes=i0, i1_planes=i1)
     prm = P.Parameters()
     prm.warps = P.PAR_DEFAULT_NWARPS_GLOBAL
-    u1, u2 = global_refine(method, a, b, rg[..., 0].contiguous(),
-                           rg[..., 1].contiguous(), prm, stats=stats,
-                           i0_planes=i0)
+    u1, u2, _ = global_refine(method, a, b, rg[..., 0].contiguous(),
+                              rg[..., 1].contiguous(), prm, stats=stats,
+                              i0_planes=i0)
     pvar = torch.stack([u1, u2], -1).numpy()
     return (jrg, jvar, jocc, rg.numpy(), pvar, occ.numpy(), stats, gf,
             csad_vstep.launches - before)

@@ -219,10 +219,12 @@ def test_global_refine_dispatch(frames):
     a, b, flow, _ = frames
     prm = P.init_params(None, P.GLOBAL_STEP)
     prm.warps = 1
-    u1, u2 = global_refine(P.M_TVL1, T(a), T(b), T(flow[..., 0]),
-                           T(flow[..., 1]), prm)
+    u1, u2, chi = global_refine(P.M_TVL1, T(a), T(b), T(flow[..., 0]),
+                                T(flow[..., 1]), prm)
     w1, w2 = tvl2_global(T(a), T(b), T(flow[..., 0]), T(flow[..., 1]), warps=1)
-    assert torch.equal(u1, w1) and torch.equal(u2, w2)
-    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+    assert torch.equal(u1, w1) and torch.equal(u2, w2) and chi is None
+    with pytest.raises(ValueError, match="method 8 needs the frame I-1"):
         global_refine(P.M_TVL1_OCC, T(a), T(b), T(flow[..., 0]),
                       T(flow[..., 1]), prm)
+    with pytest.raises(ValueError, match="unknown method 9"):
+        global_refine(9, T(a), T(b), T(flow[..., 0]), T(flow[..., 1]), prm)

@@ -275,5 +275,8 @@ def test_match_growing_is_method_0_only(setup):
     prm = P.Parameters()
     prm.val_method = P.M_TVL1_OCC
     z = torch.zeros((H, W))
-    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+    with pytest.raises(ValueError, match="method 8 needs 4 frames"):
+        match_growing(setup["seeds"], setup["seeds"], z, z, prm)
+    prm.val_method = 9
+    with pytest.raises(ValueError, match="unknown method 9"):
         match_growing(setup["seeds"], setup["seeds"], z, z, prm)

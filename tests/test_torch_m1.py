@@ -94,7 +94,7 @@ def test_consts_carry_the_window(setup):
         close(got, want)
     assert make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01,
                               11).w1d is None
-    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+    with pytest.raises(ValueError, match="method 8 needs the frame warped"):
         make_solver_consts(setup["a"], setup["b"], 40.0, 0.3, 0.125, 0.01, 11, 8)
 
 
@@ -161,8 +161,11 @@ def test_unported_methods_raise():
 
     assert solver_for(0) is solve_tvl1 and solver_for(1) is solve_tvl1_w
     assert solver_for(2) is solve_nltvl1 and solver_for(3) is solve_nltvl1_w
-    for m in (8, 9):
-        with pytest.raises(NotImplementedError, match=f"method {m} not ported"):
+    from faldoi_tpu_torch.core.functionals import solve_tvl1_occ
+
+    assert solver_for(8) is solve_tvl1_occ
+    for m in (9, -1):
+        with pytest.raises(ValueError, match=f"unknown method {m}"):
             solver_for(m)
 
 
@@ -350,8 +353,8 @@ def test_cold_m1_slice_matches_jax(jax_cold_slice):
     stats = {}
     flow, _, _ = match_growing(go, ba, a, b, _m1_params(P), bsz=256,
                                stats=stats, warm_band=0)
-    u1, u2 = global_refine(P.M_TVL1_W, a, b, flow[..., 0].contiguous(),
-                           flow[..., 1].contiguous(), P.Parameters())
+    u1, u2, _ = global_refine(P.M_TVL1_W, a, b, flow[..., 0].contiguous(),
+                              flow[..., 1].contiguous(), P.Parameters())
     prg, pvar = flow.numpy(), torch.stack([u1, u2], -1).numpy()
     jrg, jvar = jax_cold_slice
     assert np.isfinite(jrg).all() and np.isfinite(prg).all()    # 100% fill
@@ -372,7 +375,7 @@ def test_method_global_params_match_jax():
     for m in range(9):
         assert method_global_params(m, prm) == jgp(m, jprm)
     z = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="method 8 not ported yet"):
+    with pytest.raises(ValueError, match="method 8 needs the frame I-1"):
         global_refine(8, z, z, z, z, prm)
 
 

@@ -15,6 +15,7 @@ JAX's counts are read from its own ``lax.while_loop`` as it runs (a debug
 callback on the loop's counter, in a fresh trace).  JAX runs in the repo's
 exact configuration."""
 
+import functools
 import os
 
 import numpy as np
@@ -102,7 +103,10 @@ def test_m1_global_iterations_match_jax(m1_flow):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.lax, "while_loop", counted)
-        fresh = jax.jit(jgs.tvl2_global.__wrapped__,
+        # a new function object: JAX caches a trace by the function it wraps,
+        # so a test run earlier in this process that traced tvl2_global at
+        # these shapes would hand back that trace, without the callback
+        fresh = jax.jit(functools.partial(jgs.tvl2_global.__wrapped__),
                         static_argnames=("warps", "max_iters"))
         j1, j2 = fresh(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
                        jnp.asarray(rg[..., 0]), jnp.asarray(rg[..., 1]), lam,

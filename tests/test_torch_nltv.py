@@ -374,16 +374,16 @@ def test_stage_clis_run_nltv_on_cpu(cli_case, method):
     assert syn.epe(flow, gf) < 1.5
 
 
-@pytest.mark.parametrize("method", [8, 9])
+@pytest.mark.parametrize("method", [9, 10])
 def test_stage_clis_refuse_unported_methods(cli_case, method, capsys):
     from faldoi_tpu_torch.cli import global_faldoi, local_faldoi
 
     d, _ = cli_case
-    ims = str(d / "ims4.txt")     # with two frames, method 8 falls back to 0
+    ims = str(d / "ims4.txt")
     assert global_faldoi.main([ims, str(d / "go.flo"), str(d / "x.flo"), "-m",
                                str(method), "-device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "methods 0-7" in err
+    assert f"unknown method {method}" in err and "methods are 0-8" in err
     assert local_faldoi.main([ims, str(d / "go.flo"), str(d / "ba.flo"),
                               str(d / "x.flo"), str(d / "x.tiff"), "-m",
                               str(method), "-device", "cpu"]) == 2

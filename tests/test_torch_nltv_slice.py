@@ -90,9 +90,9 @@ def test_nltv_slice_matches_jax(method, band):
     rg, _, occ = match_growing(go, ba, a, b, _params(P, method), bsz=BSZ,
                                stats=stats, warm_band=band, i0_planes=i0,
                                i1_planes=i1)
-    u1, u2 = global_refine(method, a, b, rg[..., 0].contiguous(),
-                           rg[..., 1].contiguous(), P.Parameters(),
-                           stats=stats, i0_planes=i0)
+    u1, u2, _ = global_refine(method, a, b, rg[..., 0].contiguous(),
+                              rg[..., 1].contiguous(), P.Parameters(),
+                              stats=stats, i0_planes=i0)
     assert (nltv_patch_loop.launches, nltv_global_loop.launches) == launches
     prg, pvar = rg.numpy(), torch.stack([u1, u2], -1).numpy()
     assert np.isfinite(jrg).all() and np.isfinite(prg).all()    # 100% fill

@@ -27,6 +27,11 @@ just before it and read just after:
   ``global_faldoi -m 4``: the K8 loop runs the whole PD loop of every patch
   solve batch and warp in one launch, and K8 (the CSAD median prox) the
   v-step of every global PD iteration;
+* the m8 (TV-L1 with occlusions) path the same way on the four-frame
+  sequence, ``local_faldoi -m 8`` then ``global_faldoi -m 8``: K9's patch
+  form runs every patch solve batch and warp (its calls timed where they
+  run), K9's whole-image form every global warp in one cooperative launch
+  with its tol exit on the card;
 * the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
 * the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
@@ -62,7 +67,14 @@ the per-iteration form it replaced (K8's patch form and plain ops an
 iteration) at P 11 with B 8192, 297, 1 and 1900 (m5's per-cell l_t), P 3 at
 the seed count and B 297 under a tol that stops every canvas after one
 step, and after the paths at the m4 path's median B; the m4 path's loop
-calls are then replayed through both forms and their times summed.  The m0
+calls are then replayed through both forms and their times summed.  K9 is
+held bit for bit to its twins: the patch form at every shape the m8 path
+gives it, the whole-image loop (state and count) at 436x1024, 5x7 and
+1088x1920, one kernel node a captured call; both beside their former
+designs' times (constants, in the log only; ``cli/k9_variants.py`` times
+the former forms themselves); the m8 path's patch-form calls are held to the
+list ``cli/k9_m8_calls.json`` that ``k9_variants`` replays.
+The m0
 and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
 lines; any failure raises (non-zero exit, no result line).  The line before
@@ -94,7 +106,8 @@ EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m8",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
-         "per_iteration_ms", "path_calls", "path_per_iteration_s", "path_loop_s")
+         "per_iteration_ms", "path_calls", "path_per_iteration_s", "path_loop_s",
+         "path_call_ms")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -107,7 +120,7 @@ ITERS_SIFT = [400] * 5
 # kernel's is the faldoi_sift path, and it runs on the m0 path too)
 M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
 M4_KERNELS = ("csad_vstep", "csad_patch_loop")
-M8_KERNELS = ("occ_patch_loop", "occ_global_step")
+M8_KERNELS = ("occ_patch_loop", "occ_global_loop")
 # K8's card times in its former design (a thread a cell, insertion sort), a
 # graph of 20 calls on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table), printed beside this run's
@@ -115,6 +128,17 @@ FORMER_K8_MS = {"436x1024": "1.0456-1.0480", "5x7": "0.080-0.081",
                 "P 11 B 8192": "2.942-2.958", "P 11 B 1": "0.054",
                 "P 11 B 1900 m5, per-cell l_t": "0.736-0.746",
                 "P 11 B 297": "0.166-0.171"}
+# K9's card times in its former designs (the patch form a thread a cell, a
+# canvas a 128-thread block; the whole-image form one PD iteration as 99
+# launches, ms a PD iteration), a graph of 20 calls on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md's kernel table), printed in the log beside this
+# run's and in no record
+FORMER_K9_MS = {"P 11 B 8192": "1.772-1.785", "P 11 B 1900": "0.469-0.473",
+                "P 11 B 297": "0.148-0.151", "P 11 B 1": "0.132-0.133",
+                "P 3 B 1703": "0.135-0.136", "436x1024": "0.473-0.509",
+                "436x1024 occ_init": "0.473-0.509", "5x7 occ_init": "0.167-0.168"}
+# PD iterations of a timed whole-image call (the path's calls run 400)
+GLOBAL_TIMED_ITERS = 10
 # the CPU-vs-card crops of methods 4-7: smaller than CROP, as their CPU
 # twins (the 97-entry sort, the exact raster fill) take ~2 min at 48x64 on
 # one thread
@@ -1078,13 +1102,6 @@ def check_k8_loop(dev, rng, scs, n_seeds):
                 shapes=rows)
 
 
-# K9's float operations a cell a PD iteration, counted from
-# csrc/occlusion.cu: the v-step 30, chi's gradient 2, 24 xi steps of 50 (g xi
-# 4, two divergences 6, v + theta div + theta beta grad chi 8, two gradients
-# 4, g grad 4, two norms 12, four updates 12), the primal step 18, the
-# squared update 5, F and G 14, div nu 3, 24 eta / chi steps of 29 (eta 13,
-# g eta 2, the divergence 3, chi 9, the gradient 2)
-K9_OPS = 30 + 2 + 24 * 50 + 18 + 5 + 14 + 3 + 24 * 29
 # K9's planes each way: the state (11) and the warp constants (8) and g in,
 # the state out
 K9_PLANES = 11 + 8 + 1 + 11
@@ -1097,7 +1114,9 @@ def k9_patch_row(shape, args):
     The bound counts the in-box cells of every PD iteration a canvas runs.
     Returns the row."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
-    from faldoi_tpu_torch.core.occlusion import occ_patch_loop, occ_patch_loop_plain
+    from faldoi_tpu_torch.core.occlusion import (
+        PD_OPS, occ_patch_loop, occ_patch_loop_plain,
+    )
 
     st, ph, pw = args[0], args[3], args[4]
     got = occ_patch_loop(*args, 3)
@@ -1116,47 +1135,64 @@ def k9_patch_row(shape, args):
                                 warmup=1),
                iterations={str(k): int((iters == k).sum()) for k in range(4)},
                occluded=float(got[0][2].mean()),
-               **bound(st[0].numel() * 4 * K9_PLANES + nb * 12, cells * K9_OPS))
+               **bound(st[0].numel() * 4 * K9_PLANES + nb * 12, cells * PD_OPS))
     log(f"K9 occ_patch_loop {shape}: bit-exact (iteration counts "
         f"{row['iterations']}, chi 1 at {100 * row['occluded']:.2f}% of the "
-        f"cells); kernel {row['ms']:.4f} ms  twin {row['plain_ms']:.3f} ms  "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"cells); kernel {row['ms']:.4f} ms [former design "
+        f"{FORMER_K9_MS.get(shape, 'not timed at this shape')}]  twin "
+        f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
     return row
 
 
-def k9_global_row(shape, args):
-    """K9's whole-image form, one PD iteration: bit for bit against its twin
-    (state and err), timed as a graph of 20 calls beside its twin (eager);
-    its kernel launches a call counted in a captured graph of one call, and
-    held to the design's ``GLOBAL_LAUNCHES``.  Returns the row."""
+def k9_global_row(shape, args, iters=GLOBAL_TIMED_ITERS):
+    """K9's whole-image form, one warp's loop: bit for bit against its twin
+    (state and count) over three PD iterations; one call is one kernel node
+    of a captured graph; timed eagerly (a cooperative launch, as K5) at
+    ``iters`` PD iterations (the tol never met) beside its twin, and at the
+    path's 400.  Returns the row."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.occlusion import (
-        GLOBAL_LAUNCHES, occ_global_step, occ_global_step_kernels,
-        occ_global_step_plain,
+        PD_OPS, SCALARS, global_plan, occ_global_loop, occ_global_loop_kernels,
+        occ_global_loop_plain,
     )
 
-    st = args[0]
-    got, gerr = occ_global_step(*args)
-    want, werr = occ_global_step_plain(*args)
+    st, wc, g, scal = args
+    h, w = g.shape
+    got, gn = occ_global_loop(st, wc, g, scal, 3)
+    want, wn = occ_global_loop_plain(st, wc, g, scal, 3)
     torch.cuda.synchronize()
-    if not (same_bits(got, want) and float(gerr) == float(werr)):
+    if not (same_bits(got, want) and int(gn) == int(wn)):
         d = torch.nan_to_num((got - want).abs(), nan=9.0).max().item()
         raise AssertionError(f"K9 whole-image form {shape} differs from its twin "
-                             f"(max abs {d}; err {float(gerr)} vs {float(werr)})")
-    per_call = occ_global_step_kernels(*args)
-    if per_call != GLOBAL_LAUNCHES:
+                             f"(max abs {d}; iterations {int(gn)} vs {int(wn)})")
+    per_call = occ_global_loop_kernels(st, wc, g, scal)
+    if per_call != 1:
         raise AssertionError(f"K9 whole-image form {shape}: one call enqueued "
-                             f"{per_call} kernels, not {GLOBAL_LAUNCHES}")
-    row = dict(shape=shape, max_abs_err=0.0,
-               ms=cuda_ms(lambda: occ_global_step(*args), graph=True),
-               plain_ms=cuda_ms(lambda: occ_global_step_plain(*args), reps=3,
-                                warmup=1),
-               launches_per_call=per_call,
-               **bound(st[0].numel() * 4 * K9_PLANES, st[0].numel() * K9_OPS))
-    log(f"K9 occ_global_step {shape}: bit-exact (err {float(gerr):.4g}); one PD "
-        f"iteration, {per_call} kernel launches (kernel nodes of a captured "
-        f"call): {row['ms']:.4f} ms  "
-        f"twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+                             f"{per_call} kernels, not 1")
+    never = scal.clone()
+    never[SCALARS.index("tol2")] = -1.0
+    ms = cuda_ms(lambda: occ_global_loop(st, wc, g, never, iters), reps=3,
+                 warmup=1)
+    row = dict(shape=f"{shape}, {iters} PD iterations", max_abs_err=0.0, ms=ms,
+               plain_ms=cuda_ms(lambda: occ_global_loop_plain(st, wc, g, never,
+                                                              iters),
+                                reps=1, warmup=1),
+               per_iter_us=1e3 * ms / iters, launches_per_call=per_call,
+               plan=global_plan(h, w),
+               **bound(h * w * 4 * K9_PLANES, h * w * iters * PD_OPS))
+    if (h, w) == (H, W):
+        row["path_call_ms"] = cuda_ms(lambda: occ_global_loop(st, wc, g, never,
+                                                              400),
+                                      reps=2, warmup=1)
+    log(f"K9 occ_global_loop {shape}: bit-exact over 3 PD iterations; one call, "
+        f"{per_call} kernel node (a captured call); tiles {row['plan']}; "
+        f"{iters} PD iterations {ms:.4f} ms, {row['per_iter_us']:.2f} us an "
+        f"iteration [former design: {FORMER_K9_MS.get(shape, 'not timed')} ms an "
+        f"iteration, 99 launches]" + (f", 400 iterations (the path's call) "
+                                      f"{row['path_call_ms']:.3f} ms"
+                                      if "path_call_ms" in row else "")
+        + f"  twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
     return row
 
@@ -1166,7 +1202,8 @@ def check_k9(dev, n_seeds):
     twins: the patch form at P 11 with B 8192, 1900, 297 (chi given all 0
     and all 1 too) and 1, at P 3 with the seed count, and under a tol^2
     that stops every canvas after one PD iteration; the whole-image form at
-    436x1024 (chi 0, and the known occlusions given) and 5x7.  The inputs
+    436x1024 (chi 0, and the known occlusions given), 5x7 and 1088x1920
+    (more pixels than the SMs' shared memory holds).  The inputs
     are ``synthetic.occ_patch_inputs`` / ``occ_global_inputs``.  Returns
     the two records (their first rows')."""
     from faldoi_tpu_torch import synthetic as syn
@@ -1188,13 +1225,14 @@ def check_k9(dev, n_seeds):
         raise AssertionError("K9: a canvas ran past one step under tol^2 1e10")
     grows = [k9_global_row(f"{h}x{w}" + (" occ_init" if occ else ""),
                            syn.occ_global_inputs(h, w, SEED + h, dev, occ))
-             for h, w, occ in ((H, W, False), (H, W, True), (5, 7, True))]
+             for h, w, occ in ((H, W, False), (H, W, True), (5, 7, True),
+                               (1088, 1920, True))]
     src = "faldoi_tpu_torch/csrc/occlusion.cu"
     return [dict(name="occ_patch_loop", route="cuda", source=src,
                  replaces="faldoi_tpu/core/occlusion.py:173", library_ms=None,
                  **{k: v for k, v in rows[0].items() if k != "iterations"},
                  shapes=rows),
-            dict(name="occ_global_step", route="cuda", source=src,
+            dict(name="occ_global_loop", route="cuda", source=src,
                  replaces="faldoi_tpu/core/occlusion.py:276", library_ms=None,
                  **grows[0], shapes=grows)]
 
@@ -1443,16 +1481,16 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
         iters = st["global_iters"]
         if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
             raise AssertionError(f"m8 global iterations {iters}")
-        for name in ("occ_patch_loop", "occ_global_step", "gather_plane_patches",
+        for name in ("occ_patch_loop", "occ_global_loop", "gather_plane_patches",
                      "gather_patches", "bicubic_sample_patches",
                      "bicubic_warp_planes"):
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the m8 path")
-        # K9's whole-image form: one call a global PD iteration
-        if launches["occ_global_step"] != sum(iters):
-            raise AssertionError(f"K9's whole-image form made "
-                                 f"{launches['occ_global_step']} calls, not the "
-                                 f"{sum(iters)} global PD iterations")
+        # K9's whole-image form: one launch a global warp
+        if launches["occ_global_loop"] != len(iters):
+            raise AssertionError(f"K9's whole-image form launched "
+                                 f"{launches['occ_global_loop']} times, not once "
+                                 f"for each of the {len(iters)} global warps")
     if method == 4:
         iters = st["global_iters"]
         if len(iters) != 5 or not all(0 < k <= 400 for k in iters):
@@ -1623,7 +1661,7 @@ def run_all(jobs, tmp):
     from faldoi_tpu_torch.core.functionals import make_solver_consts, nltv_patch_loop
     from faldoi_tpu_torch.core.global_step import global_pd_loop
     from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
-    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_patch_loop
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop, occ_patch_loop
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.kernels import build as kb
     from faldoi_tpu_torch.models import method_local_params
@@ -1725,7 +1763,7 @@ def run_all(jobs, tmp):
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
                 nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
-                occ_global_step, bicubic_sample)
+                occ_global_loop, bicubic_sample)
     for fn in wrappers:
         fn.launches = 0
     st = {}
@@ -1788,8 +1826,15 @@ def run_all(jobs, tmp):
         f"solve batch a warp (B min {bs9[0]}, median {bs9[len(bs9) // 2]}, max "
         f"{bs9[-1]}, sum {sum(bs9)}; {sum(p == 3 for _, p in k9_calls)} at P 3), "
         f"{k9_s:.4f} s in all between CUDA events around each call; "
-        f"{launches_m8['occ_global_step']} whole-image calls (one a global PD "
-        "iteration)")
+        f"{launches_m8['occ_global_loop']} whole-image launches (one a global "
+        "warp)")
+    with open(os.path.join(HERE, "faldoi_tpu_torch", "cli",
+                           "k9_m8_calls.json")) as fh:
+        listed = [tuple(c) for c in json.load(fh)]
+    log("K9's m8 path calls " + ("match" if [tuple(c) for c in k9_calls] == listed
+                                 else "DIFFER FROM")
+        + f" cli/k9_m8_calls.json ({len(listed)} calls), the list that "
+        "k9_variants replays")
 
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes

@@ -19,14 +19,14 @@ the whole image as one canvas with the box (h, w).
 * ``occ_patch_loop`` (K9's patch form, ``csrc/occlusion.cu``): one warp's
   whole tol-gated PD loop of B canvases in one launch; its twin
   ``occ_patch_loop_plain`` is the masked loop of ``occ_pd_step``.
-* ``occ_global_step`` (K9's whole-image form): one PD iteration of the
-  whole image as one call that enqueues plain launches (the v-step, two a
-  xi step, the primal step with the update's maximum into a device slot,
-  div u, two an eta / chi step); its twin is ``occ_pd_step`` on one canvas.
+* ``occ_global_loop`` (K9's whole-image form): one warp's whole tol-gated
+  PD loop over the image in one cooperative launch, the tol exit on the
+  card; its twin ``occ_global_loop_plain`` is ``occ_patch_loop_plain`` on
+  the image as one canvas.
 * ``solve_occ_canvas``: the patch solver (warps by K4's patch form, the
   energy ``eval_tvl2coupled_occ`` in plain ops); ``tvl2_occ_global``: the
-  global step (warps by K4's flow form, the err read on the host once a PD
-  iteration), returning (u1, u2, chi).
+  global step (warps by K4's flow form, K9's whole-image form once a warp),
+  returning (u1, u2, chi).
 
 The state of a loop is one (11, ..., H, W) tensor in the order ``STATE``;
 the per-warp constants one (8, ..., H, W) tensor in the order
@@ -43,6 +43,7 @@ writes), and ``eta`` starts at 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -64,6 +65,13 @@ SCALARS = ("lam", "theta", "beta", "mu", "tau_chi", "l_t", "mu_t_occ",
            "alpha_i_occ", "lam_coef", "theta_beta", "tau_theta", "mu_tau_eta",
            "alpha_2", "tol2")
 _S = {name: k for k, name in enumerate(SCALARS)}
+# K9's float operations a cell a PD iteration, counted from
+# csrc/occlusion.cu: the v-step 30, chi's gradient 2, 24 xi steps of 50 (g xi
+# 4, two divergences 6, v + theta div + theta beta grad chi 8, two gradients
+# 4, g grad 4, two norms 12, four updates 12), the primal step 18, the
+# squared update 5, F and G 14, div nu 3, 24 eta / chi steps of 29 (eta 13,
+# g eta 2, the divergence 3, chi 9, the gradient 2)
+PD_OPS = 30 + 2 + 24 * 50 + 18 + 5 + 14 + 3 + 24 * 29
 
 
 def init_weight(i0x: torch.Tensor, i0y: torch.Tensor) -> torch.Tensor:
@@ -274,71 +282,90 @@ def occ_patch_loop(st, wc, g, ph, pw, scal, max_iters: int):
 occ_patch_loop.launches = 0   # K9 patch-form launches, raised after a launch
 
 
-# launches that one whole-image call enqueues: the v-step, two a xi step,
-# the primal step, div u, two an eta / chi step (and one memset of err)
-GLOBAL_LAUNCHES = 1 + 2 * (P.ITER_XI - 1) + 2 + 2 * (P.ITER_CHI - 1)
-
-
-def occ_global_step_plain(st, wc, g, scal):
-    """Plain twin of K9's whole-image form: ``occ_pd_step`` on the image as
-    one canvas.  st (11, h, w), wc (8, h, w), g (h, w).  Returns (new st,
-    err 0-d)."""
+def occ_global_loop_plain(st, wc, g, scal, max_iters: int):
+    """Plain twin of K9's whole-image form: ``occ_patch_loop_plain`` on the
+    image as one canvas with the box (h, w).  st (11, h, w), wc (8, h, w),
+    g (h, w).  Returns (new st, iterations: a 0-d int32 tensor)."""
     h, w = g.shape
-    box = torch.tensor([h], device=g.device), torch.tensor([w], device=g.device)
-    new, err = occ_pd_step(st[:, None], wc[:, None], g[None], *box, scal)
-    return new[:, 0], err[0]
+    box = (torch.tensor([h], dtype=torch.int32, device=g.device),
+           torch.tensor([w], dtype=torch.int32, device=g.device))
+    new, n = occ_patch_loop_plain(st[:, None], wc[:, None], g[None], *box, scal,
+                                  max_iters)
+    return new[:, 0], n[0]
 
 
-def occ_global_step(st, wc, g, scal):
-    """K9, whole-image form: one PD iteration of the occlusion loop over an
-    (h, w) image.  st (11, h, w) float32 (``STATE``), wc (8, h, w), g (h, w),
-    scal (14,).  Returns (new st, err), err a 0-d float32 tensor on the
-    device: the largest squared update (NaN if any is NaN).
+@functools.lru_cache(maxsize=None)
+def _plan(dev: int, h: int, w: int) -> tuple:
+    out = (ctypes.c_longlong * 8)()
+    kb.check(kb.library().faldoi_occ_global_loop_plan(h, w, out),
+             "occ_global_loop plan")
+    return tuple(out)
 
-    CPU tensors go to the plain twin; CUDA tensors make one call that
-    enqueues ``GLOBAL_LAUNCHES`` kernel launches (or raise).  ``launches``
-    counts calls."""
+
+def global_plan(h: int, w: int) -> dict:
+    """How K9's whole-image form tiles an h x w image on the current CUDA
+    device: the scratch floats a call needs, tile rows and columns, tiles
+    down and across, blocks, whether each block holds its tile for the whole
+    launch (``resident``) and the shared bytes a block.  Planned once for
+    each device and shape; the launch plans again in C, where it sets the
+    kernel's shared memory and checks the scratch against this size."""
+    keys = ("scratch", "th", "tw", "ty", "tx", "blocks", "resident", "smem")
+    return dict(zip(keys, _plan(torch.cuda.current_device(), h, w)))
+
+
+def _global_call(fn, st, wc, g, scal, max_iters, *extra):
+    """Check the whole-image arguments, clone the state and call the C entry
+    ``fn`` with a fresh scratch; returns (out, scratch, code)."""
+    dev = st.device
+    h, w = st.shape[1:]
+    _check_loop_args(st, wc, g, scal, (h, w), dev)
+    out = st.clone()
+    n = global_plan(h, w)["scratch"] if h * w else 4
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev)
+    code = fn(*(t.data_ptr() for t in (out, wc, g, scal, scratch)), n, h, w,
+              int(max_iters), *extra)
+    return out, scratch, code
+
+
+def occ_global_loop(st, wc, g, scal, max_iters: int):
+    """K9, whole-image form: one warp's whole tol-gated occlusion PD loop over
+    an (h, w) image.  st (11, h, w) float32 (``STATE``), wc (8, h, w), g (h,
+    w), scal (14,).  Returns (new st, iterations: a 0-d int32 tensor on the
+    device); the loop runs while the largest squared update > tol^2 (it
+    starts at +inf; a NaN stops it) and its count < ``max_iters``, its tol
+    exit on the card.
+
+    CPU tensors go to the plain twin; CUDA tensors make one cooperative
+    launch (or raise).  ``launches`` counts launches."""
     if st.dim() != 3:
         raise ValueError(f"state must be (11, h, w), got {tuple(st.shape)}")
     if st.device.type == "cpu":
-        return occ_global_step_plain(st, wc, g, scal)
-    dev = st.device
-    h, w = st.shape[1:]
-    _check_loop_args(st, wc, g, scal, (h, w), dev)
-    out = st.clone()
-    scratch = torch.empty((7, h, w), dtype=torch.float32, device=dev)
-    err = torch.empty((), dtype=torch.float32, device=dev)
-    if h * w == 0:
-        return out, err.fill_(0.0)
-    code = kb.library().faldoi_occ_global_step(
-        *(t.data_ptr() for t in (out, wc, g, scal, scratch, err)), h, w,
-        kb.stream_ptr(dev))
-    kb.check(code, "occ_global_step")
-    occ_global_step.launches += 1
-    return out, err
+        return occ_global_loop_plain(st, wc, g, scal, max_iters)
+    if st.shape[1] * st.shape[2] == 0:
+        _check_loop_args(st, wc, g, scal, tuple(st.shape[1:]), st.device)
+        return st.clone(), torch.zeros((), dtype=torch.int32, device=st.device)
+    out, scratch, code = _global_call(kb.library().faldoi_occ_global_loop, st,
+                                      wc, g, scal, max_iters,
+                                      kb.stream_ptr(st.device))
+    kb.check(code, "occ_global_loop")
+    occ_global_loop.launches += 1
+    return out, scratch[3:4].view(torch.int32)[0].clone()
 
 
-occ_global_step.launches = 0   # K9 whole-image calls, raised after a call
+occ_global_loop.launches = 0   # K9 whole-image launches, raised after a launch
 
 
-def occ_global_step_kernels(st, wc, g, scal) -> int:
-    """The kernel launches that one ``occ_global_step`` call on these CUDA
+def occ_global_loop_kernels(st, wc, g, scal, max_iters: int = 1) -> int:
+    """The kernel launches that one ``occ_global_loop`` call on these CUDA
     tensors enqueues, counted as the kernel nodes of a CUDA graph captured
     from one call (the graph is never run; ``launches`` is not raised)."""
     if st.device.type != "cuda":
-        raise ValueError("occ_global_step_kernels counts launches on a CUDA "
+        raise ValueError("occ_global_loop_kernels counts launches on a CUDA "
                          "device; got a tensor on " + st.device.type)
-    dev = st.device
-    h, w = st.shape[1:]
-    _check_loop_args(st, wc, g, scal, (h, w), dev)
-    out = st.clone()
-    scratch = torch.empty((7, h, w), dtype=torch.float32, device=dev)
-    err = torch.empty((), dtype=torch.float32, device=dev)
     n = ctypes.c_int(0)
-    code = kb.library().faldoi_occ_global_step_kernels(
-        *(t.data_ptr() for t in (out, wc, g, scal, scratch, err)), h, w,
-        ctypes.addressof(n))
-    kb.check(code, "occ_global_step_kernels")
+    _, _, code = _global_call(kb.library().faldoi_occ_global_loop_kernels, st,
+                              wc, g, scal, max_iters, ctypes.addressof(n))
+    kb.check(code, "occ_global_loop_kernels")
     return n.value
 
 
@@ -412,17 +439,16 @@ def tvl2_occ_global(i0n, i1n, i_1n, u1, u2, occ_init, prm: P.Parameters,
     None (chi starts at 0).  ``prm`` gives lambda, theta, the occlusion
     parameters, tol_OF, the warps and the PD cap ``iterations_of``.  Each
     warp samples both stacks by K4's flow form (at u and at -u,
-    ``border_out=False``) and runs K9's whole-image form until its err <=
-    tol^2 or ``iterations_of`` iterations, the err read on the host once an
-    iteration.  Returns (u1, u2, chi); JAX's energy is discarded, so it is
+    ``border_out=False``) and runs K9's whole-image form, one call a warp,
+    until its err <= tol^2 or ``iterations_of`` iterations, the tol exit on
+    the card.  Returns (u1, u2, chi); JAX's energy is discarded, so it is
     not computed.
 
     ``stats`` (a dict, optional) receives the PD iterations of every warp
-    (``global_iters``)."""
+    (``global_iters``), each read from the device after the last warp."""
     dev = i0n.device
     h, w = i0n.shape
     scal = global_scalars(prm, dev)
-    tol2 = float(scal[_S["tol2"]])
     i1x, i1y = centered_gradient(i1n)
     i_1x, i_1y = centered_gradient(i_1n)
     i0x, i0y = centered_gradient(i0n)
@@ -439,12 +465,8 @@ def tvl2_occ_global(i0n, i1n, i_1n, u1, u2, occ_init, prm: P.Parameters,
         w1 = bicubic_warp_planes(stack1, u1, u2, False).unbind(0)
         w_1 = bicubic_warp_planes(stack_1, -u1, -u2, False).unbind(0)
         wc = warp_constants(i0n, w1, w_1, u1, u2)
-        err, n = float("inf"), 0
-        while err > tol2 and n < prm.iterations_of:
-            st, err_t = occ_global_step(st, wc, g, scal)
-            err = float(err_t)
-            n += 1
+        st, n = occ_global_loop(st, wc, g, scal, prm.iterations_of)
         iters.append(n)
     if stats is not None:
-        stats["global_iters"] = iters
+        stats["global_iters"] = [int(n) for n in iters]
     return st[0], st[1], st[2]

@@ -76,10 +76,12 @@ _SIGNATURES = {
     "faldoi_csad_patch_loop": (_P,) * 17 + (_I,) * 4 + (_P,),
     # st wc g ph pw scal out iters, b, p, max_iters, stream
     "faldoi_occ_patch_loop": (_P,) * 8 + (_I,) * 3 + (_P,),
-    # st wc g scal scratch err, h, w, stream
-    "faldoi_occ_global_step": (_P,) * 6 + (_I, _I, _P),
-    # st wc g scal scratch err, h, w, n_kernels (int*)
-    "faldoi_occ_global_step_kernels": (_P,) * 6 + (_I, _I, _P),
+    # h, w, out (8 long longs)
+    "faldoi_occ_global_loop_plan": (_I, _I, _P),
+    # st wc g scal scratch, scratch floats, h, w, max_iters, stream
+    "faldoi_occ_global_loop": (_P,) * 5 + (_L, _I, _I, _I, _P),
+    # st wc g scal scratch, scratch floats, h, w, max_iters, n_kernels (int*)
+    "faldoi_occ_global_loop_kernels": (_P,) * 5 + (_L, _I, _I, _I, _P),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

@@ -197,7 +197,7 @@ def occ_patch_inputs(b: int, p: int, seed: int, device, chi: str = "random",
 
 
 def occ_global_inputs(h: int, w: int, seed: int, device, occ_init: bool):
-    """Inputs of K9's whole-image form (``core.occlusion.occ_global_step``)
+    """Inputs of K9's whole-image form (``core.occlusion.occ_global_loop``)
     on a ``make_quad`` frame of h x w: u the known flow plus 0.3 px of
     noise, chi the known occlusions and 10% of the pixels at random
     (``occ_init``) or 0, the first warp's

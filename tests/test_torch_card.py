@@ -986,36 +986,40 @@ def test_k9_patch_matches_twin_on_card(dev, p, b, chi, tol2):
     assert got[2].unique().tolist() in ([0.0], [1.0], [0.0, 1.0])
 
 
-@pytest.mark.parametrize("h,w,occ_init", [(436, 1024, False), (436, 1024, True),
-                                          (5, 7, True), (40, 56, False)])
-def test_k9_global_matches_twin_on_card(dev, h, w, occ_init):
-    """K9's whole-image form against its twin bit for bit over three PD
-    iterations in a row, the err of each equal, chi given or 0; one call
-    enqueues ``GLOBAL_LAUNCHES`` kernels (counted in a captured graph)."""
+@pytest.mark.parametrize("h,w,occ_init,max_iters", [
+    (436, 1024, False, 3), (436, 1024, True, 3), (5, 7, True, 3),
+    (40, 56, False, 3), (1088, 1920, True, 2), (40, 56, True, 400)],
+    ids=["436x1024-chi0", "436x1024-occ_init", "5x7", "40x56",
+         "1088x1920-streamed", "40x56-cap400"])
+def test_k9_global_matches_twin_on_card(dev, h, w, occ_init, max_iters):
+    """K9's whole-image form (one warp's loop in one cooperative launch)
+    against its twin bit for bit, state and PD iterations, chi given or 0:
+    at 1088x1920 the tiles outnumber the co-resident blocks and go to device
+    memory between phases; at 40x56 the loop runs to the CLI's cap of 400
+    unless the tol stops it.  One call is one kernel node of a captured
+    graph, and raises ``launches`` by one."""
     from faldoi_tpu_torch.core.occlusion import (
-        GLOBAL_LAUNCHES, occ_global_step, occ_global_step_kernels,
-        occ_global_step_plain,
+        global_plan, occ_global_loop, occ_global_loop_kernels,
+        occ_global_loop_plain,
     )
 
     st, wc, g, scal = syn.occ_global_inputs(h, w, 200 + h, dev, occ_init)
-    want = got = st
-    for _ in range(3):
-        want, werr = occ_global_step_plain(want, wc, g, scal)
-        before = occ_global_step.launches
-        got, gerr = occ_global_step(got, wc, g, scal)
-        torch.cuda.synchronize()
-        assert occ_global_step.launches == before + 1
-        assert _same_bits(got, want), "state"
-        assert float(gerr) == float(werr)
-    assert GLOBAL_LAUNCHES == 99
-    before = occ_global_step.launches
-    assert occ_global_step_kernels(st, wc, g, scal) == GLOBAL_LAUNCHES
-    assert occ_global_step.launches == before
+    want, wn = occ_global_loop_plain(st, wc, g, scal, max_iters)
+    before = occ_global_loop.launches
+    got, gn = occ_global_loop(st, wc, g, scal, max_iters)
+    torch.cuda.synchronize()
+    assert occ_global_loop.launches == before + 1
+    assert _same_bits(got, want), "state"
+    assert int(gn) == int(wn) and 0 < int(gn) <= max_iters
     assert got[2].unique().tolist() in ([0.0], [1.0], [0.0, 1.0])
+    assert bool(global_plan(h, w)["resident"]) == (h * w < 10 ** 6)
+    before = occ_global_loop.launches
+    assert occ_global_loop_kernels(st, wc, g, scal, max_iters) == 1
+    assert occ_global_loop.launches == before
 
 
 def test_k9_wrappers_raise_on_bad_card_tensors(dev):
-    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_patch_loop
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop, occ_patch_loop
 
     st, wc, g, ph, pw, scal = syn.occ_patch_inputs(5, 11, 209, dev)
     with pytest.raises(TypeError):
@@ -1031,9 +1035,11 @@ def test_k9_wrappers_raise_on_bad_card_tensors(dev):
         occ_patch_loop(z, z[:8], z[0], ph[:1], pw[:1], scal, 3)
     gst, gwc, gg, gscal = syn.occ_global_inputs(9, 11, 210, dev, True)
     with pytest.raises(ValueError):
-        occ_global_step(gst.transpose(1, 2), gwc, gg, gscal)
+        occ_global_loop(gst.transpose(1, 2), gwc, gg, gscal, 3)
     with pytest.raises(ValueError):
-        occ_global_step(gst, gwc, gg, gscal[:13])
+        occ_global_loop(gst, gwc, gg, gscal[:13], 3)
+    with pytest.raises(TypeError):
+        occ_global_loop(gst.double(), gwc, gg, gscal, 3)
 
 
 def _occ_consts(d, h, w, seed):
@@ -1094,9 +1100,9 @@ def test_occ_solver_and_sweep_on_card_match_cpu(dev):
 
 @pytest.mark.parametrize("occ_init", [False, True])
 def test_occ_global_on_card_matches_cpu(dev, occ_init):
-    """tvl2_occ_global on the card (K4's flow form, K9's whole-image form)
-    against its CPU run, bit for bit, with the same PD iterations per warp
-    (2 warps of at most 12 iterations at 40x56)."""
+    """tvl2_occ_global on the card (K4's flow form, K9's whole-image form,
+    one launch a warp) against its CPU run, bit for bit, with the same PD
+    iterations per warp (2 warps of at most 12 iterations at 40x56)."""
     from faldoi_tpu_torch import params as P
     from faldoi_tpu_torch.core.occlusion import tvl2_occ_global
     from faldoi_tpu_torch.core.preprocess import prepare_triple

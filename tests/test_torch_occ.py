@@ -274,24 +274,72 @@ def test_patch_twin_matches_the_loop_canvas_by_canvas(p, chi, tol2):
 
 
 def test_global_twin_is_the_step_on_one_canvas():
-    """K9's whole-image twin is ``occ_pd_step`` on the image as one canvas
-    with the box (h, w), and its err the largest squared update."""
-    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_pd_step
+    """K9's whole-image twin, one PD iteration, is ``occ_pd_step`` on the
+    image as one canvas with the box (h, w); the largest squared update
+    that step reports is that of u."""
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop, occ_pd_step
 
     st, wc, g, scal = syn.occ_global_inputs(30, 41, 106, "cpu", True)
-    got, err = occ_global_step(st, wc, g, scal)
+    got, n = occ_global_loop(st, wc, g, scal, 1)
     want, werr = occ_pd_step(st[:, None], wc[:, None], g[None],
                              torch.tensor([30]), torch.tensor([41]), scal)
-    assert torch.equal(got, want[:, 0]) and float(err) == float(werr[0])
+    assert torch.equal(got, want[:, 0]) and int(n) == 1
     d = (got[0] - st[0]) ** 2 + (got[1] - st[1]) ** 2
-    assert float(err) == float(d.max())
+    assert float(werr[0]) == float(d.max())
+
+
+def _host_loop(st, wc, g, scal, max_iters):
+    """The whole-image loop as ``tvl2_occ_global`` ran it before K9's
+    whole-image form took the tol exit onto the card: ``occ_pd_step`` on the
+    image as one canvas, the err read on the host after every PD
+    iteration."""
+    from faldoi_tpu_torch.core.occlusion import SCALARS, occ_pd_step
+
+    h, w = g.shape
+    box = torch.tensor([h]), torch.tensor([w])
+    tol2 = float(scal[SCALARS.index("tol2")])
+    err, n = float("inf"), 0
+    while err > tol2 and n < max_iters:
+        new, e = occ_pd_step(st[:, None], wc[:, None], g[None], *box, scal)
+        st, err, n = new[:, 0], float(e[0]), n + 1
+    return st, n
+
+
+@pytest.mark.parametrize("occ_init,max_iters,tol2,nan", [
+    (True, 3, None, False), (False, 3, None, False), (True, 5, 1e10, False),
+    (True, 0, None, False), (False, 1, None, False), (True, 4, None, True)],
+    ids=["chi-given", "chi0", "one-iteration", "max0", "max1", "nan-err"])
+def test_global_loop_twin_matches_the_host_loop(occ_init, max_iters, tol2, nan):
+    """``occ_global_loop_plain`` (what ``occ_global_loop`` runs on the CPU)
+    equals the host loop it replaced bit for bit, state and count, at 40x56:
+    chi given and 0, a tol^2 of 1e10 that stops after one PD iteration, caps
+    of 0 and 1, and a NaN err (a NaN warp constant), which stops the loop
+    after its first PD iteration (the synthetic inputs never meet the
+    default tol within three)."""
+    from faldoi_tpu_torch.core.occlusion import (
+        SCALARS, occ_global_loop, occ_global_loop_plain,
+    )
+
+    st, wc, g, scal = syn.occ_global_inputs(40, 56, 108, "cpu", occ_init)
+    if tol2 is not None:
+        scal[SCALARS.index("tol2")] = tol2
+    if nan:
+        wc[:, 20, 30] = float("nan")
+    want, wn = _host_loop(st, wc, g, scal, max_iters)
+    got, n = occ_global_loop_plain(st, wc, g, scal, max_iters)
+    assert got.view(torch.int32).equal(want.contiguous().view(torch.int32))
+    assert n.dtype == torch.int32 and int(n) == wn
+    again = occ_global_loop(st, wc, g, scal, max_iters)[0]
+    assert again.view(torch.int32).equal(got.view(torch.int32))
+    assert wn == (1 if nan or tol2 else min(max_iters, 3))
+    assert bool(got.isnan().any()) == nan
 
 
 def test_global_kernel_count_needs_the_card():
     """The count of the whole-image form's kernel launches is taken from a
     CUDA graph: CPU tensors, which have no kernels, are refused."""
-    from faldoi_tpu_torch.core.occlusion import occ_global_step_kernels
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop_kernels
 
     st, wc, g, scal = syn.occ_global_inputs(5, 7, 107, "cpu", False)
     with pytest.raises(ValueError, match="CUDA device"):
-        occ_global_step_kernels(st, wc, g, scal)
+        occ_global_loop_kernels(st, wc, g, scal)

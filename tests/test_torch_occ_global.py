@@ -67,7 +67,7 @@ def _jax(frames, u, occ_init):
 
 
 def _port(frames, u, occ_init, via_refine=False):
-    from faldoi_tpu_torch.core.occlusion import occ_global_step, tvl2_occ_global
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop, tvl2_occ_global
     from faldoi_tpu_torch.core.preprocess import prepare_triple
     from faldoi_tpu_torch.models import global_refine
 
@@ -76,13 +76,13 @@ def _port(frames, u, occ_init, via_refine=False):
     a, b, c = prepare_triple(*frames, device="cpu")
     u1, u2 = (torch.as_tensor(np.ascontiguousarray(u[..., k])) for k in (0, 1))
     st = {}
-    before = occ_global_step.launches
+    before = occ_global_loop.launches
     if via_refine:
         u1, u2, chi = global_refine(P.M_TVL1_OCC, a, b, u1, u2, prm, stats=st,
                                     i_1n=c, occ_init=occ_init)
     else:
         u1, u2, chi = tvl2_occ_global(a, b, c, u1, u2, occ_init, prm, stats=st)
-    assert occ_global_step.launches == before           # the twin ran
+    assert occ_global_loop.launches == before           # the twin ran
     return torch.stack([u1, u2], -1).numpy(), chi.numpy(), st["global_iters"]
 
 

@@ -111,7 +111,7 @@ def test_m8_slice_matches_jax(quad, jax_grown):
     from faldoi_tpu.core.preprocess import prepare_triple as jtriple
     from faldoi_tpu.models import global_refine as jrefine
     from faldoi_tpu_torch.core.match_growing import match_growing
-    from faldoi_tpu_torch.core.occlusion import occ_global_step, occ_patch_loop
+    from faldoi_tpu_torch.core.occlusion import occ_global_loop, occ_patch_loop
     from faldoi_tpu_torch.core.preprocess import prepare_quad, prepare_triple
     from faldoi_tpu_torch.models import global_refine
 
@@ -127,7 +127,7 @@ def test_m8_slice_matches_jax(quad, jax_grown):
     prm = P.Parameters()
     prm.val_method = 8
     stats = {}
-    before = (occ_patch_loop.launches, occ_global_step.launches)
+    before = (occ_patch_loop.launches, occ_global_loop.launches)
     rg, _, pocc = match_growing(go, ba, ta[0], ta[1], prm, bsz=BSZ, stats=stats,
                                 i0_planes=i0, i1_planes=i1, i_1n=ta[2],
                                 i2n=ta[3])
@@ -137,7 +137,7 @@ def test_m8_slice_matches_jax(quad, jax_grown):
     u1, u2, chi = global_refine(8, a, b, rg[..., 0].contiguous(),
                                 rg[..., 1].contiguous(), gprm, stats=stats,
                                 i_1n=c, occ_init=pocc.numpy())
-    assert (occ_patch_loop.launches, occ_global_step.launches) == before
+    assert (occ_patch_loop.launches, occ_global_loop.launches) == before
     rg, pocc = rg.numpy(), pocc.numpy()
     var, chi = torch.stack([u1, u2], -1).numpy(), chi.numpy()
     assert np.isfinite(jrg).all() and np.isfinite(rg).all()       # 100% fill

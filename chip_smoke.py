@@ -102,7 +102,7 @@ CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
 EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m8",
-         "launches_sift", "launches_per_call",
+         "launches_sift", "launches_pairs", "launches_per_call",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
@@ -121,6 +121,11 @@ ITERS_SIFT = [400] * 5
 M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
 M4_KERNELS = ("csad_vstep", "csad_patch_loop")
 M8_KERNELS = ("occ_patch_loop", "occ_global_loop")
+# the lane forms' records, whose main path is pairs mode (N = 4)
+PAIRS_KERNELS = ("gather_patches_lanes", "gather_plane_patches_lanes",
+                 "bicubic_sample_patches_lanes")
+# pairs mode's pair counts: N synthetic pairs grown together
+PAIRS_N = (1, 2, 4)
 # K8's card times in its former design (a thread a cell, insertion sort), a
 # graph of 20 calls on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table), printed beside this run's
@@ -156,6 +161,23 @@ EXACT_CROPS = (4, 5, 6, 7, 8)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def reset_launches(wrappers):
+    """Set every wrapper's launch counts to 0 (with a lane index too)."""
+    for fn in wrappers:
+        fn.launches = 0
+        if hasattr(fn, "launches_lane"):
+            fn.launches_lane = 0
+
+
+def read_launches(wrappers):
+    """Every wrapper's launches by name; the lane-indexed launches of K0's
+    two forms and K4's patch form under ``<name>_lanes``."""
+    out = {fn.__name__: fn.launches for fn in wrappers}
+    out.update({f"{fn.__name__}_lanes": fn.launches_lane for fn in wrappers
+                if hasattr(fn, "launches_lane")})
+    return out
 
 
 def card_line():
@@ -582,6 +604,151 @@ def check_k4_patches(dev, rng):
                        plain_ms=plain, library_ms=None, point_ms=point_ms,
                        point_glue_ms=glue_ms, **least)
     return rec
+
+
+def lane_origins(dev, rng, lanes, b, p):
+    """(lane, oy, ox) of b windows of side p over ``lanes`` lanes as the
+    lane-batched sweep forms them: ``patch_geometry`` of candidate indices,
+    each lane's four corner pixels first (the boxes clamped at every edge of
+    the lane), then random lanes and candidates.  lane and origins int64."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    corners = [0, W - 1, (H - 1) * W, H * W - 1]
+    lane = torch.as_tensor(rng.integers(0, lanes, b), device=dev)
+    idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
+    k = min(b, 4 * lanes)
+    lane[:k] = torch.arange(4 * lanes, device=dev)[:k] // 4
+    idx[:k] = torch.as_tensor(corners * lanes, device=dev)[:k]
+    _, _, oy, ox, _, _ = patch_geometry(idx, H, W, p // 2)
+    return lane.contiguous(), oy.contiguous(), ox.contiguous(), idx
+
+
+# the lane forms' shapes: (L, B); the first two are timed (two lanes at
+# the full batch each: one pair's lockstep; eight: N = 4 pairs), the
+# others held for bits only (ragged B, B 1)
+LANE_SHAPES = ((2, 2 * BSZ), (8, 8 * BSZ), (2, 1), (8, 1), (8, 8191), (2, 1901))
+
+
+def check_lanes(dev, rng):
+    """K0's two forms and K4's patch form with a lane index (the pairs
+    mode's and the lockstep's calls) at ``LANE_SHAPES``, bit for bit against
+    their twins: the stack form on L padded (447, 1035, 1) source frames at
+    p 11, the planes form on L lanes' five state planes (four flat with
+    their dump slot, an int32 trust map), K4 on L (3, 436, 1024) stacks at
+    the solver's points.  Each record is timed at its first shape (L 2,
+    B 16384), with its bound, its twin and, for K0, one ``aten::index``
+    with prebuilt indices; L 8 at B 65536 is a ``shapes`` row.  Returns the
+    three records."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms, touched
+    from faldoi_tpu_torch.ops.bicubic import (
+        _patch_points, _sample_weights, bicubic_sample_patches,
+        bicubic_sample_patches_plain,
+    )
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_patches, gather_patches_plain, gather_plane_patches,
+        gather_plane_patches_plain, pad_for_crops,
+    )
+
+    n, p = H * W, 11
+    hp, wp = H + p, W + p
+    most = max(lanes for lanes, _ in LANE_SHAPES)
+    flat = torch.as_tensor(rng.standard_normal((4, most, n + 1)).astype(np.float32),
+                           device=dev)
+    flat[torch.as_tensor(rng.random((4, most, n + 1)) < 0.05, device=dev)] = float("nan")
+    trust = torch.as_tensor((rng.random((most, H, W)) > 0.02).astype(np.int32),
+                            device=dev)
+    src = torch.stack([pad_for_crops(flat[0, k, :n].view(H, W), p)
+                       for k in range(most)])[..., None].contiguous()
+    frames = torch.as_tensor(rng.uniform(0, 1, (most, 3, H, W)).astype(np.float32),
+                             device=dev)
+    recs = {}
+    for lanes, b in LANE_SHAPES:
+        lane, oy, ox, _ = lane_origins(dev, rng, lanes, b, p)
+        lane32, oy32, ox32 = (t.to(torch.int32).contiguous() for t in (lane, oy, ox))
+        stack = src[:lanes]
+        planes = tuple(f[:lanes] for f in flat) + (trust[:lanes],)
+        fr = frames[:lanes].contiguous()
+        geo = solver_patches(dev, rng, b)
+        oyp, oxp, ph, pw, u1, u2 = geo
+        got = (gather_patches(stack, oy32, ox32, p, lane=lane32),
+               gather_plane_patches(planes, oy, ox, p, H, W, lane=lane),
+               bicubic_sample_patches(fr, *geo, 3, lane=lane32))
+        want = (gather_patches_plain(stack, oy32, ox32, p, lane32),
+                gather_plane_patches_plain(planes, oy, ox, p, H, W, lane),
+                bicubic_sample_patches_plain(fr, *geo, 3, lane32))
+        torch.cuda.synchronize()
+        for name, g, w_ in zip(("gather_patches", "gather_plane_patches",
+                                "bicubic_sample_patches"), got, want):
+            if not same_bits(g, w_):
+                raise AssertionError(f"{name} with a lane index, L {lanes} B {b}, "
+                                     "differs from its twin")
+        log(f"lane forms L {lanes} B {b} (every lane's corner boxes first): K0 "
+            "stack, K0 planes, K4 patch bit-exact with their twins")
+        if b < BSZ:
+            continue
+        rows, cols = padded_windows(oy, ox, p, hp, wp)
+        cells = sum(touched((hp, wp), rows[lane == k], cols[lane == k])
+                    for k in range(lanes))
+        ri, ci, li = rows[:, :, None], cols[:, None, :], lane[:, None, None]
+        shape = f"L {lanes} B {b}"
+        k0 = dict(shape=f"{lanes} x ({hp},{wp},1) p 11 B {b}",
+                  ms=cuda_ms(lambda: gather_patches(stack, oy32, ox32, p,
+                                                    lane=lane32), graph=True),
+                  plain_ms=cuda_ms(lambda: gather_patches_plain(
+                      stack, oy32, ox32, p, lane32), reps=5),
+                  library_ms=cuda_ms(lambda: stack[li, ri, ci, :], graph=True),
+                  **bound(cells * 4 + b * p * p * 4 + 3 * b * 4))
+        crows, ccols = rows.clamp(max=H - 1), cols.clamp(max=W - 1)
+        pcells = sum(touched((H, W), crows[lane == k], ccols[lane == k])
+                     for k in range(lanes))
+        pstack = torch.stack([pad_for_crops(torch.stack(
+            [pl[k].reshape(-1)[:n].view(H, W).to(torch.float32) for pl in planes],
+            dim=-1), p) for k in range(lanes)])
+        k0p = dict(shape=f"5 x {lanes} x ({H},{W}) p 11 B {b}",
+                   ms=cuda_ms(lambda: gather_plane_patches(planes, oy, ox, p, H, W,
+                                                           lane=lane), graph=True),
+                   plain_ms=cuda_ms(lambda: gather_plane_patches_plain(
+                       planes, oy, ox, p, H, W, lane), reps=5),
+                   library_ms=cuda_ms(lambda: pstack[li, ri, ci, :], graph=True),
+                   **bound(pcells * 5 * 4 + 5 * b * p * p * 4 + 3 * b * 8))
+        del pstack
+        wy, wx = _sample_weights(H, W, *(t.reshape(-1) for t in
+                                         _patch_points(*geo)))[:2]
+        ar = torch.arange(4, device=dev)
+        lp = lane[:, None].expand(b, p * p).reshape(-1)
+        wcells = sum(touched((H, W), wy[lp == k][:, None] + ar,
+                             wx[lp == k][:, None] + ar) for k in range(lanes))
+        npts = b * p * p
+        k4 = dict(shape=f"3 x {lanes} x ({H},{W}), B {b} x 11 x 11",
+                  ms=cuda_ms(lambda: bicubic_sample_patches(fr, *geo, 3,
+                                                            lane=lane32), graph=True),
+                  plain_ms=cuda_ms(lambda: bicubic_sample_patches_plain(
+                      fr, *geo, 3, lane32), reps=3),
+                  library_ms=None,
+                  **bound(wcells * 3 * 4 + npts * (2 + 3) * 4 + b * 20,
+                          npts * (2 + K4_OPS_POINT + 3 * K4_OPS_PLANE)))
+        for name, row in (("gather_patches", k0), ("gather_plane_patches", k0p),
+                          ("bicubic_sample_patches", k4)):
+            recs.setdefault(name, []).append(row)
+            log(f"{name} with a lane index {row['shape']}: kernel {row['ms']:.4f} "
+                f"ms  twin {row['plain_ms']:.4f} ms  one call "
+                f"{'-' if row['library_ms'] is None else format(row['library_ms'], '.4f')}"
+                f" ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{shape}]")
+    common = dict(route="cuda", max_abs_err=0.0)
+    return [dict(common, name="gather_patches_lanes",
+                 source="faldoi_tpu_torch/csrc/patch_gather.cu",
+                 replaces="faldoi_tpu/ops/pallas_sweep.py:49",
+                 **recs["gather_patches"][0], shapes=recs["gather_patches"]),
+            dict(common, name="gather_plane_patches_lanes",
+                 source="faldoi_tpu_torch/csrc/patch_gather.cu",
+                 replaces="faldoi_tpu/core/local_step.py:564",
+                 **recs["gather_plane_patches"][0],
+                 shapes=recs["gather_plane_patches"]),
+            dict(common, name="bicubic_sample_patches_lanes",
+                 source="faldoi_tpu_torch/csrc/bicubic.cu",
+                 replaces="faldoi_tpu/core/functionals.py:180",
+                 **recs["bicubic_sample_patches"][0],
+                 shapes=recs["bicubic_sample_patches"])]
 
 
 # K5's float operations a pixel an iteration: ~24 in the dual phase, ~41 in
@@ -1418,8 +1585,7 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
         write_flo(seeds[0], go)
         write_flo(seeds[1], ba)
         rg, var = os.path.join(tmp, "rg.flo"), os.path.join(tmp, "var.flo")
-        for fn in wrappers:
-            fn.launches = 0
+        reset_launches(wrappers)
         gather_plane_patches.launches_by_planes.clear()
         st = {}
         t0 = time.perf_counter()
@@ -1432,7 +1598,7 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
                                        "-device", "cuda"], stats=st)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = {fn.__name__: fn.launches for fn in wrappers}
+        launches = read_launches(wrappers)
         launches["gather_plane_patches_c24"] = gather_plane_patches.launches_by_planes[24]
         if rc != 0:
             raise AssertionError(f"the {tag} stage CLIs exited {rc}")
@@ -1531,15 +1697,14 @@ def run_sift_path(i0, i1, gf, wrappers):
     with tempfile.TemporaryDirectory() as tmp:
         ims = write_frames(tmp, i0, i1)
         res = os.path.join(tmp, "out") + os.sep
-        for fn in wrappers:
-            fn.launches = 0
+        reset_launches(wrappers)
         st = {}
         t0 = time.perf_counter()
         rc = faldoi_sift.main([ims, "-vm", "1",
                                "-device", "cuda", "-bsz", str(BSZ),
                                "-res_path", res], stats=st)
         secs = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in wrappers}
+        launches = read_launches(wrappers)
         if rc != 0:
             raise AssertionError(f"faldoi_sift exited {rc}")
         rg = read_flo(res + "frame_0_sift_rg.flo")
@@ -1568,6 +1733,100 @@ def run_sift_path(i0, i1, gf, wrappers):
     if st["global_iters"] != ITERS_SIFT:
         raise AssertionError(f"faldoi_sift global iterations {st['global_iters']}, "
                              f"expected {ITERS_SIFT}")
+    return launches
+
+
+def pairs_data(data, npairs):
+    """``npairs`` synthetic pairs: pair 0 is the m0 path's (frames and
+    seeds); pair k > 0 is ``make_pair`` of seed SEED + k, seeded at the same
+    golden positions from its own known flows, 5% moved 3-6 px, from
+    ``default_rng(SEED + k)``.  Each: (i0, i1, go, ba, known forward flow)."""
+    from faldoi_tpu_torch import synthetic as syn
+
+    i0, i1, gf, _, pos_f, pos_b, go, ba, _ = data
+    out = [(i0, i1, go, ba, gf)]
+    for k in range(1, npairs):
+        a0, a1, f, b = syn.make_pair(H, W, seed=SEED + k)
+        rng = np.random.default_rng(SEED + k)
+        out.append((a0, a1, syn.make_seeds(f, pos_f, rng),
+                    syn.make_seeds(b, pos_b, rng), f))
+    return out
+
+
+def run_pairs(pairs, wrappers):
+    """Pairs mode as a user runs it: ``prepare_pair`` of each pair,
+    ``match_growing_pairs`` at bsz ``BSZ``, then the global step of each
+    pair as ``run_slice`` runs it.  Returns (final flows, growings' flows,
+    stats, seconds, launches)."""
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.match_growing import match_growing_pairs
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.models import global_refine
+
+    reset_launches(wrappers)
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [prepare_pair(p[0], p[1], device="cuda") for p in pairs]
+    outs = match_growing_pairs([(p[2], p[3]) for p in pairs], frames,
+                               P.Parameters(), bsz=BSZ, stats=st,
+                               planes_pairs=[(p[0], p[1]) for p in pairs])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prm = P.Parameters()
+    prm.warps = P.PAR_DEFAULT_NWARPS_GLOBAL
+    finals = []
+    for (a, b), (flow, _, _), p in zip(frames, outs, pairs):
+        u1, u2, _ = global_refine(0, a, b, flow[..., 0].contiguous(),
+                                  flow[..., 1].contiguous(), prm, stats={},
+                                  i0_planes=p[0])
+        finals.append(torch.stack([u1, u2], -1).cpu().numpy())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches(wrappers)
+    return (finals, [o[0].cpu().numpy() for o in outs], st,
+            dict(growing=t1 - t0, total=t2 - t0), launches)
+
+
+def run_pairs_phase(data, var0, wrappers):
+    """Pairs mode at N in ``PAIRS_N``: every pair's final flow must equal
+    bit for bit its own single-pair ``run_slice`` (pair 0: ``var0``, the m0
+    path's), and every growing must fill 100%.  Logs s/pair, sweeps per
+    lane and launches per wrapper; returns the launches of the largest N."""
+    from faldoi_tpu_torch import synthetic as syn
+
+    pairs = pairs_data(data, max(PAIRS_N))
+    singles = [var0]
+    t0 = time.perf_counter()
+    for p in pairs[1:]:
+        singles.append(run_slice(*p[:4], "cuda", {})[1])
+    log(f"pairs: single-pair runs of pairs 1-{len(pairs) - 1} (the m0 path's "
+        f"calls) {time.perf_counter() - t0:.2f} s")
+    launches = None
+    for npairs in PAIRS_N:
+        finals, rgs, st, secs, launches = run_pairs(pairs[:npairs], wrappers)
+        same = [same_bits(torch.as_tensor(f), torch.as_tensor(s))
+                for f, s in zip(finals, singles)]
+        fills = [float(np.isfinite(r).all(-1).mean()) for r in rgs]
+        log(f"pairs mode N {npairs} ({2 * npairs} lanes), {H}x{W} SYNTHETIC m0, "
+            f"bsz {BSZ}: growing {secs['growing']:.3f} s, total (prepare, "
+            f"growing, global) {secs['total']:.3f} s, {secs['total'] / npairs:.3f} "
+            f"s/pair; growing seconds "
+            + json.dumps({k: round(v, 3) for k, v in st["seconds"].items()}))
+        log(f"pairs N {npairs} sweeps per lane: {json.dumps(st['sweeps'])}")
+        log(f"pairs N {npairs} launches: {json.dumps(launches)}")
+        log(f"pairs N {npairs}: each pair's final flow bit-equal to its single-pair "
+            f"run: {same}; fill {[round(100 * f, 3) for f in fills]}%; var EPE vs "
+            f"known flow {[round(syn.epe(f, p[4]), 4) for f, p in zip(finals, pairs)]} "
+            "px (synthetic)")
+        if not all(same):
+            raise AssertionError(f"pairs mode N {npairs}: a pair's final flow "
+                                 "differs from its single-pair run")
+        if min(fills) < 1.0:
+            raise AssertionError(f"pairs mode N {npairs} filled {fills}")
+        for name in PAIRS_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched in pairs mode")
     return launches
 
 
@@ -1698,7 +1957,8 @@ def run_all(jobs, tmp):
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
-               check_k4_patches(dev, rng), check_k5(dev, rng, a, b, gf)]
+               check_k4_patches(dev, rng), *check_lanes(dev, rng),
+               check_k5(dev, rng, a, b, gf)]
     scs = nltv_local_consts(a, b, i0, i1)
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],
@@ -1764,12 +2024,11 @@ def run_all(jobs, tmp):
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
                 nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
                 occ_global_loop, bicubic_sample)
-    for fn in wrappers:
-        fn.launches = 0
+    reset_launches(wrappers)
     st = {}
     with fb_warps() as fb_m0:
         rg, var = run_slice(i0, i1, go, ba, "cuda", st)
-    launches_m0 = {fn.__name__: fn.launches for fn in wrappers}
+    launches_m0 = read_launches(wrappers)
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = {k: round(v, 3) for k, v in st["seconds"].items()}
     log(f"full {H}x{W} SYNTHETIC main path (m0), bsz {BSZ}: seconds "
@@ -1790,6 +2049,11 @@ def run_all(jobs, tmp):
     if st["global_iters"] != ITERS_M0:
         raise AssertionError(f"global iterations {st['global_iters']}, expected "
                              f"{ITERS_M0}")
+
+    # phase 5a: pairs mode, N = 1, 2 and 4 synthetic pairs grown together,
+    # each pair's final flow bit for bit that of its own single-pair run
+    # (pair 0's is the m0 path's), counting launches
+    launches_pairs = run_pairs_phase(data, var, wrappers)
 
     # phase 5b: the m2 (NLTV-L1) and m4 (TV-CSAD) paths through the stage
     # CLIs at full width, counting launches; the K8 loop's (B, P) are kept
@@ -1878,11 +2142,12 @@ def run_all(jobs, tmp):
         f"{sums['loop']:.4f} s ({time.perf_counter() - t0:.1f} s)")
 
     paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
-                 m8=launches_m8, sift=launches_sift)
+                 m8=launches_m8, sift=launches_sift, pairs=launches_pairs)
     kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS else
                                  launches_m4 if k["name"] in M4_KERNELS else
                                  launches_m8 if k["name"] in M8_KERNELS else
-                                 launches_sift)[k["name"]],
+                                 launches_pairs if k["name"] in PAIRS_KERNELS
+                                 else launches_sift)[k["name"]],
                     **{f"launches_{p}": la[k["name"]] for p, la in paths.items()})
                for k in kernels]
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]

@@ -13,7 +13,12 @@ sweep, the centre update when its energy improves, and max-energy wins for
 the persistent working flow over the whole patch.
 
 State layout: flat (h*w+1,) planes; the extra slot is the dump for masked
-writes, as in JAX.  The occlusion planes ``out_chi``, ``cand_chi`` and
+writes, as in JAX.  Lanes: the growing lanes of one or more frame pairs
+(each pair's forward and backward direction) sweep as one batch
+(``sweep_lanes``, ``drain_lanes``): their planes stack to (L, h*w+1), each
+lane keeps its own dump slot, and one selection, one state crop, one patch
+batch and one set of scatters serve every lane; ``sweep_body`` and
+``drain`` are the one-lane case.  The occlusion planes ``out_chi``, ``cand_chi`` and
 ``wchi`` flow through the sweeps only for method 8 (``with_chi``): the fix
 takes the candidate's chi, the state crop takes seven planes, the chi init
 is ``out_chi`` at fixed pixels and the working chi elsewhere (0 where it is
@@ -26,12 +31,12 @@ and a payload scatter whose winners tie on the key keeps the LAST update in
 JAX's flattening order (what XLA's sequential CPU scatter does), on every
 device.
 
-Selection is exact: the port solves only the ``n_acc`` accepted lanes, in
-the order of the sorted batch (a prefix of it unless block-local bands are
-on).  JAX solves all ``bsz`` lanes and masks the rest; the masked lanes
-write nothing, so the results are the same.
+Selection is exact: the port solves only the ``n_acc`` accepted
+candidates, in the order of the sorted batch (a prefix of it unless
+block-local bands are on).  JAX solves all ``bsz`` and masks the rest; the
+masked ones write nothing, so the results are the same.
 
-The throttles of the acceptance are ``sweep_body``'s arguments, with JAX's
+The throttles of the acceptance are ``sweep_lanes``' arguments, with JAX's
 ``match_growing`` defaults: the delta band ``e_min + max(delta, delta_rel *
 e_min)``, optionally also per (block x block) tile; the rank floor
 ``min(floor, queue // fscale)``, where the divisor is ``floor_scale_hi`` once
@@ -137,6 +142,12 @@ def _positions(q, pos):
     return torch.arange(q.shape[0], device=q.device) if pos is None else pos
 
 
+def _dumps(q, dump):
+    """The dump slot of every update: ``dump`` itself where it is a tensor
+    (one slot an update: each lane's own), else ``dump`` everywhere."""
+    return dump if isinstance(dump, torch.Tensor) else torch.full_like(q, dump)
+
+
 def _put_payloads(qw, tgts, vals):
     return tuple(t.index_put((qw,), x) for t, x in zip(tgts, vals))
 
@@ -144,15 +155,17 @@ def _put_payloads(qw, tgts, vals):
 def scatter_min_payload(tgt_e, tgt_u, tgt_v, q, e, u, v, ok, dump, pos=None,
                         tgt_c=None, c=None):
     """Scatter (e, u, v) to q where ok, keeping per slot the minimum e
-    (``_scatter_min_payload``).  ``pos`` orders tied winners (default: the
+    (``_scatter_min_payload``).  ``dump``: the slot masked updates go to, an
+    int or one slot an update.  ``pos`` orders tied winners (default: the
     update order).  With ``tgt_c`` and ``c`` (method 8's chi) the winner's c
     goes to tgt_c as well, and the result has it fourth."""
-    qs = torch.where(ok, q, torch.full_like(q, dump))
+    dumps = _dumps(q, dump)
+    qs = torch.where(ok, q, dumps)
     e_m = torch.where(ok, e, torch.full_like(e, INF))
     tgt_e = tgt_e.scatter_reduce(0, qs, e_m, "amin", include_self=True)
     winner = ok & (e_m <= tgt_e[qs])
     sel = _last_winner(qs, winner, _positions(q, pos), tgt_e.shape[0])
-    qw = torch.where(sel, q, torch.full_like(q, dump))
+    qw = torch.where(sel, q, dumps)
     tgts, vals = (tgt_u, tgt_v), (u, v)
     if tgt_c is not None:
         tgts, vals = tgts + (tgt_c,), vals + (c,)
@@ -162,14 +175,15 @@ def scatter_min_payload(tgt_e, tgt_u, tgt_v, q, e, u, v, ok, dump, pos=None,
 def scatter_max_payload(key_buf, tgt_u, tgt_v, q, key, u, v, ok, dump,
                         pos=None, tgt_c=None, c=None):
     """Scatter (u, v) to q where ok, keeping the payload of the maximum key
-    (``_scatter_max_payload`` in its exact form); ``tgt_c``, ``c`` as in
-    ``scatter_min_payload``."""
-    qs = torch.where(ok, q, torch.full_like(q, dump))
+    (``_scatter_max_payload`` in its exact form); ``dump``, ``tgt_c``, ``c``
+    as in ``scatter_min_payload``."""
+    dumps = _dumps(q, dump)
+    qs = torch.where(ok, q, dumps)
     k_m = torch.where(ok, key, torch.full_like(key, -INF))
     key_buf = key_buf.scatter_reduce(0, qs, k_m, "amax", include_self=True)
     winner = ok & (k_m >= key_buf[qs])
     sel = _last_winner(qs, winner, _positions(q, pos), key_buf.shape[0])
-    qw = torch.where(sel, q, torch.full_like(q, dump))
+    qw = torch.where(sel, q, dumps)
     tgts, vals = (tgt_u, tgt_v), (u, v)
     if tgt_c is not None:
         tgts, vals = tgts + (tgt_c,), vals + (c,)
@@ -183,30 +197,35 @@ def _chi_payload(tgt_c, c):
 
 
 def _solve(solver, sc, i, j, oy, ox, ph, pw, u0, v0, p, warps, max_iters,
-           chi):
+           chi, lane=None):
     """The method's patch solve: (u, v, chi, ener).  ``chi`` is method 8's
     init canvases and None for methods 0-7, whose solvers take and return
-    no chi."""
+    no chi.  ``lane``: None, or the patches' lane index into lane-stacked
+    consts."""
     if chi is None:
         su, sv, ener = solver(sc, i, j, oy, ox, ph, pw, u0, v0, p, warps,
-                              max_iters)
+                              max_iters, lane=lane)
         return su, sv, None, ener
     return solver(sc, i, j, oy, ox, ph, pw, u0, v0, p, warps, max_iters,
-                  chi=chi)
+                  chi=chi, lane=lane)
 
 
-def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p, schi=None):
+def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p, schi=None,
+                          base=None):
     """The 4-neighbour candidates of B solved patches, concatenated in
     ``NEIGHBOURS`` order: (q, in_image, energy, u, v, chi or None).  q is the
-    dump slot where the neighbour leaves the image; (u, v) and chi (given
-    ``schi``) come from the patch cell next to the centre."""
+    flat slot ``base + qj * w + qi`` (``base``: each patch's lane times
+    h*w + 1, None for one lane), the lane's dump slot ``base + h*w`` where
+    the neighbour leaves the image; (u, v) and chi (given ``schi``) come
+    from the patch cell next to the centre."""
     cy, cx = j - oy, i - ox
     bidx = torch.arange(i.shape[0], device=i.device)
     qs, inbs, nus, nvs, ncs = [], [], [], [], []
     for dx, dy in NEIGHBOURS:
         qi, qj = i + dx, j + dy
         inb = (qi >= 0) & (qi < w) & (qj >= 0) & (qj < h)
-        qs.append(torch.where(inb, qj * w + qi, torch.full_like(qi, h * w)))
+        q = torch.where(inb, qj * w + qi, torch.full_like(qi, h * w))
+        qs.append(q if base is None else base + q)
         inbs.append(inb)
         r = (cy + dy).clamp(0, p - 1)
         c = (cx + dx).clamp(0, p - 1)
@@ -220,25 +239,32 @@ def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p, schi=None):
             torch.cat(ncs) if schi is not None else None)
 
 
-def _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox, h, w, p):
-    """Max-energy-wins working-flow scatter over every in-box patch cell;
-    the working chi rides along where ``schi`` is given.  Returns (wu, wv,
-    wchi)."""
+def _wflow_scatter(wu, wv, wchi, su, sv, schi, ener, oy, ox, inbox, h, w, p,
+                   base=None):
+    """Max-energy-wins working-flow scatter over every in-box patch cell
+    into the flat planes ``wu``, ``wv`` (one lane's (h*w+1,), or L lanes'
+    flattened, with ``base`` each patch's lane times h*w + 1); the working
+    chi rides along where ``schi`` is given.  Returns (wu, wv, wchi)."""
     n = h * w
     k = su.shape[0]
     rows, cols = canvas_ids(p, su.device)
     gy = oy[:, None, None] + rows
     gx = ox[:, None, None] + cols
     flat_q = torch.where(inbox, gy * w + gx, torch.full_like(gy, n))
+    dump = n
+    if base is not None:
+        flat_q = base[:, None, None] + flat_q
+        dump = (base + n)[:, None, None].expand(k, p, p).reshape(-1)
     key = ener[:, None, None].expand(k, p, p)
     bidx = torch.arange(k, device=su.device)[:, None, None]
     pos = (rows * p + cols) * k + bidx          # JAX order: cell-major
-    key_buf = torch.full((n + 1,), -INF, dtype=torch.float32, device=su.device)
+    key_buf = torch.full(wu.shape, -INF, dtype=torch.float32, device=su.device)
     out = scatter_max_payload(
-        key_buf, state.wu, state.wv, flat_q.reshape(-1), key.reshape(-1),
-        su.reshape(-1), sv.reshape(-1), inbox.reshape(-1), n, pos.reshape(-1),
-        **_chi_payload(state.wchi, None if schi is None else schi.reshape(-1)))
-    return out[1], out[2], out[3] if schi is not None else state.wchi
+        key_buf, wu, wv, flat_q.reshape(-1), key.reshape(-1),
+        su.reshape(-1), sv.reshape(-1), inbox.reshape(-1), dump,
+        pos.reshape(-1),
+        **_chi_payload(wchi, None if schi is None else schi.reshape(-1)))
+    return out[1], out[2], out[3] if schi is not None else wchi
 
 
 def _fill_pair(u, v, ph, pw, exact):
@@ -263,53 +289,100 @@ def exact_fill(fill: str, method: int) -> bool:
 
 
 def _block_band(eligible, h, w, block, delta, delta_rel):
-    """Per pixel, whether its energy lies in the delta band of its
-    (block x block) tile, anchored at the tile's minimum eligible energy."""
+    """Per lane and pixel, whether its energy lies in the delta band of its
+    (block x block) tile, anchored at the tile's minimum eligible energy;
+    ``eligible`` (L, h*w) -> (L, h*w)."""
+    nl = eligible.shape[0]
     by, bx = -(-h // block), -(-w // block)
-    e2d = torch.nn.functional.pad(eligible.view(h, w),
+    e2d = torch.nn.functional.pad(eligible.view(nl, h, w),
                                   (0, bx * block - w, 0, by * block - h),
                                   value=INF)
-    bmin = e2d.view(by, block, bx, block).amin(dim=(1, 3))
-    bmin_f = bmin.repeat_interleave(block, 0).repeat_interleave(block, 1)[:h, :w]
+    bmin = e2d.view(nl, by, block, bx, block).amin(dim=(2, 4))
+    bmin_f = bmin.repeat_interleave(block, 1).repeat_interleave(block, 2)[
+        :, :h, :w]
     bband = bmin_f + torch.clamp(delta_rel * bmin_f, min=delta)
-    return eligible <= bband.reshape(-1)
+    return eligible <= bband.reshape(nl, -1)
 
 
-def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
-               iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
-               max_iters: int, floor_scale: int, method: int = P.M_TVL1,
-               delta: float = 0.05, delta_rel: float = 0.5, floor: int = 4096,
-               floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
-               block: int = 0, fill: str = "patch"):
-    """One strict-mode wavefront sweep (``_sweep_body`` with relax=False and
-    the exact working-flow scatter of radius wr), solving with ``method``'s
-    patch solver.  The throttles default to ``match_growing``'s values:
+def lane_state(state: GrowState, lane: int) -> GrowState:
+    """Lane ``lane`` of a lane-stacked state, as views."""
+    return GrowState(*(t[lane] for t in state))
+
+
+def stack_states(states) -> GrowState:
+    """One-lane states stacked into one state with (L, N+1) planes."""
+    return GrowState(*(torch.stack(ts) for ts in zip(*states)))
+
+
+def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
+                iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
+                max_iters: int, floor_scale: int, method: int = P.M_TVL1,
+                delta: float = 0.05, delta_rel: float = 0.5, floor: int = 4096,
+                floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
+                block: int = 0, fill: str = "patch", lanes=None):
+    """One strict-mode wavefront sweep of L independent growing lanes as one
+    batch (``_sweep_body`` with relax=False and the exact working-flow
+    scatter of radius wr for every lane), solving with ``method``'s patch
+    solver.
+
+    ``state``: (L, N+1) planes; ``trust2d`` (L, h, w); ``sal`` (L, N+1);
+    ``sconsts``: the lanes' consts stacked by ``stack_solver_consts``, or
+    for L = 1 one lane's plain consts (then the kernels take no lane index).
+    ``lanes``: the lanes that sweep (None: all); the others are carried
+    untouched.  The throttles default to ``match_growing``'s values:
     ``delta``, ``delta_rel`` (the band), ``floor``, ``floor_scale``,
     ``floor_scale_hi``, ``queue_hi`` (the rank floor), ``block`` (0: no
-    block-local bands) and ``fill`` (see ``exact_fill``).
-    Returns (new state, n_accepted)."""
+    block-local bands) and ``fill`` (see ``exact_fill``); they act on each
+    lane alone.
+
+    Selection is per lane: one stable sort of the (L, h*w) energies by row
+    (ties to the lower flat index within the lane), and each lane its own
+    e_min and band, queue and rank floor, and block-local band.  The
+    accepted candidates of all lanes are flattened lane-major into one
+    batch that gets one state crop (K0's planes form), one fill, one solve
+    and one set of scatters.  A pixel's slot is flat at ``lane * (N+1) +
+    q``, each lane's dump slot at ``lane * (N+1) + N``.  Ties of the payload
+    scatters keep, within a lane, the order of a one-lane sweep: positions
+    d*K+b (neighbour candidates) and (r*p+c)*K+b (working flow) with b
+    lane-major, so a lane's winners keep their relative order, and slots of
+    different lanes never collide.  Each lane's result is therefore that of
+    its own one-lane sweep, bit for bit.
+
+    Returns (new state, accepted counts of the swept lanes, in ``lanes``
+    order), read from the card in one host read."""
     solver = solver_for(method)
     exact = exact_fill(fill, method)
     with_chi = method == P.M_TVL1_OCC
     n = h * w
-    dump = n
+    stride = n + 1
+    nl = state.fixed.shape[0]
+    stacked = sconsts.i0pad.dim() == 3
+    if nl > 1 and not stacked:
+        raise ValueError(f"{nl} lanes need lane-stacked consts "
+                         "(stack_solver_consts)")
     p = 2 * wr + 1
     dev = state.cand_e.device
     delta = float(np.float32(delta))
+    rows_l = list(range(nl)) if lanes is None else list(lanes)
+    rows = (slice(None) if rows_l == list(range(nl))
+            else torch.as_tensor(rows_l, dtype=torch.int64, device=dev))
 
-    # --- selection: top-bsz eligible, delta band, queue-adaptive floor
-    eligible = torch.where(state.fixed[:n], torch.full((), INF, device=dev),
-                           state.cand_e[:n])
-    vals, order = torch.sort(eligible, stable=True)
-    e_pop = vals[:bsz]
-    idx = order[:bsz]
-    e_min = e_pop[0]
+    # --- selection, per lane: top-bsz eligible, delta band, queue-adaptive
+    # floor
+    eligible = torch.where(state.fixed[rows, :n],
+                           torch.full((), INF, device=dev),
+                           state.cand_e[rows, :n])
+    vals, order = torch.sort(eligible, dim=1, stable=True)
+    e_pop = vals[:, :bsz]
+    idx = order[:, :bsz]
+    e_min = e_pop[:, :1]
     band = e_min + torch.clamp(delta_rel * e_min, min=delta)
     e_ok = e_pop <= band
     if block:
         # a candidate passes with its tile's band or the global one
-        e_ok = e_ok | _block_band(eligible, h, w, block, delta, delta_rel)[idx]
-    queue = torch.isfinite(eligible).sum()
+        e_ok = e_ok | _block_band(eligible, h, w, block, delta,
+                                  delta_rel).gather(1, idx)
+    queue = torch.isfinite(eligible).sum(1, keepdim=True)
     floor_base = max(int(floor), 1)
     fscale = torch.full_like(queue, max(int(floor_scale), 1))
     if floor_scale_hi > 0:
@@ -317,37 +390,58 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
         fscale = torch.where(queue >= queue_hi, int(floor_scale_hi), fscale)
     floor_dyn = torch.where(fscale > 1, (queue // fscale).clamp(1, floor_base),
                             floor_base)
-    rank = torch.arange(e_pop.shape[0], device=dev)
+    width = e_pop.shape[1]
+    rank = torch.arange(width, device=dev)
     valid = torch.isfinite(e_pop) & (e_ok | (rank < floor_dyn))
-    idx = idx[valid]
-    k = idx.shape[0]
+    counts = valid.sum(1).tolist()          # the sweep's one host read
+    k = sum(counts)
     if k == 0:
-        return state, 0
+        return state, counts
+    # the accepted (lane, rank) pairs, lane-major, in rank order
+    vflat = valid.reshape(-1)
+    slot = torch.where(vflat, vflat.cumsum(0) - 1, k)
+    pick = torch.empty((k + 1,), dtype=torch.int64, device=dev).scatter_(
+        0, slot, torch.arange(vflat.shape[0], device=dev))[:k]
+    pix = idx.reshape(-1)[pick]
+    lane = pick // width
+    if not isinstance(rows, slice):
+        lane = rows[lane]
+    base = lane * stride
+    q = base + pix                         # flat slots of the accepted pixels
+    dump = base + n                        # their lanes' dump slots
 
-    i, j, oy, ox, ph, pw = patch_geometry(idx, h, w, wr)
+    i, j, oy, ox, ph, pw = patch_geometry(pix, h, w, wr)
 
     # --- fix accepted candidates (local_growing pop, :899-937)
-    fixed = state.fixed.index_put((idx,), torch.ones((), dtype=torch.bool,
-                                                     device=dev))
-    out_u = state.out_u.index_put((idx,), state.cand_u[idx])
-    out_v = state.out_v.index_put((idx,), state.cand_v[idx])
-    ene = state.ene.index_put((idx,), state.cand_e[idx])
-    cand_e = state.cand_e.index_put((idx,), torch.full((), INF, device=dev))
-    out_chi = (state.out_chi.index_put((idx,), state.cand_chi[idx]) if with_chi
-               else state.out_chi)
+    flat = GrowState(*(t.reshape(-1) for t in state))
+    fixed = flat.fixed.index_put((q,), torch.ones((), dtype=torch.bool,
+                                                  device=dev))
+    out_u = flat.out_u.index_put((q,), flat.cand_u[q])
+    out_v = flat.out_v.index_put((q,), flat.cand_v[q])
+    ene = flat.ene.index_put((q,), flat.cand_e[q])
+    cand_e = flat.cand_e.index_put((q,), torch.full((), INF, device=dev))
+    out_chi = (flat.out_chi.index_put((q,), flat.cand_chi[q]) if with_chi
+               else flat.out_chi)
 
     # --- per-patch init (add_neighbors :688-705): one launch of K0's planes
     # form crops the five state planes where they lie (the flat planes with
     # their dump slot, the trust map in the dtype the caller holds), and
     # out_chi and wchi for method 8, into contiguous (k, p, p) canvases; the
-    # edge pad is the kernel's clamp
-    planes = (out_u, out_v, state.wu, state.wv, trust2d)
+    # edge pad is the kernel's clamp, at each patch's own lane's edge
+    planes = (out_u, out_v, flat.wu, flat.wv)
     if with_chi:
-        planes += (out_chi, state.wchi)
-    crops = gather_plane_patches(planes, oy, ox, p, h, w).unbind(0)
+        planes += (out_chi, flat.wchi)
+    if stacked:
+        planes = tuple(pl.view(nl, stride) for pl in planes)
+        planes = planes[:4] + (trust2d,) + planes[4:]
+        ln = lane
+    else:
+        planes = planes[:4] + (trust2d[0],) + planes[4:]
+        ln = None
+    crops = gather_plane_patches(planes, oy, ox, p, h, w, lane=ln).unbind(0)
     ou, ov, wu_p, wv_p, tr = crops[:5]
-    rows, cols = canvas_ids(p, dev)
-    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    rows_c, cols_c = canvas_ids(p, dev)
+    inbox = (rows_c < ph[:, None, None]) & (cols_c < pw[:, None, None])
     fxp = torch.isfinite(ou) & inbox
     nan = torch.full((), NAN, device=dev)
     zero = torch.zeros((), device=dev)
@@ -376,28 +470,29 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                                                   zero))
         c_init = torch.where(inbox, c_init, zero)
     su, sv, schi, ener = _solve(solver, sconsts, i, j, oy, ox, ph, pw, u_init,
-                                v_init, p, warps, max_iters, c_init)
+                                v_init, p, warps, max_iters, c_init, ln)
 
     # --- 4-neighbour candidates and same-sweep donations (:497-537)
     q4, inb4, e4, nu4, nv4, nc4 = _neighbour_candidates(
-        su, sv, ener, i, j, oy, ox, sal, h, w, p, schi)
+        su, sv, ener, i, j, oy, ox, sal.reshape(-1), h, w, p, schi, base)
+    dump4 = dump.repeat(len(NEIGHBOURS))
     ok = inb4 & ~fixed[q4] & (e4 < cand_e[q4])
-    okd = inb4 & fixed[q4] & ~state.fixed[q4] & (e4 < ene[q4])
-    cand = scatter_min_payload(cand_e, state.cand_u, state.cand_v, q4, e4,
-                               nu4, nv4, ok, dump,
-                               **_chi_payload(state.cand_chi, nc4))
-    don = scatter_min_payload(ene, out_u, out_v, q4, e4, nu4, nv4, okd, dump,
+    okd = inb4 & fixed[q4] & ~flat.fixed[q4] & (e4 < ene[q4])
+    cand = scatter_min_payload(cand_e, flat.cand_u, flat.cand_v, q4, e4,
+                               nu4, nv4, ok, dump4,
+                               **_chi_payload(flat.cand_chi, nc4))
+    don = scatter_min_payload(ene, out_u, out_v, q4, e4, nu4, nv4, okd, dump4,
                               **_chi_payload(out_chi, nc4))
     cand_e, cand_u, cand_v = cand[:3]
     ene, out_u, out_v = don[:3]
-    cand_chi = cand[3] if with_chi else state.cand_chi
+    cand_chi = cand[3] if with_chi else flat.cand_chi
     out_chi = don[3] if with_chi else out_chi
 
     # --- centre update (add_neighbors :718-726), after the donations
     cy, cx = j - oy, i - ox
     bidx = torch.arange(k, device=dev)
-    better = ener < ene[idx]
-    upd = torch.where(better, idx, torch.full_like(idx, dump))
+    better = ener < ene[q]
+    upd = torch.where(better, q, dump)
     out_u = out_u.index_put((upd,), su[bidx, cy, cx])
     out_v = out_v.index_put((upd,), sv[bidx, cy, cx])
     if with_chi:
@@ -406,10 +501,27 @@ def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                                             torch.full_like(ener, INF)))
 
     # --- persistent working flow (max energy wins == later pop wins)
-    wu, wv, wchi = _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox,
-                                  h, w, p)
-    return GrowState(fixed, out_u, out_v, ene, cand_u, cand_v, cand_e,
-                     wu, wv, out_chi, cand_chi, wchi), k
+    wu, wv, wchi = _wflow_scatter(flat.wu, flat.wv, flat.wchi, su, sv, schi,
+                                  ener, oy, ox, inbox, h, w, p, base)
+    new = GrowState(fixed, out_u, out_v, ene, cand_u, cand_v, cand_e, wu, wv,
+                    out_chi, cand_chi, wchi)
+    return GrowState(*(t.view(nl, stride) for t in new)), counts
+
+
+def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
+               iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
+               max_iters: int, floor_scale: int, method: int = P.M_TVL1,
+               **throttles):
+    """One strict-mode wavefront sweep of one growing lane: ``sweep_lanes``
+    at L = 1 on the flat (N+1,) state, (h, w) trust map and (N+1,) saliency,
+    with one lane's consts.  ``throttles``: ``sweep_lanes``' (``delta``,
+    ``delta_rel``, ``floor``, ``floor_scale_hi``, ``queue_hi``, ``block``,
+    ``fill``).  Returns (new state, n_accepted)."""
+    st, counts = sweep_lanes(GrowState(*(t[None] for t in state)), sconsts,
+                             trust2d[None], sal[None], iteration, h, w, wr,
+                             bsz, warps, max_iters, floor_scale, method,
+                             **throttles)
+    return lane_state(st, 0), counts[0]
 
 
 def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
@@ -447,8 +559,8 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
         state.cand_e, state.cand_u, state.cand_v, q4, e4, nu4, nv4,
         inb4 & (e4 < state.cand_e[q4]), dump,
         **_chi_payload(state.cand_chi, nc4))
-    wu, wv, wchi = _wflow_scatter(state, su, sv, schi, ener, oy, ox, inbox,
-                                  h, w, p)
+    wu, wv, wchi = _wflow_scatter(state.wu, state.wv, state.wchi, su, sv,
+                                  schi, ener, oy, ox, inbox, h, w, p)
     return state._replace(cand_e=out[0], cand_u=out[1], cand_v=out[2],
                           cand_chi=out[3] if with_chi else state.cand_chi,
                           wu=wu, wv=wv, wchi=wchi)
@@ -494,25 +606,48 @@ def insert_seeds(state: GrowState, seeds: np.ndarray, sconsts: SolverConsts,
 CHUNK = 64
 
 
+def drain_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
+                iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
+                max_iters: int, floor_scale: int, method: int = P.M_TVL1,
+                lanes=None, on_chunk=None, **throttles):
+    """Sweep the lanes ``lanes`` (None: all) of a lane-stacked state together
+    (``sweep_lanes``) until every one accepts nothing (``grow_to_completion``
+    a lane).  A lane leaves the batch after its first empty sweep, which its
+    count includes, as JAX's does; a drained lane's sweep would change
+    nothing.  Returns (state, sweeps of each lane in ``lanes`` order).
+    ``throttles`` go to every sweep.
+
+    ``on_chunk(state of lane 0)``, if given, is called after every ``CHUNK``
+    sweeps of lane 0 and after its last one: the sync points of JAX's
+    chunked ``grow`` (local_step.py:1219-1236), where the partial-results
+    snapshots are taken."""
+    order = list(range(state.fixed.shape[0])) if lanes is None else list(lanes)
+    sweeps = dict.fromkeys(order, 0)
+    active = order
+    while active:
+        state, counts = sweep_lanes(state, sconsts, trust2d, sal, iteration,
+                                    h, w, wr, bsz, warps, max_iters,
+                                    floor_scale, method, lanes=active,
+                                    **throttles)
+        for lane in active:
+            sweeps[lane] += 1
+        if on_chunk is not None and 0 in active:
+            if counts[active.index(0)] == 0 or sweeps[0] % CHUNK == 0:
+                on_chunk(lane_state(state, 0))
+        active = [lane for lane, c in zip(active, counts) if c > 0]
+    return state, [sweeps[lane] for lane in order]
+
+
 def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
           iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
           max_iters: int, floor_scale: int, method: int = P.M_TVL1,
           on_chunk=None, **throttles):
-    """Sweep until a sweep accepts nothing (``grow_to_completion``).
-    Returns (state, sweeps); the count includes the final empty sweep, as
-    JAX's does.  ``throttles`` go to every ``sweep_body``.
-
-    ``on_chunk(state)``, if given, is called after every ``CHUNK`` sweeps
-    and after the last one: the sync points of JAX's chunked ``grow``
-    (local_step.py:1219-1236), where the partial-results snapshots are
-    taken."""
-    sweeps = 0
-    while True:
-        state, k = sweep_body(state, sconsts, trust2d, sal, iteration, h, w,
-                              wr, bsz, warps, max_iters, floor_scale, method,
-                              **throttles)
-        sweeps += 1
-        if on_chunk is not None and (k == 0 or sweeps % CHUNK == 0):
-            on_chunk(state)
-        if k == 0:
-            return state, sweeps
+    """Sweep one growing lane until a sweep accepts nothing: ``drain_lanes``
+    at L = 1 on the flat state (``sweep_body``'s arguments).  Returns
+    (state, sweeps); the count includes the final empty sweep.
+    ``on_chunk(state)`` as in ``drain_lanes``."""
+    st, sweeps = drain_lanes(GrowState(*(t[None] for t in state)), sconsts,
+                             trust2d[None], sal[None], iteration, h, w, wr,
+                             bsz, warps, max_iters, floor_scale, method,
+                             on_chunk=on_chunk, **throttles)
+    return lane_state(st, 0), sweeps[0]

@@ -1,4 +1,5 @@
-"""Iterated FALDOI local minimization for methods 0-8 (``match_growing``).
+"""Iterated FALDOI local minimization for methods 0-8 (``match_growing``),
+and N frame pairs grown together (``match_growing_pairs``).
 
 Port of ``faldoi_tpu/core/match_growing.py`` in the semantics of its CPU
 default, ``mode="fused"`` (``_iterated_growing``, local_faldoi.cpp:
@@ -10,15 +11,22 @@ reference's full re-grow of every outer iteration (``_delete_untrusted`` +
 is ``floor_scale`` (64) in iteration 0 and ``floor_scale_late`` (by default
 ``min(floor_scale, 16)``) after.  The throttles are arguments here, where
 JAX also reads them from its ``FALDOI_GROW_*`` environment; the port reads
-no environment.  JAX drains the two directions in
-lockstep; a drained lane's sweeps are no-ops there, so draining them one
-after the other, as here, gives the same states.
+no environment.
+
+The growing runs in lanes: N pairs are 2N lanes [fwd0..fwdN-1,
+bwd0..bwdN-1] (``match_growing`` is N = 1), and for methods 0-7 they drain
+in lockstep, as JAX's ``grow_pair`` drains them: one lane-batched sweep
+(``local_step.sweep_lanes``) serves every lane that still accepts, so the
+fixed cost of a sweep is paid once for all of them.  Lanes share no pixel
+and a drained lane's sweep changes nothing, so each lane's states are those
+of its own one-lane drain.  FB pruning and the requeue run per pair.
 
 Method 8 (TV-L1 with occlusions) grows over four frames: the forward lane
 warps I1 at +u and I-1 at -u with g from I0's gradient, the backward lane
 I0 at +u and I2 at -u with g from I1's (JAX's match_growing.py:662-690), and
 its patch PD cap is ``prm.iterations_of``, not ``max_iter_patch``
-(:702-705).
+(:702-705).  Its lanes drain one after the other: its patch solver (K9's
+patch form) takes no lane index.
 
 The occlusion output is JAX's ``out_chi`` of the forward lane: every
 requeue, warm or cold, sets it to 1 at the pixels the pruning distrusted
@@ -37,9 +45,12 @@ import numpy as np
 import torch
 
 from faldoi_tpu_torch import params as P
-from faldoi_tpu_torch.core.functionals import make_solver_consts, solver_for
+from faldoi_tpu_torch.core.functionals import (
+    make_solver_consts, solver_for, stack_solver_consts,
+)
 from faldoi_tpu_torch.core.local_step import (
-    GrowState, drain, exact_fill, init_state, insert_seeds,
+    GrowState, drain, drain_lanes, exact_fill, init_state, insert_seeds,
+    lane_state, stack_states,
 )
 from faldoi_tpu_torch.core.pruning import prune
 from faldoi_tpu_torch.io.flo import write_flo
@@ -177,6 +188,11 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     (flow (h, w, 2), energy (h, w), occlusions (h, w) float32 0/1) of the
     forward direction, as tensors on that device.
 
+    Methods 0-7 run as ``match_growing_pairs`` with one pair: the forward
+    and the backward lane drain together, one batch a sweep.  Method 8
+    drains them one after the other (its patch solver, K9, takes no lane
+    index); the results are the same either way.
+
     ``i0_planes``, ``i1_planes``: the raw (pd, h, w) colour planes of the two
     frames (0..255), which the NLTV methods (2, 3, 6, 7) need for their
     weights: the forward lane's from I0, the backward lane's from I1.
@@ -187,43 +203,126 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     knob of the same meaning: ``warm_band`` (the requeue band in px, 0 = the
     cold requeue; ``FALDOI_GROW_WARM_BAND``), ``delta``, ``delta_rel``,
     ``floor`` (None = 4096), ``floor_scale``, ``floor_scale_hi``,
-    ``queue_hi``, ``block``, ``fill`` (see ``local_step.sweep_body``) and
+    ``queue_hi``, ``block``, ``fill`` (see ``local_step.sweep_lanes``) and
     ``floor_scale_late`` (the requeue and final drains' scale; None =
     ``min(floor_scale, 16)``, ``FALDOI_GROW_FS_LATE``).
     ``snapshot_dir``: where the partial-results snapshots go (the CLIs'
     ``-partial_res``); None = none.
     ``stats`` (a dict, optional) receives the stage seconds and the sweeps
-    of every drain."""
+    of every lane's drains."""
+    occ = None
+    if prm.val_method == P.M_TVL1_OCC:
+        if i_1n is None or i2n is None:
+            raise ValueError("method 8 needs 4 frames (i_1n and i2n)")
+        occ = [(i_1n, i2n)]
+    return _grow([(go, ba)], [(i0n, i1n)], prm, bsz, seed_bsz, stats,
+                 warm_band, snapshot_dir, [(i0_planes, i1_planes)],
+                 [(sal_go, sal_ba)], occ, floor_scale, floor_scale_late,
+                 dict(delta=delta, delta_rel=delta_rel, floor=floor,
+                      floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
+                      block=block, fill=fill))[0]
+
+
+def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
+                        bsz: int = 8192, stats=None, warm_band: int = 10,
+                        planes_pairs=None, sal_pairs=None,
+                        delta: float = 0.05, delta_rel: float = 0.5,
+                        floor: Optional[int] = None, floor_scale: int = 64,
+                        floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
+                        floor_scale_late: Optional[int] = None,
+                        block: int = 0, fill: str = "patch",
+                        relax: bool = False):
+    """Grow N frame pairs together (JAX's ``match_growing_pairs``, the
+    throughput mode): the 2N lanes [fwd0..fwdN-1, bwd0..bwdN-1] drain as one
+    lane-batched sweep (``local_step.drain_lanes``: one selection, one patch
+    batch and one set of scatters a sweep for all of them) in every outer
+    iteration; FB pruning and the warm or cold requeue run per pair; a final
+    forward-only drain runs over the first N lanes.  Lanes share no pixel,
+    so each pair's result is that of its own ``match_growing``, bit for bit.
+
+    ``seeds_pairs``: N (go, ba) NaN-sparse (h, w, 2) seed fields;
+    ``frames_pairs``: N (i0n, i1n) normalized, smoothed frames of one shape,
+    on the run's device.  ``planes_pairs``: N (i0_planes, i1_planes) raw
+    colour planes (the NLTV methods 2, 3, 6, 7); ``sal_pairs``: N (sal_go,
+    sal_ba) saliency maps or None.  The throttles are ``match_growing``'s, each
+    applied to every lane alone (JAX's pairs mode ignores ``block``,
+    ``floor_scale_hi`` and ``queue_hi``; the port takes them).  Defaults are
+    JAX's: bsz 8192, floor 4096, the ``fill`` resolution of
+    ``local_step.exact_fill``.  Methods 0-7; method 8 (whose patch solver
+    takes no lane index) and ``relax=True`` (not ported) raise.
+
+    Returns a list of (flow (h, w, 2), energy (h, w), occlusions (h, w)),
+    one a pair.  ``stats`` receives the stage seconds and every lane's
+    sweeps (entries with "it", "lane" fwd/bwd, "pair", "sweeps")."""
+    if prm.val_method == P.M_TVL1_OCC:
+        raise ValueError("pairs mode takes methods 0-7; run method 8 per pair "
+                         "(match_growing)")
+    if relax:
+        raise NotImplementedError("relax=True is not ported: the port's sweep "
+                                  "is strict mode only")
+    npairs = len(seeds_pairs)
+    if npairs < 1 or len(frames_pairs) != npairs:
+        raise ValueError(f"{npairs} seed pairs and {len(frames_pairs)} frame "
+                         "pairs: expected N >= 1 of each")
+    for name, opt in (("planes_pairs", planes_pairs), ("sal_pairs", sal_pairs)):
+        if opt is not None and len(opt) != npairs:
+            raise ValueError(f"{name}: {len(opt)} entries for {npairs} pairs")
+    return _grow(seeds_pairs, frames_pairs, prm, bsz, 2048, stats, warm_band,
+                 None, planes_pairs or [(None, None)] * npairs,
+                 sal_pairs or [(None, None)] * npairs, None, floor_scale,
+                 floor_scale_late,
+                 dict(delta=delta, delta_rel=delta_rel, floor=floor,
+                      floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
+                      block=block, fill=fill))
+
+
+def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
+          snapshot_dir, planes_pairs, sal_pairs, occ_pairs, floor_scale,
+          floor_scale_late, throttles):
+    """The iterated growing of N pairs as 2N lanes [fwd0..fwdN-1,
+    bwd0..bwdN-1] (``match_growing`` is N = 1).  Methods 0-7 drain the lanes
+    in lockstep (``drain_lanes`` on lane-stacked consts); method 8
+    (``occ_pairs``: N (i_1n, i2n)) drains them one lane after the other.
+    ``stats["sweeps"]`` entries name their pair where N > 1."""
     method = prm.val_method
     solver_for(method)
+    npairs = len(seeds_pairs)
+    nlanes = 2 * npairs
+    i0n = frames_pairs[0][0]
     dev = i0n.device
     h, w = i0n.shape
+    for a, b in frames_pairs:
+        if a.shape != (h, w) or b.shape != (h, w):
+            raise ValueError("the pairs must share one frame shape")
     n = h * w
     bsz = min(bsz, n)
     wr = prm.w_radio
     p = 2 * wr + 1
     lam, theta, tau = method_local_params(method, wr)
-    occ = ({}, {})
+    occ = [({}, {})] * npairs
     if method == P.M_TVL1_OCC:
-        if i_1n is None or i2n is None:
-            raise ValueError("method 8 needs 4 frames (i_1n and i2n)")
         occ_prm = (prm.alpha, prm.beta, prm.mu, prm.tau_u, prm.tau_eta,
                    prm.tau_chi)
-        occ = (dict(i_1=i_1n, occ_prm=occ_prm), dict(i_1=i2n, occ_prm=occ_prm))
-    sc = (make_solver_consts(i0n, i1n, lam, theta, tau, prm.tol_OF, p, method,
-                             i0_planes=i0_planes, **occ[0]),
-          make_solver_consts(i1n, i0n, lam, theta, tau, prm.tol_OF, p, method,
-                             i0_planes=i1_planes, **occ[1]))
+        occ = [(dict(i_1=a, occ_prm=occ_prm), dict(i_1=b, occ_prm=occ_prm))
+               for a, b in occ_pairs]
+    # lane l < N: pair l forward (I0 -> I1); lane N + l: its backward
+    scs = ([make_solver_consts(a, b, lam, theta, tau, prm.tol_OF, p, method,
+                               i0_planes=pl[0], **oc[0])
+            for (a, b), pl, oc in zip(frames_pairs, planes_pairs, occ)]
+           + [make_solver_consts(b, a, lam, theta, tau, prm.tol_OF, p, method,
+                                 i0_planes=pl[1], **oc[1])
+              for (a, b), pl, oc in zip(frames_pairs, planes_pairs, occ)])
+    lockstep = method != P.M_TVL1_OCC
+    sc_lanes = stack_solver_consts(scs) if lockstep else None
     # the occlusion solver's PD cap is iterations_of (tvl2_model_occ.cpp:653)
     max_iters = max(prm.iterations_of if method == P.M_TVL1_OCC
                     else prm.max_iter_patch, 1)
     if floor_scale_late is None:
         floor_scale_late = min(floor_scale, 16)
-    throttles = dict(delta=delta, delta_rel=delta_rel,
-                     floor=4096 if floor is None else floor,
-                     floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
-                     block=block, fill=fill)
-    exact_fill(fill, method)
+    throttles = dict(throttles)
+    if throttles["floor"] is None:
+        throttles["floor"] = 4096
+    exact_fill(throttles["fill"], method)
     stats = {} if stats is None else stats
     stats.setdefault("sweeps", [])
     stats.setdefault("seconds", {})
@@ -234,7 +333,8 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
             base[:n] = np.asarray(s, np.float32).ravel()
         return torch.as_tensor(base, device=dev)
 
-    sal = (mksal(sal_go), mksal(sal_ba))
+    sal = torch.stack([mksal(s[0]) for s in sal_pairs]
+                      + [mksal(s[1]) for s in sal_pairs])
     t = time.perf_counter()
 
     def tick(label):
@@ -244,44 +344,62 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
         stats["seconds"][label] = now - t
         t = now
 
-    st = [init_state(h, w, dev), init_state(h, w, dev)]
-    for lane, seeds in enumerate((go, ba)):
-        st[lane] = insert_seeds(st[lane], seeds, sc[lane], sal[lane],
-                                prm.warps, max_iters, seed_bsz=seed_bsz,
-                                method=method)
+    seeds = [s[0] for s in seeds_pairs] + [s[1] for s in seeds_pairs]
+    sts = [insert_seeds(init_state(h, w, dev), seeds[lane], scs[lane],
+                        sal[lane], prm.warps, max_iters, seed_bsz=seed_bsz,
+                        method=method) for lane in range(nlanes)]
     tick("seed_insertion")
     marks, snapshot = (_snapshot_writer(snapshot_dir, h, w)
                        if snapshot_dir is not None else ({}, None))
+    trust2d = torch.ones((nlanes, h, w), dtype=torch.float32, device=dev)
 
-    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
-    trust2d = [ones, ones]
+    def record(it, lane, k):
+        entry = {"it": it, "lane": ("fwd", "bwd")[lane >= npairs]}
+        if npairs > 1:
+            entry["pair"] = lane % npairs
+        entry["sweeps"] = k
+        stats["sweeps"].append(entry)
 
-    def run_drain(lane, it, fs):
+    def run_drains(it, fs, lanes):
+        nonlocal sts
         marks["it"] = it
-        s, k = drain(st[lane], sc[lane], trust2d[lane], sal[lane], it, h, w,
-                     wr, bsz, prm.warps, max_iters, fs, method,
-                     on_chunk=snapshot if lane == 0 else None, **throttles)
-        st[lane] = s
-        stats["sweeps"].append({"it": it, "lane": ("fwd", "bwd")[lane],
-                                "sweeps": k})
+        label = "drain_final" if it == prm.iterations_of else f"drain_it{it}"
+        kw = dict(on_chunk=snapshot, **throttles)
+        if lockstep:
+            st, ks = drain_lanes(stack_states(sts), sc_lanes, trust2d, sal, it,
+                                 h, w, wr, bsz, prm.warps, max_iters, fs,
+                                 method, lanes=lanes, **kw)
+            sts = [lane_state(st, lane) for lane in range(nlanes)]
+            for lane, k in zip(lanes, ks):
+                record(it, lane, k)
+            tick("drain_final_fwd" if lanes == list(range(npairs)) else label)
+            return
+        for lane in lanes:
+            kw["on_chunk"] = snapshot if lane == 0 else None
+            sts[lane], k = drain(sts[lane], scs[lane], trust2d[lane],
+                                 sal[lane], it, h, w, wr, bsz, prm.warps,
+                                 max_iters, fs, method, **kw)
+            record(it, lane, k)
+            tick(f"{label}_{('fwd', 'bwd')[lane >= npairs]}")
 
     for it in range(prm.iterations_of):
         fs = floor_scale if it == 0 else floor_scale_late
-        for lane in (0, 1):
-            run_drain(lane, it, fs)
-            tick(f"drain_it{it}_{('fwd', 'bwd')[lane]}")
-        tg, tb = prune(i0n, i1n, flow_of(st[0], h, w), flow_of(st[1], h, w),
-                       prm.epsilon)
-        for lane, tr in enumerate((tg, tb)):
-            trust = torch.cat([tr.reshape(-1),
-                               torch.ones((1,), dtype=tr.dtype, device=dev)])
-            trust2d[lane] = tr     # int32; the state crop converts it
-            st[lane] = (warm_requeue(st[lane], trust, h, w, warm_band)
-                        if warm_band else
-                        insert_potential(delete_untrusted(st[lane], trust)))
+        run_drains(it, fs, list(range(nlanes)))
+        trusts = [None] * nlanes
+        for k, (a, b) in enumerate(frames_pairs):
+            fwd, bwd = k, npairs + k
+            tg, tb = prune(a, b, flow_of(sts[fwd], h, w),
+                           flow_of(sts[bwd], h, w), prm.epsilon)
+            for lane, tr in ((fwd, tg), (bwd, tb)):
+                trust = torch.cat([tr.reshape(-1),
+                                   torch.ones((1,), dtype=tr.dtype, device=dev)])
+                trusts[lane] = tr     # int32; the state crop converts it
+                sts[lane] = (warm_requeue(sts[lane], trust, h, w, warm_band)
+                             if warm_band else
+                             insert_potential(delete_untrusted(sts[lane], trust)))
+        trust2d = torch.stack(trusts)
         tick(f"prune_requeue_it{it}")
 
-    run_drain(0, prm.iterations_of, floor_scale_late)
-    tick("drain_final_fwd")
-    return (flow_of(st[0], h, w), st[0].ene[:n].view(h, w),
-            st[0].out_chi[:n].view(h, w))
+    run_drains(prm.iterations_of, floor_scale_late, list(range(npairs)))
+    return [(flow_of(st, h, w), st.ene[:n].view(h, w),
+             st.out_chi[:n].view(h, w)) for st in sts[:npairs]]

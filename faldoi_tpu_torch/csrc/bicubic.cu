@@ -138,12 +138,15 @@ __global__ void bicubic_sample_kernel(const float* __restrict__ planes,
 // The patch form: one thread per canvas cell of the B patches.  Each
 // thread forms its cell's point as the patch solver does (cell + flow inside
 // the valid box, the bare cell outside it) and samples it exactly as
-// bicubic_sample_kernel does with border_out off.
+// bicubic_sample_kernel does with border_out off.  With a lane index, patch
+// k samples the lane[k]-th of L stacks laid lane_stride floats apart (the
+// frames of N pairs' 2N growing lanes); its clamp is its own lane's edge.
 __global__ void bicubic_patches_kernel(
     const float* __restrict__ planes, const int* __restrict__ oy,
     const int* __restrict__ ox, const int* __restrict__ ph,
     const int* __restrict__ pw, const float* __restrict__ u1,
-    const float* __restrict__ u2, float* __restrict__ out, int c, int h, int w,
+    const float* __restrict__ u2, const int* __restrict__ lane,
+    long long lane_stride, float* __restrict__ out, int c, int h, int w,
     int b, int p) {
   const long long pp = (long long)p * p;
   const long long nout = (long long)b * pp;
@@ -160,9 +163,11 @@ __global__ void bicubic_patches_kernel(
     int wx0, wy0;
     float wx[4], wy[4];
     point_weights(uu, vv, h, w, &wx0, &wy0, wx, wy);
+    const float* src =
+        lane != nullptr ? planes + lane[k] * lane_stride : planes;
     for (int ch = 0; ch < c; ++ch)
       out[ch * nout + idx] = contract(
-          planes + ch * plane + (long long)wy0 * w + wx0, w, wy, wx);
+          src + ch * plane + (long long)wy0 * w + wx0, w, wy, wx);
   }
 }
 
@@ -228,10 +233,13 @@ extern "C" int faldoi_bicubic_sample(const float* planes, const float* uu,
   return (int)cudaGetLastError();
 }
 
+// lane: null (one (C', H, W) stack) or (B,) lane indices into L stacks
+// lane_stride floats apart.
 extern "C" int faldoi_bicubic_sample_patches(
     const float* planes, const int* oy, const int* ox, const int* ph,
-    const int* pw, const float* u1, const float* u2, float* out, int c, int h,
-    int w, int b, int p, void* stream) {
+    const int* pw, const float* u1, const float* u2, const int* lane,
+    long long lane_stride, float* out, int c, int h, int w, int b, int p,
+    void* stream) {
   if (b <= 0) return 0;
   if (c < 1 || p < 1) return (int)cudaErrorInvalidValue;
   const int threads = 256;
@@ -239,7 +247,8 @@ extern "C" int faldoi_bicubic_sample_patches(
   if (blocks > 1048576) blocks = 1048576;
   bicubic_patches_kernel<<<(unsigned)blocks, threads, 0,
                            (cudaStream_t)stream>>>(planes, oy, ox, ph, pw, u1,
-                                                   u2, out, c, h, w, b, p);
+                                                   u2, lane, lane_stride, out,
+                                                   c, h, w, b, p);
   return (int)cudaGetLastError();
 }
 

@@ -47,17 +47,20 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # name -> argtypes of the C entry points (all return int = cudaError_t)
 _SIGNATURES = {
-    # stack, oy, ox, out, hp, wp, c, b, p, stream
-    "faldoi_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # planes (host array of C pointers), c, int32-plane mask, oy, ox, out,
-    # h, w, b, p, stream
-    "faldoi_gather_plane_patches": (_P, _I, _U, _P, _P, _P, _I, _I, _I, _I, _P),
+    # stack, oy, ox, lane (or null), out, hp, wp, c, b, p, stream
+    "faldoi_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # planes (host array of C pointers), lane strides (host array of C long
+    # longs, or null), c, int32-plane mask, oy, ox, lane (or null), out, h,
+    # w, b, p, stream
+    "faldoi_gather_plane_patches": (_P, _P, _I, _U, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _P),
     # planes, uu, vv, out, c, h, w, npts, border_out, stream
     "faldoi_bicubic_sample": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     # planes, u, v, out, c, h, w, u's and v's strides, border_out, stream
     "faldoi_bicubic_warp_planes": (_P,) * 4 + (_I,) * 3 + (_L,) * 4 + (_I, _P),
-    # planes, oy, ox, ph, pw, u1, u2, out, c, h, w, b, p, stream
-    "faldoi_bicubic_sample_patches": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # planes, oy, ox, ph, pw, u1, u2, lane (or null), lane stride, out, c, h,
+    # w, b, p, stream
+    "faldoi_bicubic_sample_patches": (_P,) * 8 + (_L, _P) + (_I,) * 5 + (_P,),
     # u1 u2 u1_ u2_ xi11 xi12 xi21 xi22 i1wx i1wy grad rho_c scratch,
     # h, w, l_t, theta, tau, tol2, max_iters, stream
     "faldoi_global_pd_loop": (_P,) * 13 + (_I, _I, _F, _F, _F, _F, _I, _P),

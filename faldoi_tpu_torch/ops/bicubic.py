@@ -35,10 +35,14 @@ threads mostly share through L1/L2:
 * ``bicubic_sample_patches``, the patch form for the patch solver: the
   caller passes the patch boxes and flow canvases, not points, and each
   thread forms its cell's point as the solver did (``cell + flow`` inside
-  the valid box).
+  the valid box).  With a per-patch ``lane`` index it samples a stack of L
+  lanes' frames (pairs mode: one launch for the 2N growing lanes), each
+  patch clamped at its own lane's edge.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -109,17 +113,24 @@ def _sample_weights(ny: int, nx: int, uu, vv):
 
 
 def bicubic_sample_plain(planes: torch.Tensor, uu: torch.Tensor,
-                         vv: torch.Tensor, border_out: bool) -> torch.Tensor:
+                         vv: torch.Tensor, border_out: bool,
+                         lane: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch twin of K4: sample the (C, H, W) ``planes`` at (x=uu,
-    y=vv) of any shape; returns (C, *uu.shape)."""
-    c, ny, nx = planes.shape
+    y=vv) of any shape; returns (C, *uu.shape).  With ``lane`` (the shape of
+    uu), ``planes`` is (L, C, H, W) and each point samples its lane's."""
+    c, ny, nx = planes.shape[-3:]
     shape = uu.shape
     uu = uu.reshape(-1)
     vv = vv.reshape(-1)
     wy, wx, wys, wxs, out = _sample_weights(ny, nx, uu, vv)
-    flat = planes.reshape(c, ny * nx)
     r = torch.zeros((c, uu.shape[0]), dtype=planes.dtype, device=planes.device)
     base = wy * nx + wx
+    if lane is None:
+        flat = planes.reshape(c, ny * nx)
+    else:
+        # the lanes side by side along the flat axis, a lane's base shifted
+        flat = planes.transpose(0, 1).reshape(c, -1)
+        base = base + lane.reshape(-1).to(torch.int64) * (ny * nx)
     for l in range(4):
         col = torch.zeros_like(r)
         for k in range(4):
@@ -178,29 +189,37 @@ def _patch_points(oy, ox, ph, pw, u1, u2):
 
 
 def bicubic_sample_patches_plain(stack, oy, ox, ph, pw, u1, u2,
-                                 nplanes: int) -> torch.Tensor:
+                                 nplanes: int, lane=None) -> torch.Tensor:
     """Plain twin of K4's patch form: the first ``nplanes`` planes of
-    ``stack`` sampled at the patch points, ``border_out=False``."""
+    ``stack`` sampled at the patch points, ``border_out=False``; with
+    ``lane``, patch k from lane lane[k] of the (L, C, H, W) stack."""
     uu, vv = _patch_points(oy, ox, ph, pw, u1, u2)
-    return bicubic_sample_plain(stack[:nplanes], uu, vv, False)
+    if lane is None:
+        return bicubic_sample_plain(stack[:nplanes], uu, vv, False)
+    return bicubic_sample_plain(stack[:, :nplanes], uu, vv, False,
+                                lane[:, None, None].expand(uu.shape))
 
 
 def bicubic_sample_patches(stack: torch.Tensor, oy: torch.Tensor,
                            ox: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
                            u1: torch.Tensor, u2: torch.Tensor,
-                           nplanes: int) -> torch.Tensor:
+                           nplanes: int,
+                           lane: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4, patch form: sample the first ``nplanes`` planes of the
     (C, H, W) ``stack`` at the points of B patch canvases — cell (ox + col,
     oy + row) plus (u1, u2) inside the valid box [0, ph) x [0, pw), the bare
     cell outside it — with ``border_out=False``.  oy, ox, ph, pw: (B,) int32;
-    u1, u2: (B, P, P) float32.  Returns (nplanes, B, P, P).
+    u1, u2: (B, P, P) float32.  Returns (nplanes, B, P, P).  With ``lane``
+    ((B,) int32), ``stack`` is (L, C, H, W) and patch k samples lane lane[k]
+    (0 <= lane[k] < L, unchecked on the card), clamped at that lane's edge.
 
     CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
     raise).  Replaces the solver's ``_warp3``/``_warp1`` windowed samples of
     ``faldoi_tpu/core/functionals.py``."""
-    if stack.dim() != 3:
-        raise ValueError(f"stack must be (C, H, W), got {tuple(stack.shape)}")
-    c, ny, nx = stack.shape
+    if stack.dim() != (3 if lane is None else 4):
+        raise ValueError(f"stack must be {'(' if lane is None else '(L, '}"
+                         f"C, H, W), got {tuple(stack.shape)}")
+    c, ny, nx = stack.shape[-3:]
     if ny < 4 or nx < 4:
         raise ValueError("bicubic sampling needs an image of at least 4x4")
     if not 1 <= nplanes <= c:
@@ -209,13 +228,17 @@ def bicubic_sample_patches(stack: torch.Tensor, oy: torch.Tensor,
         raise ValueError(f"u1 {tuple(u1.shape)} and u2 {tuple(u2.shape)} must "
                          "be one (B, P, P) shape")
     b, p = u1.shape[0], u1.shape[1]
-    for name, t in (("oy", oy), ("ox", ox), ("ph", ph), ("pw", pw)):
+    named = [("oy", oy), ("ox", ox), ("ph", ph), ("pw", pw)]
+    if lane is not None:
+        named.append(("lane", lane))
+    for name, t in named:
         if tuple(t.shape) != (b,):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected ({b},)")
     if stack.device.type == "cpu":
-        return bicubic_sample_patches_plain(stack, oy, ox, ph, pw, u1, u2, nplanes)
+        return bicubic_sample_patches_plain(stack, oy, ox, ph, pw, u1, u2,
+                                            nplanes, lane)
     kb.require_cuda_tensor(stack, "stack", torch.float32)
-    for name, t in (("oy", oy), ("ox", ox), ("ph", ph), ("pw", pw)):
+    for name, t in named:
         kb.require_cuda_tensor(t, name, torch.int32, stack.device)
     kb.require_cuda_tensor(u1, "u1", torch.float32, stack.device)
     kb.require_cuda_tensor(u2, "u2", torch.float32, stack.device)
@@ -225,14 +248,18 @@ def bicubic_sample_patches(stack: torch.Tensor, oy: torch.Tensor,
         return out
     code = kb.library().faldoi_bicubic_sample_patches(
         stack.data_ptr(), oy.data_ptr(), ox.data_ptr(), ph.data_ptr(),
-        pw.data_ptr(), u1.data_ptr(), u2.data_ptr(), out.data_ptr(), nplanes,
+        pw.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        None if lane is None else lane.data_ptr(),
+        0 if lane is None else c * ny * nx, out.data_ptr(), nplanes,
         ny, nx, b, p, kb.stream_ptr(stack.device))
     kb.check(code, "bicubic_sample_patches")
     bicubic_sample_patches.launches += 1
+    bicubic_sample_patches.launches_lane += lane is not None
     return out
 
 
 bicubic_sample_patches.launches = 0   # launches of K4's patch form
+bicubic_sample_patches.launches_lane = 0   # those of them with a lane index
 
 
 def bicubic_interp_at(img: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,

@@ -2,8 +2,10 @@
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
 probes P1-P3, K8 in its whole-image and patch forms, the K8 loop and the
 occlusion PD loop K9 in its patch and whole-image forms) against their plain
-twins, on the card, and the weighted, the NLTV, the CSAD and the occlusion
-solvers and global steps on the card against their CPU runs.
+twins, on the card (K0's two forms and K4's patch form also with a lane
+index), and the weighted, the NLTV, the CSAD and the occlusion solvers and
+global steps, the lane-batched sweep and pairs mode on the card against
+their CPU runs.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -17,8 +19,9 @@ twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
 summation order).  K6, K7, K8, the K8 loop, K9 and the NLTV, CSAD and
-occlusion solvers must equal their twins (and CPU runs) bit for bit: they sum in the twins'
-order, and K8 selects one of the entries the twin sorts."""
+occlusion solvers, the lane-batched sweep and pairs mode must equal their
+twins (and CPU runs) bit for bit: they sum in the twins' order, and K8
+selects one of the entries the twin sorts."""
 
 import numpy as np
 import pytest
@@ -1125,3 +1128,183 @@ def test_occ_global_on_card_matches_cpu(dev, occ_init):
     assert outs[0][3] == outs[1][3]
     for a, b in zip(outs[0][:3], outs[1][:3]):
         assert _same_bits(a, b)
+
+
+def _np_same_bits(a, b):
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.reshape(-1).view(np.uint8),
+                               b.reshape(-1).view(np.uint8)))
+
+
+def _lane_windows(rng, lanes, b, hp, wp, p):
+    """(lane, oy, ox) of b windows: each lane's four corner boxes (negative
+    starts and starts past the edge included) first, then random ones."""
+    ln, oy, ox = [], [], []
+    for lane in range(lanes):
+        for y, x in ((0, 0), (hp - 1, wp - 1), (-1, 0), (hp - p + 2, -3)):
+            ln.append(lane)
+            oy.append(y)
+            ox.append(x)
+    ln, oy, ox = ln[:b], oy[:b], ox[:b]
+    k = b - len(ln)
+    ln += rng.integers(0, lanes, k).tolist()
+    oy += rng.integers(-p, hp + 1, k).tolist()
+    ox += rng.integers(-p, wp + 1, k).tolist()
+    return (torch.tensor(ln, dtype=torch.int64), torch.tensor(oy),
+            torch.tensor(ox))
+
+
+LANE_CASES = [(2, 1), (2, 37), (8, 1), (8, 8191), (8, 8192)]
+
+
+@pytest.mark.parametrize("lanes,b", LANE_CASES)
+def test_k0_stack_lane_form_matches_twin_on_card(dev, lanes, b):
+    from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_patches_plain
+
+    rng = np.random.default_rng(120 + lanes)
+    stack = torch.as_tensor(rng.standard_normal((lanes, 47, 62, 1)),
+                            dtype=torch.float32)
+    ln, oy, ox = _lane_windows(rng, lanes, b, 47, 62, 11)
+    oy, ox, ln = (t.to(torch.int32) for t in (oy, ox, ln))
+    want = gather_patches_plain(stack, oy, ox, 11, ln)
+    before = gather_patches.launches
+    got = gather_patches(stack.to(dev), oy.to(dev), ox.to(dev), 11, lane=ln.to(dev))
+    assert gather_patches.launches == before + 1
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("lanes,b", LANE_CASES)
+def test_k0_planes_lane_form_matches_twin_on_card(dev, lanes, b):
+    from faldoi_tpu_torch.ops.patch_gather import (
+        gather_plane_patches, gather_plane_patches_plain,
+    )
+
+    rng = np.random.default_rng(130 + lanes)
+    h, w, p = 37, 53, 11
+    n = h * w
+    state = [torch.as_tensor(rng.standard_normal((lanes, n + 1)),
+                             dtype=torch.float32) for _ in range(4)]
+    state[0][:, rng.integers(0, n, 50)] = float("nan")
+    trust = torch.as_tensor(rng.integers(0, 2, (lanes, h, w)), dtype=torch.int32)
+    wp_pad = torch.as_tensor(rng.standard_normal((lanes, 24, h + p, w + p)),
+                             dtype=torch.float32)
+    ln, oy, ox = _lane_windows(rng, lanes, b, h, w, p)
+    for planes, hh, ww in ((tuple(state) + (trust,), h, w),
+                           (wp_pad.unbind(1), h + p, w + p)):
+        want = gather_plane_patches_plain(planes, oy, ox, p, hh, ww, ln)
+        before = gather_plane_patches.launches
+        got = gather_plane_patches(tuple(pl.to(dev) for pl in planes), oy.to(dev),
+                                   ox.to(dev), p, hh, ww, lane=ln.to(dev))
+        assert gather_plane_patches.launches == before + 1
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("lanes,b", LANE_CASES)
+def test_k4_patch_lane_form_matches_twin_on_card(dev, lanes, b):
+    from faldoi_tpu_torch.ops.bicubic import (
+        bicubic_sample_patches, bicubic_sample_patches_plain,
+    )
+
+    rng = np.random.default_rng(140 + lanes)
+    h, w, p = 41, 57, 11
+    stack = torch.as_tensor(rng.standard_normal((lanes, 3, h, w)),
+                            dtype=torch.float32)
+    ln, oy, ox = _lane_windows(rng, lanes, b, h - p, w - p, p)
+    oy, ox = oy.clamp(0, h - 1), ox.clamp(0, w - 1)
+    ph, pw = torch.clamp(h - oy, max=p), torch.clamp(w - ox, max=p)
+    u1 = torch.as_tensor(rng.uniform(-14, 14, (b, p, p)), dtype=torch.float32)
+    u2 = torch.as_tensor(rng.uniform(-14, 14, (b, p, p)), dtype=torch.float32)
+    args = [t.to(torch.int32) for t in (oy, ox, ph, pw, ln)]
+    want = bicubic_sample_patches_plain(stack, *args[:4], u1, u2, 3, args[4])
+    before = bicubic_sample_patches.launches
+    got = bicubic_sample_patches(stack.to(dev), *(a.to(dev) for a in args[:4]),
+                                 u1.to(dev), u2.to(dev), 3, lane=args[4].to(dev))
+    assert bicubic_sample_patches.launches == before + 1
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def _four_lanes(d, h, w):
+    """Four m0 lanes on two synthetic pairs (fwd and bwd of each), seeded."""
+    from faldoi_tpu_torch.core.functionals import (
+        make_solver_consts, stack_solver_consts,
+    )
+    from faldoi_tpu_torch.core.local_step import (
+        init_state, insert_seeds, stack_states,
+    )
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    scs, sts = [], []
+    for k in range(2):
+        i0, i1, gf, gb = syn.make_pair(h, w, seed=150 + k)
+        a, b = prepare_pair(i0, i1, device=d)
+        rng = np.random.default_rng(150 + k)
+        for src, dst, g, cnt in ((a, b, gf, 30 + 20 * k), (b, a, gb, 45 - 10 * k)):
+            sc = make_solver_consts(src, dst, 0.25, 0.3, 0.125, 0.01, 11, 0)
+            seeds = syn.make_seeds(g, syn.random_seed_positions(h, w, cnt, rng), rng)
+            scs.append(sc)
+            sts.append(insert_seeds(init_state(h, w, d), seeds, sc,
+                                    torch.ones(h * w + 1, device=d), 1, 4))
+    return stack_solver_consts(scs), stack_states(sts)
+
+
+def test_sweep_lanes_on_card_matches_cpu(dev):
+    """``sweep_lanes`` at L = 4 (two pairs' fwd and bwd lanes), four sweeps
+    in iteration 0 and two in iteration 1 under a trust map, on the card
+    against the CPU, bit for bit (the dump slots left out)."""
+    from faldoi_tpu_torch.core.local_step import state_to_numpy, sweep_lanes
+    from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
+    from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
+
+    h, w = 48, 64
+    trust = torch.ones((4, h, w), dtype=torch.int32)
+    trust[0, 10:20, 5:30] = 0
+    trust[3, 30:40, 40:60] = 0
+    out = []
+    for d in ("cpu", dev):
+        sc, st = _four_lanes(d, h, w)
+        sal = torch.ones((4, h * w + 1), device=d)
+        counts = []
+        before = (gather_plane_patches.launches, bicubic_sample_patches.launches)
+        for it, tr in [(0, torch.ones((4, h, w), device=d))] * 4 + [
+                (1, trust.to(d))] * 2:
+            st, c = sweep_lanes(st, sc, tr, sal, it, h, w, 5, 256, 1, 4, 16)
+            counts.append(c)
+        if d != "cpu":
+            # one state crop a sweep for all four lanes; K4's patch form
+            # twice a solve (the warp and the eval)
+            assert gather_plane_patches.launches == before[0] + 6
+            assert bicubic_sample_patches.launches == before[1] + 12
+        out.append((counts, {k: v.reshape(4, -1)[:, :h * w]
+                             for k, v in state_to_numpy(st).items()}))
+    assert out[0][0] == out[1][0] and min(min(c) for c in out[0][0]) > 0
+    for k in out[0][1]:
+        assert _np_same_bits(out[0][1][k], out[1][1][k]), k
+
+
+def test_pairs_growing_on_card_matches_cpu(dev):
+    """``match_growing_pairs`` at N = 2 (m0, 48x64, bsz 256) on the card
+    against the CPU, bit for bit, and the same sweeps."""
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.match_growing import match_growing_pairs
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    h, w = 48, 64
+    prm = P.Parameters()
+    res = []
+    for d in ("cpu", dev):
+        seeds, frames = [], []
+        for k in range(2):
+            i0, i1, gf, gb = syn.make_pair(h, w, seed=160 + k)
+            rng = np.random.default_rng(160 + k)
+            seeds.append(tuple(
+                syn.make_seeds(g, syn.random_seed_positions(h, w, c, rng), rng)
+                for g, c in ((gf, 40 + 15 * k), (gb, 50))))
+            frames.append(prepare_pair(i0, i1, device=d))
+        st = {}
+        outs = match_growing_pairs(seeds, frames, prm, bsz=256, stats=st)
+        res.append(([[t.cpu().numpy() for t in o] for o in outs], st["sweeps"]))
+    assert res[0][1] == res[1][1]
+    for a, b in zip(res[0][0], res[1][0]):
+        assert np.isfinite(a[0]).all()
+        for x, y in zip(a, b):
+            assert _np_same_bits(x, y)

@@ -12,7 +12,7 @@ methods 0, 2, 4 and 6 with the warm requeue, methods 1, 3, 5 and 7 with the
 cold one, at 96x128 (methods 0-3) and 48x64 (the CSAD methods 4-7); the CPU
 runs go in eight child processes, one thread each, started at once beside
 the card's phases, and the CSAD crops must give the card's flows exactly —
-and then drives five paths, each with the kernels' launch counts set to 0
+and then drives these paths, each with the kernels' launch counts set to 0
 just before it and read just after:
 
 * the m0 main path at 436x1024 — seeds -> local growing -> global
@@ -32,6 +32,15 @@ just before it and read just after:
   form runs every patch solve batch and warp (its calls timed where they
   run), K9's whole-image form every global warp in one cooperative launch
   with its tol exit on the card;
+* F1, the growing's parity frontier at 436x1024: ``local_faldoi -m 0
+  -warm_band 0 -relax_late 1 -polish 1`` (the cold requeue, label-correcting
+  relax from the second outer iteration on, a re-polish pass of every fixed
+  pixel after the drains of iterations 1, 2 and the final one), then
+  ``global_faldoi``;
+* F2, the growing's whole-image fills at 436x1024: ``match_growing(fill=
+  "dense", bilateral=True)`` then ``tvl2_global``: K10 (the jump-flood
+  nearest fill) once a sweep that accepts, K11 (the bilateral pre-fill) once
+  a prune;
 * the probe path, ``faldoi_tpu_torch.cli.kernel_probe`` (P1-P3);
 * the frames-to-flow entry point ``faldoi_tpu_torch.cli.faldoi_sift -vm 1``
   on the same pair written as ``.npy`` frames: SIFT matches (host), sparse
@@ -73,7 +82,16 @@ gives it, the whole-image loop (state and count) at 436x1024, 5x7 and
 1088x1920, one kernel node a captured call; both beside their former
 designs' times (constants, in the log only; ``cli/k9_variants.py`` times
 the former forms themselves); the m8 path's patch-form calls are held to the
-list ``cli/k9_m8_calls.json`` that ``k9_variants`` replays.
+list ``cli/k9_m8_calls.json`` that ``k9_variants`` replays.  K10 is held
+bit for bit to its twin at 436x1024, 97x131 and 5x7, one and two lanes, with
+no finite cell, one, and the golden seed positions, and K11 at the same
+shapes; each is timed in a CUDA graph of 20 calls at the F2 path's shapes.
+The growing's ordering modes and fills (relax, exactmin 11 with bands 0, 1
+and 2, defer 0.25 over 21 px, polish, dense, bilateral, relax_late) run on
+m0 crops, warm and cold (96x128; exactmin and defer 48x64, the final drain
+alone, as they take ~300-500 sweeps a drain), on the card and through the
+CPU twins (child processes started after the paths); each card flow must
+equal its CPU run bit for bit.
 The m0
 and ``faldoi_sift`` runs print the global step's
 stages as milliseconds between CUDA events.  Every phase prints its own
@@ -102,7 +120,8 @@ CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
 EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m8",
-         "launches_sift", "launches_pairs", "launches_per_call",
+         "launches_sift", "launches_pairs", "launches_f1", "launches_f2",
+         "launches_per_call",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
@@ -157,6 +176,33 @@ CROPS = ((0, 10, CROP), (1, 0, CROP), (2, 10, CROP), (3, 0, CROP),
 # method 8's (its binary chi feeds back into u, so the bound of 0.01 px the
 # TV-L1 crops keep would not say much)
 EXACT_CROPS = (4, 5, 6, 7, 8)
+# the growing's ordering modes and fills on m0 crops, warm (band 10) or cold
+# (0): name -> (warm band, outer iterations, crop, match_growing's
+# keywords); the card's final flow must equal the CPU twins' bit for bit;
+# their CPU twins run in child processes started after the paths.  exactmin
+# and defer accept a few candidates a window a sweep (~300-500 sweeps a
+# drain at 48x64 as at 96x128, ~15 ms each on the card), so they run only
+# the final drain (no outer iteration) on CSAD_CROP; the sweeps with a
+# pruned hole in the trust map are held against JAX's on the CPU
+# (tests/test_torch_ordering.py)
+MODE_CROPS = {
+    "relax": (10, 3, CROP, dict(relax=True)),
+    "exactmin11_band0": (0, 0, CSAD_CROP, dict(exactmin=11)),
+    "exactmin11_band1": (0, 0, CSAD_CROP, dict(exactmin=11, exactmin_band="1")),
+    "exactmin11_band2": (0, 0, CSAD_CROP, dict(exactmin=11, exactmin_band="2")),
+    "defer0.25_win21": (0, 0, CSAD_CROP, dict(defer=0.25, defer_win=21)),
+    "polish1": (0, 3, CROP, dict(polish=1)),
+    "dense": (10, 3, CROP, dict(fill="dense")),
+    "bilateral": (0, 3, CROP, dict(bilateral=True)),
+    "relax_late": (0, 3, CROP, dict(relax_late=True)),
+}
+# the full-width paths of the growing's modes: F1 the parity frontier
+# (local_faldoi -m 0 with these flags, then global_faldoi), F2 the dense
+# fill and the bilateral pre-fill (match_growing's keywords, then
+# tvl2_global); K10 and K11 run on F2 only
+F1_FLAGS = ("-warm_band", "0", "-relax_late", "1", "-polish", "1")
+F2_MODES = dict(fill="dense", bilateral=True)
+F2_KERNELS = ("nearest_fill_image", "bilateral_filter_flow")
 
 
 def log(msg):
@@ -1404,6 +1450,152 @@ def check_k9(dev, n_seeds):
                  **grows[0], shapes=grows)]
 
 
+# K10's float operations: a flood step 6 a cell (two differences, two
+# squares, a sum, the compare), a relaxation update 7 a hole and plane (the
+# Laplacian's multiply and four additions, the step's multiply and add)
+K10_OPS_STEP = 6
+K10_OPS_RELAX = 7
+# K11's a kept-out cell an iteration: 25 taps of two multiply-adds and the
+# denominator's add, the clamp and two divisions
+K11_OPS_CELL = 25 * 5 + 3
+
+
+def golden_field(shape, lanes):
+    """(L, 2, h, w) planes finite at the golden DeepMatching seed positions
+    (clipped to the shape), NaN elsewhere: a sweep's fixed flow at the
+    start of a growing."""
+    from faldoi_tpu_torch.io.flo import read_flo
+
+    h, w = shape
+    gold = os.path.join(HERE, "tests", "golden")
+    x = np.full((lanes, 2, h, w), np.nan, np.float32)
+    for lane, name in zip(range(lanes), ("deep_mt_1.flo", "deep_mt_2.flo")):
+        f = read_flo(os.path.join(gold, name))[:h, :w]
+        fin = np.isfinite(f).all(-1)
+        x[lane][:, fin] = np.moveaxis(f[fin], -1, 0)
+    return x
+
+
+def k10_bound(x):
+    """K10's bound from its input (L, C, h, w): the planes read and written
+    once; the flood's steps on every cell, the relaxation on the holes."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound
+    from faldoi_tpu_torch.ops.poisson import flood_strides
+
+    nl, c, h, w = x.shape
+    holes = int((~torch.isfinite(x[:, 0])).sum())
+    ops = (8 * len(flood_strides(h, w)) * nl * h * w * K10_OPS_STEP
+           + 6 * holes * c * K10_OPS_RELAX)
+    return bound(2 * x.numel() * 4, ops)
+
+
+def check_k10(dev, rng):
+    """K10 (the dense fill) against its twin on the card, bit for bit, at
+    436x1024, 97x131 and 5x7, L 1 and 2, with no finite cell, one, and the
+    golden seed positions; timed (a CUDA graph of 20 calls, the finite-set
+    check off) at the path's shapes: L 2 (the lockstep drains) and L 1 (the
+    final drain) at 436x1024, golden positions."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image, nearest_fill_image_plain
+
+    shapes = []
+    rec = None
+    for (h, w) in ((H, W), (97, 131), (5, 7)):
+        for lanes in (2, 1):
+            for kind in ("golden", "one", "none"):
+                if kind == "golden":
+                    x = golden_field((h, w), lanes)
+                else:
+                    x = np.full((lanes, 2, h, w), np.nan, np.float32)
+                    if kind == "one":
+                        x[:, :, h // 2, w // 3] = rng.normal(size=(lanes, 2))
+                xg = torch.as_tensor(x, device=dev)
+                got = nearest_fill_image(xg)
+                want = nearest_fill_image_plain(xg)
+                torch.cuda.synchronize()
+                if not same_bits(got, want) or not bool(torch.isfinite(got).all()):
+                    d = (got - want).abs().max().item()
+                    raise AssertionError(f"K10 {kind} L {lanes} {h}x{w} differs "
+                                         f"from its twin (max abs {d})")
+                if kind != "golden" or h != H:
+                    continue
+                ms = cuda_ms(lambda: nearest_fill_image(xg, check=False), graph=True)
+                least = k10_bound(xg)
+                row = dict(shape=f"L {lanes} x 2 x {h}x{w}, golden positions",
+                           ms=ms, **least)
+                shapes.append(row)
+                log(f"K10 nearest_fill_image {row['shape']}: bit-exact; "
+                    f"{ms:.4f} ms (graph of 20 calls)  bound "
+                    f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
+                if rec is None:
+                    plain = cuda_ms(lambda: nearest_fill_image_plain(xg), reps=5)
+                    eager = cuda_ms(lambda: nearest_fill_image(xg), reps=10)
+                    rec = dict(name="nearest_fill_image", route="cuda",
+                               source="faldoi_tpu_torch/csrc/dense_fill.cu",
+                               replaces="faldoi_tpu/ops/poisson.py:307",
+                               shape=row["shape"], max_abs_err=0.0, ms=ms,
+                               plain_ms=plain, library_ms=None, eager_ms=eager,
+                               **least)
+    log("K10: bit-exact against its twin at 436x1024, 97x131, 5x7, L 1 and 2, "
+        "no finite cell, one, the golden positions")
+    rec["shapes"] = shapes
+    return rec
+
+
+def check_k11(dev, rng, i0n):
+    """K11 (the bilateral filter) against its twin on the same weight planes
+    on the card, bit for bit, at 436x1024 (the path's frame), 97x131 and 5x7,
+    L 1 and 2, trust at the golden positions and half the cells, a few
+    fixed; timed (graph of 20 calls) at L 2, 436x1024 (one pair's fwd and
+    bwd lanes, as the path calls it)."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.bilateral import (
+        bilateral_filter_flow, bilateral_filter_flow_plain, bilateral_weights,
+    )
+
+    rec = None
+    for (h, w) in ((H, W), (97, 131), (5, 7)):
+        frame = (i0n if h == H else torch.as_tensor(
+            rng.random((h, w)).astype(np.float32), device=dev))
+        wts = bilateral_weights(frame)
+        for lanes in (2, 1):
+            u = torch.as_tensor(rng.normal(size=(2, lanes, h, w)).astype(np.float32)
+                                * 3, device=dev)
+            trust = np.isfinite(golden_field((h, w), 2)[:lanes, 0])
+            trust |= rng.random((lanes, h, w)) < 0.5
+            tr = torch.as_tensor(trust.astype(np.int32), device=dev)
+            fx = torch.as_tensor((rng.random((lanes, h, w)) < 0.02).astype(np.int32),
+                                 device=dev)
+            got = bilateral_filter_flow(frame, u[0], u[1], tr, fx, weights=wts)
+            want = bilateral_filter_flow_plain(wts, u[0], u[1], tr, fx)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                d = max((a - b).abs().max().item() for a, b in zip(got, want))
+                raise AssertionError(f"K11 L {lanes} {h}x{w} differs from its "
+                                     f"twin (max abs {d})")
+            if rec is not None or h != H:
+                continue
+            ms = cuda_ms(lambda: bilateral_filter_flow(frame, u[0], u[1], tr, fx,
+                                                       weights=wts), graph=True)
+            plain = cuda_ms(lambda: bilateral_filter_flow_plain(wts, u[0], u[1], tr,
+                                                                fx), reps=5)
+            open_cells = int(((tr == 0) & (fx == 0)).sum())
+            cells = lanes * h * w
+            least = bound(wts.numel() * 4 + cells * (2 * 4 + 4 + 4) + cells * 2 * 4,
+                          open_cells * K11_OPS_CELL * 10)
+            rec = dict(name="bilateral_filter_flow", route="cuda",
+                       source="faldoi_tpu_torch/csrc/bilateral.cu",
+                       replaces="faldoi_tpu/core/bilateral.py:60",
+                       shape=f"L {lanes} x {h}x{w}, 10 iterations",
+                       max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                       **least)
+            log(f"K11 bilateral_filter_flow {rec['shape']}: bit-exact; {ms:.4f} "
+                f"ms (graph of 20 calls)  twin {plain:.4f} ms  bound "
+                f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
+    log("K11: bit-exact against its twin at 436x1024, 97x131, 5x7, L 1 and 2")
+    return rec
+
+
 def replay_k8_path(dev, rng, sc, calls):
     """K8's patch-form work of the m4 path, measured: the loop calls the
     path made (``calls``: (B, P) each) replayed on synthetic canvases of the
@@ -1437,12 +1629,15 @@ def replay_k8_path(dev, rng, sc, calls):
 
 
 def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10,
-              later=None):
+              later=None, iterations=None, **modes):
     """The port's main path: prepare_pair -> match_growing -> the method's
     global step (``models.global_refine``), five warps.  Method 8 takes the
     frames I-1 and I2 as ``later`` and runs as its CLIs do: the growing on
     ``prepare_quad``'s frames, the global step on ``prepare_triple``'s from
-    the growing's occlusion mask; both masks go to ``stats["masks"]``."""
+    the growing's occlusion mask; both masks go to ``stats["masks"]``.
+    ``modes``: the growing's ordering modes and fills (``match_growing``'s
+    keywords); ``iterations``: the growing's outer iterations (None: the
+    default 3)."""
     from faldoi_tpu_torch import params as P
     from faldoi_tpu_torch.core.match_growing import match_growing
     from faldoi_tpu_torch.core.preprocess import (
@@ -1460,9 +1655,11 @@ def run_slice(i0, i1, go, ba, device, stats, method=0, warm_band=10,
         a, b = prepare_pair(i0, i1, device=device)
     prm = P.Parameters()
     prm.val_method = method
+    if iterations is not None:
+        prm.iterations_of = iterations
     flow, _, occ = match_growing(go, ba, a, b, prm, bsz=BSZ, stats=stats,
                                  warm_band=warm_band, i0_planes=i0,
-                                 i1_planes=i1, **quad)
+                                 i1_planes=i1, **quad, **modes)
     t1 = time.perf_counter()
     prm = P.Parameters()
     prm.warps = P.PAR_DEFAULT_NWARPS_GLOBAL
@@ -1561,7 +1758,8 @@ class k9_loop_times:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
-def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
+def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None,
+                   flags=(), tag=None):
     """``local_faldoi -m <method>`` then ``global_faldoi -m <method>`` on the
     card, from the golden-position seeds on the pair written as ``.npy``
     frames; checks the final flow and the method's kernels' launches and
@@ -1570,13 +1768,14 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
     the path's stats and its seconds.  Method 8 takes (I-1, I2, the known
     occlusions) as ``later``: four frames, and the local and global
     occlusion masks as ``.npy`` (the card's machine has no imaging
-    library)."""
+    library).  ``flags``: more ``local_faldoi`` flags (the growing's modes),
+    ``tag`` the path's name in the log (default m<method>)."""
     from faldoi_tpu_torch import synthetic as syn
     from faldoi_tpu_torch.cli import global_faldoi, local_faldoi
     from faldoi_tpu_torch.io.flo import read_flo, write_flo
     from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
 
-    tag = f"m{method}"
+    tag = tag or f"m{method}"
     with tempfile.TemporaryDirectory() as tmp:
         ims = write_frames(tmp, i0, i1, *(later[:2] if later else ()))
         masks = ([os.path.join(tmp, f"occ_{k}.npy") for k in ("rg", "var")]
@@ -1591,7 +1790,7 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
         t0 = time.perf_counter()
         rc = local_faldoi.main([ims, *seeds, rg, os.path.join(tmp, "sim.tiff"),
                                 *masks[:1], "-m", str(method), "-bsz", str(BSZ),
-                                "-device", "cuda"], stats=st)
+                                "-device", "cuda", *flags], stats=st)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         rc = rc or global_faldoi.main([ims, rg, var, *masks, "-m", str(method),
@@ -1606,7 +1805,8 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None):
         masks = [np.load(m) for m in masks]
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = dict(local=t1 - t0, global_=t2 - t1, total=t2 - t0)
-    log(f"{tag} path (local_faldoi -m {method}, global_faldoi -m {method}) "
+    log(f"{tag} path (local_faldoi -m {method} {' '.join(flags)}, "
+        f"global_faldoi -m {method}) "
         f"{H}x{W} SYNTHETIC .npy frames, bsz {BSZ}: local {t1 - t0:.2f} s, "
         f"global {t2 - t1:.2f} s, total {t2 - t0:.2f} s")
     log(f"{tag} growing seconds: " + json.dumps(
@@ -1684,6 +1884,45 @@ def log_global_ms(path, st):
         f"{json.dumps(sums)}; per warp: warp "
         f"{[round(x, 4) for x in ms['warp']]}, pd_loop "
         f"{[round(x, 3) for x in ms['pd_loop']]}")
+
+
+def run_f2_path(i0, i1, go, ba, gf, wrappers):
+    """F2: ``match_growing(fill="dense", bilateral=True)`` then
+    ``tvl2_global`` on the card from the golden-position seeds; checks the
+    final flow, K10's launches (one a sweep that accepts, all lanes in one)
+    and K11's (one a prune: both lanes of the pair in one); returns the
+    launches of ``wrappers``."""
+    from faldoi_tpu_torch import synthetic as syn
+
+    reset_launches(wrappers)
+    st = {}
+    rg, var = run_slice(i0, i1, go, ba, "cuda", st, **F2_MODES)
+    launches = read_launches(wrappers)
+    fill = float(np.isfinite(rg).all(-1).mean())
+    log(f"F2 path (match_growing {F2_MODES}, tvl2_global) {H}x{W} SYNTHETIC, "
+        f"bsz {BSZ}: seconds " + json.dumps(
+            {k: round(v, 3) for k, v in st["seconds"].items()}))
+    log(f"F2 sweeps per drain: {json.dumps(st['sweeps'])}")
+    log(f"F2 global PD iterations per warp: {st['global_iters']}")
+    log(f"launches on the F2 path: {json.dumps(launches)}")
+    log(f"F2 fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} "
+        f"px  var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
+    if fill < 1.0:
+        raise AssertionError(f"F2 growing filled {100 * fill:.3f}% < 100%")
+    if not np.isfinite(var).all():
+        raise AssertionError("non-finite values in the F2 final flow")
+    drains = {}
+    for s in st["sweeps"]:
+        drains[s["it"]] = max(drains.get(s["it"], 0), s["sweeps"])
+    fills = sum(k - 1 for k in drains.values())
+    if launches["nearest_fill_image"] != fills:
+        raise AssertionError(f"K10 launched {launches['nearest_fill_image']} "
+                             f"times on F2, not once for each of its {fills} "
+                             "sweeps that accepted")
+    if launches["bilateral_filter_flow"] != len(drains) - 1:
+        raise AssertionError(f"K11 launched {launches['bilateral_filter_flow']} "
+                             f"times on F2, not once a prune ({len(drains) - 1})")
+    return launches
 
 
 def run_sift_path(i0, i1, gf, wrappers):
@@ -1885,6 +2124,65 @@ def cpu_crop(method, band, ch, cw, out):
     return 0
 
 
+def cpu_mode_crop(name, out):
+    """A child process's job: the m0 crop of the growing's mode ``name``
+    (``MODE_CROPS``) through the CPU twins, one thread; writes rg, var and
+    the sweeps to ``out`` (.npz)."""
+    torch.set_num_threads(1)
+    band, iters, shape, modes = MODE_CROPS[name]
+    st = {"seconds": {}}
+    t0 = time.perf_counter()
+    rg, var = run_slice(*crop_of(make_data(), shape), "cpu", st, 0, band,
+                        iterations=iters, **modes)
+    np.savez(out, rg=rg, var=var, sweeps=[s["sweeps"] for s in st["sweeps"]],
+             seconds=time.perf_counter() - t0)
+    return 0
+
+
+def start_cpu_mode_crops(tmp):
+    """Start one child process a mode crop (``cpu_mode_crop``), with no card
+    in sight; returns {name: (process, output path)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    jobs = {}
+    for name in MODE_CROPS:
+        out = os.path.join(tmp, f"mode_{name}.npz")
+        jobs["mode_" + name] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-mode-crop", name,
+             out], env=env, cwd=HERE), out)
+    return jobs
+
+
+def check_mode_crops(data, jobs):
+    """Each mode crop on the card against its CPU twins' run (a child
+    process), bit for bit, with the same sweeps."""
+    from faldoi_tpu_torch import synthetic as syn
+
+    for name, (band, iters, shape, modes) in MODE_CROPS.items():
+        st = {}
+        t0 = time.perf_counter()
+        rg, var = run_slice(*crop_of(data, shape), "cuda", st, 0, band,
+                            iterations=iters, **modes)
+        card_s = time.perf_counter() - t0
+        proc, out = jobs["mode_" + name]
+        t0 = time.perf_counter()
+        if proc.wait() != 0:
+            raise AssertionError(f"the CPU mode crop {name} exited {proc.returncode}")
+        cpu = np.load(out)
+        sweeps = [s["sweeps"] for s in st["sweeps"]]
+        same = (np.array_equal(rg.view(np.int32), cpu["rg"].view(np.int32))
+                and np.array_equal(var.view(np.int32), cpu["var"].view(np.int32)))
+        log(f"mode crop {shape[0]}x{shape[1]} m0 {name} warm_band {band}, "
+            f"{iters} outer iteration(s): card "
+            f"{card_s:.2f} s, sweeps {sweeps}; CPU twins {float(cpu['seconds']):.2f} "
+            f"s, waited {time.perf_counter() - t0:.2f} s; card vs CPU bit for bit: "
+            f"{same}; fill {100 * float(np.isfinite(rg).all(-1).mean()):.1f}%")
+        if not same or sweeps != cpu["sweeps"].tolist():
+            raise AssertionError(f"mode crop {name}: the card's flow or sweeps "
+                                 f"differ from the CPU twins' (rg EPE "
+                                 f"{syn.epe(rg, cpu['rg'])}, var EPE "
+                                 f"{syn.epe(var, cpu['var'])})")
+
+
 def start_cpu_crops(tmp):
     """Start one child process a crop (``cpu_crop``), with no card in sight;
     returns {method: (process, output path)}."""
@@ -1929,6 +2227,8 @@ def run_all(jobs, tmp):
         bicubic_sample, bicubic_sample_patches, bicubic_warp_planes,
     )
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image
+    from faldoi_tpu_torch.core.bilateral import bilateral_filter_flow
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1954,6 +2254,7 @@ def run_all(jobs, tmp):
         f"{len(pos_f)} fwd, {len(pos_b)} bwd, 5% perturbed 3-6 px")
     jobs.update(start_cpu_crops(tmp))
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
     # phase 3: each path kernel against its twin on the card
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
@@ -1969,9 +2270,11 @@ def run_all(jobs, tmp):
             for m in (4, 5)}
     kernels += [check_k8(dev, rng, a, b, gf, sc45),
                 check_k8_loop(dev, rng, sc45, len(pos_f)),
-                *check_k9(dev, len(pos_f))]
+                *check_k9(dev, len(pos_f)), check_k10(dev, rng),
+                check_k11(dev, rng, a)]
     later = quad_frames()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 3b")
     # phase 3b: the probe kernels P1-P3 against their twins
     from faldoi_tpu_torch.cli import kernel_probe as kp
 
@@ -1979,6 +2282,7 @@ def run_all(jobs, tmp):
     for r in probe_recs:
         log(kp.describe(r))
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # phase 4: crops through the CPU twins (the child processes) and
     # through the card, m0, m2, m4, m6 and m8 with the warm requeue, m1, m3,
     # m5 and m7 with the cold one; the CSAD and m8 crops must agree exactly
@@ -2017,13 +2321,15 @@ def run_all(jobs, tmp):
             raise AssertionError(f"crop m{method} card vs CPU: final EPE "
                                  f"{e_var} > 0.01")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
     # phase 5: the full m0 main path on the card, counting launches
     # K4's point form comes last: it is counted to show that no path
     # launches it any more (the whole-image warps take the flow form)
     wrappers = (gather_patches, gather_plane_patches, bicubic_warp_planes,
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
                 nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
-                occ_global_loop, bicubic_sample)
+                occ_global_loop, nearest_fill_image, bilateral_filter_flow,
+                bicubic_sample)
     reset_launches(wrappers)
     st = {}
     with fb_warps() as fb_m0:
@@ -2050,11 +2356,13 @@ def run_all(jobs, tmp):
         raise AssertionError(f"global iterations {st['global_iters']}, expected "
                              f"{ITERS_M0}")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5a")
     # phase 5a: pairs mode, N = 1, 2 and 4 synthetic pairs grown together,
     # each pair's final flow bit for bit that of its own single-pair run
     # (pair 0's is the m0 path's), counting launches
     launches_pairs = run_pairs_phase(data, var, wrappers)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5b")
     # phase 5b: the m2 (NLTV-L1) and m4 (TV-CSAD) paths through the stage
     # CLIs at full width, counting launches; the K8 loop's (B, P) are kept
     # on the m4 path
@@ -2073,6 +2381,7 @@ def run_all(jobs, tmp):
         f"{launches_m4['csad_vstep']} whole-image K8 calls (one a global PD "
         "iteration)")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5c")
     # phase 5c: the m8 (TV-L1 with occlusions) path through the stage CLIs
     # at full width on the four-frame sequence, counting launches; K9's
     # patch-form calls timed where they run
@@ -2100,6 +2409,18 @@ def run_all(jobs, tmp):
         + f" cli/k9_m8_calls.json ({len(listed)} calls), the list that "
         "k9_variants replays")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5d")
+    # phase 5d: the growing's modes at full width.  F1, the parity frontier:
+    # local_faldoi -m 0 -warm_band 0 -relax_late 1 -polish 1, then
+    # global_faldoi; F2: match_growing(fill="dense", bilateral=True), then
+    # tvl2_global, K10 once a non-empty sweep and K11 once a prune
+    launches_f1, st_f1, _ = run_stage_path(0, i0, i1, go, ba, gf, wrappers,
+                                           flags=F1_FLAGS, tag="F1")
+    if not {"polish_it1", "polish_it2", "polish_final"} <= set(st_f1["seconds"]):
+        raise AssertionError("F1: the polish passes did not run")
+    launches_f2 = run_f2_path(i0, i1, go, ba, gf, wrappers)
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
     # phase 6: the probe path (its entry point), counting launches
     from faldoi_tpu_torch.ops import probes
 
@@ -2112,11 +2433,17 @@ def run_all(jobs, tmp):
     launches_probe = {fn.__name__: fn.launches for fn in probe_wrappers}
     log(f"launches on the probe path: {json.dumps(launches_probe)}")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # phase 7: frames to flow, faldoi_sift -vm 1 at full width, counting
     # launches
     with fb_warps() as fb_sift:
         launches_sift = run_sift_path(i0, i1, gf, wrappers)
 
+    # the growing's mode crops: their CPU twins start now, after the paths
+    # (which are host-bound and would share the cores with them), and are
+    # held against the card in phase 9
+    jobs.update(start_cpu_mode_crops(tmp))
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
     # phase 8: K4's flow form on the flows the two paths gave the FB check,
     # the K8 loop at the m4 path's median B, and the m4 path's loop calls
     # replayed through the per-iteration form and the loop (after the
@@ -2141,12 +2468,18 @@ def run_all(jobs, tmp):
         f"iteration, 4 iterations) {sums['per_iteration']:.4f} s, the K8 loop "
         f"{sums['loop']:.4f} s ({time.perf_counter() - t0:.1f} s)")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 9")
+    # phase 9: the mode crops on the card against their CPU twins' runs
+    check_mode_crops(data, jobs)
+
     paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
-                 m8=launches_m8, sift=launches_sift, pairs=launches_pairs)
+                 m8=launches_m8, sift=launches_sift, pairs=launches_pairs,
+                 f1=launches_f1, f2=launches_f2)
     kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS else
                                  launches_m4 if k["name"] in M4_KERNELS else
                                  launches_m8 if k["name"] in M8_KERNELS else
                                  launches_pairs if k["name"] in PAIRS_KERNELS
+                                 else launches_f2 if k["name"] in F2_KERNELS
                                  else launches_sift)[k["name"]],
                     **{f"launches_{p}": la[k["name"]] for p, la in paths.items()})
                for k in kernels]
@@ -2163,7 +2496,7 @@ def run_all(jobs, tmp):
             continue
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
-        if (k["name"] not in M2_KERNELS + M4_KERNELS + M8_KERNELS
+        if (k["name"] not in M2_KERNELS + M4_KERNELS + M8_KERNELS + F2_KERNELS
                 and k.get("launches_m0", 1) <= 0):
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 
@@ -2180,4 +2513,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-crop"]:
         sys.path.insert(0, HERE)
         sys.exit(cpu_crop(*map(int, sys.argv[2:6]), sys.argv[6]))
+    if sys.argv[1:2] == ["--cpu-mode-crop"]:
+        sys.path.insert(0, HERE)
+        sys.exit(cpu_mode_crop(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -7,7 +7,9 @@
         [-split_img 0/1] [-h_parts n] [-v_parts n] [-fb_thresh eps] \
         [-partial_res v] [-verbose v] [-device cuda|cpu] [-bsz n] \
         [-delta d] [-delta_rel r] [-floor n] [-floor_scale n] [-fs_hi n] \
-        [-qhi n] [-fs_late n] [-warm_band px] [-block n] [-fill f]
+        [-qhi n] [-fs_late n] [-warm_band px] [-block n] [-fill f] \
+        [-relax_late 0/1] [-exactmin px] [-exactmin_band 0/1/2] [-defer px] \
+        [-defer_win px] [-polish n]
 
 Methods 0-8: TV-L1, NLTV-L1, TV-CSAD and NLTV-CSAD, each plain and
 weighted, and TV-L1 with occlusions (8), which takes a four-frame list (I0,
@@ -38,7 +40,22 @@ counterpart of a JAX environment knob, with JAX's defaults:
   block x block tiles;
 * ``-fill`` (``FALDOI_GROW_FILL``, ``patch``): the patch fill, ``patch``
   (exact for methods 4-7, red-black otherwise), ``patch_exact`` or
-  ``patch_rb``; JAX's ``dense`` is not ported.
+  ``patch_rb``, or ``dense`` (one whole-image nearest fill a sweep).
+
+The ordering modes (``match_growing``'s arguments), each the counterpart of
+a JAX environment knob, off by default:
+
+* ``-relax_late`` (``FALDOI_GROW_RELAX_LATE``, 0): label-correcting relax in
+  the drains of iterations >= 1 and the final one;
+* ``-exactmin`` (``FALDOI_GROW_EXACTMIN``, 0 = off) and ``-exactmin_band``
+  (``FALDOI_GROW_EXACTMIN_BAND``, 0): accept only the candidates that hold
+  their exactmin x exactmin window's minimum, with no band (0), the delta
+  band (1) or the band or the rank floor (2);
+* ``-defer`` (``FALDOI_GROW_DEFER``, 0 = off) and ``-defer_win``
+  (``FALDOI_GROW_DEFER_WIN``, 0 = the patch side): defer the accepts whose
+  window holds a lower accept while its flows spread by more than defer px;
+* ``-polish`` (``FALDOI_GROW_POLISH``, 0): re-polish passes of every fixed
+  pixel after the drains of iterations >= 1 and after the final drain.
 """
 
 from __future__ import annotations
@@ -62,6 +79,12 @@ THROTTLE_FLAGS = {
     "fs_late": "FALDOI_GROW_FS_LATE", "warm_band": "FALDOI_GROW_WARM_BAND",
     "block": "FALDOI_GROW_BLOCK", "fill": "FALDOI_GROW_FILL",
 }
+# the growing's ordering-mode flags: name -> JAX's environment knob
+ORDERING_FLAGS = {
+    "relax_late": "FALDOI_GROW_RELAX_LATE", "exactmin": "FALDOI_GROW_EXACTMIN",
+    "exactmin_band": "FALDOI_GROW_EXACTMIN_BAND", "defer": "FALDOI_GROW_DEFER",
+    "defer_win": "FALDOI_GROW_DEFER_WIN", "polish": "FALDOI_GROW_POLISH",
+}
 
 
 def throttle_options(args) -> dict:
@@ -80,6 +103,18 @@ def throttle_options(args) -> dict:
         warm_band=int(pick_option(args, "warm_band", "10")),
         block=int(pick_option(args, "block", "0")),
         fill=pick_option(args, "fill", "patch"))
+
+
+def ordering_options(args) -> dict:
+    """Take the ordering-mode flags out of ``args``: ``match_growing``'s
+    keyword arguments (see the module's docstring)."""
+    return dict(
+        relax_late=pick_option(args, "relax_late", "0") not in ("0", ""),
+        exactmin=int(pick_option(args, "exactmin", "0")),
+        exactmin_band=pick_option(args, "exactmin_band", "0"),
+        defer=float(pick_option(args, "defer", "0")),
+        defer_win=int(pick_option(args, "defer_win", "0")),
+        polish=int(pick_option(args, "polish", "0")))
 
 
 def main(argv=None, stats=None):
@@ -108,6 +143,7 @@ def main(argv=None, stats=None):
     device = pick_option(args, "device", "cuda")
     bsz = int(pick_option(args, "bsz", "4096"))
     throttles = throttle_options(args)
+    throttles.update(ordering_options(args))
 
     if len(args) < 5 or len(args) > 8:
         print(__doc__, file=sys.stderr)

@@ -1,7 +1,8 @@
 """Local step — energy-guided seed growing as batched best-first sweeps.
 
-Port of ``faldoi_tpu/core/local_step.py`` in its strict mode (the CPU
-``mode="fused"`` semantics that ``match_growing`` runs by default): per sweep
+Port of ``faldoi_tpu/core/local_step.py`` (the CPU ``mode="fused"``
+semantics that ``match_growing`` runs by default; by default in its strict
+mode, with JAX's ordering modes as arguments of ``sweep_lanes``): per sweep
 the ``bsz`` lowest-energy unfixed candidates are selected, those inside the
 delta band or under the queue-adaptive rank floor are fixed, their 11x11
 patches are cropped (K0's planes form, ``gather_plane_patches``: one launch,
@@ -42,7 +43,10 @@ e_min)``, optionally also per (block x block) tile; the rank floor
 ``min(floor, queue // fscale)``, where the divisor is ``floor_scale_hi`` once
 the queue holds ``queue_hi`` candidates (if ``floor_scale_hi`` > 0) and
 ``floor_scale`` before; and the patch fill, exact raster Gauss-Seidel or
-red-black (``fill``).
+red-black, or the dense whole-image fill (``fill``).  The ordering modes
+(label-correcting ``relax``, the window-min acceptance ``exactmin``, the
+contested-accept deferral ``defer``) act on each lane alone; a re-polish
+pass over the fixed pixels is ``polish_lanes``.
 """
 
 from __future__ import annotations
@@ -57,13 +61,22 @@ from faldoi_tpu_torch.core.functionals import (
     CSAD_METHODS, SolverConsts, solver_for,
 )
 from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
-from faldoi_tpu_torch.ops.poisson import poisson_fill_canvas
+from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_canvas
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 INF = float("inf")
 NAN = float("nan")
-# the patch fills ``sweep_body`` takes; "patch" resolves per method
-FILLS = ("patch", "patch_exact", "patch_rb")
+# the fills ``sweep_body`` takes; "patch" resolves per method
+FILLS = ("patch", "patch_exact", "patch_rb", "dense")
+# the bands of the exact window-min acceptance (``exactmin``): "0" none, "1"
+# the global delta band, "2" the band or the rank floor
+EXACTMIN_BANDS = ("0", "1", "2")
+# the sort-key bias of a relax-mode re-claim (a fixed pixel's candidate):
+# it ranks after every frontier candidate (JAX's RECLAIM_BIAS)
+RECLAIM_BIAS = 1.0e6
+# relax mode: a claim must beat the energy times this, less 1e-6 (JAX's
+# relax_margin, float32)
+RELAX_MARGIN = float(np.float32(0.95))
 # 4-neighbour order of insert_candidates (and of JAX's concatenation)
 NEIGHBOURS = ((0, 1), (0, -1), (1, 0), (-1, 0))
 
@@ -279,13 +292,46 @@ def exact_fill(fill: str, method: int) -> bool:
     ``method`` (JAX's resolution, match_growing.py:628-637): "patch" is the
     exact fill for the inert-TV CSAD family (methods 4-7), which passes the
     Poisson init through to its output, and red-black for every other
-    method; "patch_exact" and "patch_rb" force one or the other.  JAX's
-    "dense" fill is not ported."""
-    if fill == "dense":
-        raise NotImplementedError('fill "dense" is not ported')
+    method; "patch_exact" and "patch_rb" force one or the other; "dense"
+    (one whole-image nearest fill a sweep, K10) is neither."""
     if fill not in FILLS:
         raise ValueError(f"fill {fill!r}: expected one of {FILLS}")
     return fill == "patch_exact" or (fill == "patch" and method in CSAD_METHODS)
+
+
+def _window_reduce(x, k: int, op: str):
+    """Min or max of (L, h, w) over the k x k window around each cell, rows
+    then columns, with XLA's "SAME" padding: (k - 1) // 2 cells before and
+    the rest after, filled with the reduction's identity (+-inf), so an even
+    window leans one cell towards the end."""
+    lo, hi = (k - 1) // 2, k - 1 - (k - 1) // 2
+    y = -x if op == "min" else x
+    y = torch.nn.functional.pad(y[:, None], (lo, hi, lo, hi), value=-INF)
+    y = torch.nn.functional.max_pool2d(y, (1, k), stride=1)
+    y = torch.nn.functional.max_pool2d(y, (k, 1), stride=1)[:, 0]
+    return -y if op == "min" else y
+
+
+def _contested(valid, idx, e_pop, pop_u, pop_v, h, w, defer, win):
+    """JAX's contested-accept deferral: scatter the tentative accepts' key
+    and flow to per-lane grids, reduce them over ``win`` x ``win`` windows,
+    and flag the accepts whose window holds a strictly lower key (by more
+    than 1e-6) while the window's accepted flows spread by more than
+    ``defer`` px in u or v.  (L, bsz) in, (L, bsz) bool out."""
+    nl = valid.shape[0]
+
+    def grid(vals, fill):
+        g = torch.full((nl, h * w), fill, dtype=torch.float32, device=idx.device)
+        return g.scatter(1, idx, torch.where(valid, vals, torch.full_like(vals, fill)))
+
+    def red(vals, fill, op):
+        return _window_reduce(grid(vals, fill).view(nl, h, w), win, op).view(nl, -1)
+
+    wmin_e = red(e_pop, INF, "min")
+    spread = ((red(pop_u, -INF, "max") - red(pop_u, INF, "min") > defer)
+              | (red(pop_v, -INF, "max") - red(pop_v, INF, "min") > defer))
+    cont = (spread & torch.isfinite(wmin_e)).gather(1, idx)
+    return cont & (wmin_e.gather(1, idx) < e_pop - 1e-6)
 
 
 def _block_band(eligible, h, w, block, delta, delta_rel):
@@ -304,6 +350,26 @@ def _block_band(eligible, h, w, block, delta, delta_rel):
     return eligible <= bband.reshape(nl, -1)
 
 
+def _dense_fill(fixed, out_u, out_v, nl, rows, h, w):
+    """JAX's ``_dense_fill`` of u and v for the swept lanes ``rows``: the
+    fixed flow (NaN elsewhere) filled by one K10 launch
+    (``nearest_fill_image``) -> (L, 2, h, w), zeros in lanes that do not
+    sweep.  ``fixed``, ``out_u``, ``out_v``: the flat (L * (N+1),) planes
+    after this sweep's fix."""
+    n = h * w
+    stride = n + 1
+    fx = fixed.view(nl, stride)[rows, :n]
+    nan = torch.full((), NAN, device=fixed.device)
+    x = torch.stack([torch.where(fx, pl.view(nl, stride)[rows, :n], nan)
+                     for pl in (out_u, out_v)], 1).view(-1, 2, h, w)
+    filled = nearest_fill_image(x)
+    if filled.shape[0] == nl:
+        return filled
+    out = torch.zeros((nl, 2, h, w), device=fixed.device)
+    out[rows] = filled
+    return out
+
+
 def lane_state(state: GrowState, lane: int) -> GrowState:
     """Lane ``lane`` of a lane-stacked state, as views."""
     return GrowState(*(t[lane] for t in state))
@@ -319,11 +385,12 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                 max_iters: int, floor_scale: int, method: int = P.M_TVL1,
                 delta: float = 0.05, delta_rel: float = 0.5, floor: int = 4096,
                 floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
-                block: int = 0, fill: str = "patch", lanes=None):
-    """One strict-mode wavefront sweep of L independent growing lanes as one
-    batch (``_sweep_body`` with relax=False and the exact working-flow
-    scatter of radius wr for every lane), solving with ``method``'s patch
-    solver.
+                block: int = 0, fill: str = "patch", relax: bool = False,
+                exactmin: int = 0, exactmin_band: str = "0",
+                defer: float = 0.0, defer_win: int = 0, lanes=None):
+    """One wavefront sweep of L independent growing lanes as one batch
+    (``_sweep_body`` with the exact working-flow scatter of radius wr for
+    every lane), solving with ``method``'s patch solver.
 
     ``state``: (L, N+1) planes; ``trust2d`` (L, h, w); ``sal`` (L, N+1);
     ``sconsts``: the lanes' consts stacked by ``stack_solver_consts``, or
@@ -332,10 +399,28 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     untouched.  The throttles default to ``match_growing``'s values:
     ``delta``, ``delta_rel`` (the band), ``floor``, ``floor_scale``,
     ``floor_scale_hi``, ``queue_hi`` (the rank floor), ``block`` (0: no
-    block-local bands) and ``fill`` (see ``exact_fill``); they act on each
-    lane alone.
+    block-local bands) and ``fill`` (see ``exact_fill``; "dense": the patch
+    inits come from one whole-image nearest fill of the fixed flow a sweep,
+    K10, cropped with the state); they act on each lane alone.  The
+    ordering dials, also per lane, are JAX's (``_sweep_body``,
+    ``ordering_dials``):
 
-    Selection is per lane: one stable sort of the (L, h*w) energies by row
+    * ``relax``: label-correcting relaxation.  A pixel is eligible while its
+      candidate beats its energy, cand_e < ene * ``RELAX_MARGIN`` - 1e-6, so
+      a fixed pixel is popped again by a lower claim; a fixed pixel's key is
+      cand_e + ``RECLAIM_BIAS`` (float32), which the top-k, the band anchor
+      and the deferral use, while the fix takes the unbiased cand_e.  The
+      neighbour candidates go to any pixel whose candidate and energy they
+      beat the same way.  A re-popped pixel gets no donation.
+    * ``exactmin`` (px, 0 = off): only the candidates that hold the minimum
+      key of their exactmin x exactmin window are accepted, in place of the
+      band and the floor; ``exactmin_band`` "1" adds the delta band, "2" the
+      band or the rank floor.
+    * ``defer`` (px, 0 = off): accepts whose ``defer_win`` window (0: p)
+      holds a strictly lower accepted key while the window's accepted flows
+      spread by more than ``defer`` are dropped (``_contested``).
+
+    Selection is per lane: one stable sort of the (L, h*w) keys by row
     (ties to the lower flat index within the lane), and each lane its own
     e_min and band, queue and rank floor, and block-local band.  The
     accepted candidates of all lanes are flattened lane-major into one
@@ -352,6 +437,11 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     order), read from the card in one host read."""
     solver = solver_for(method)
     exact = exact_fill(fill, method)
+    dense = fill == "dense"
+    exactmin_band = str(exactmin_band)
+    if exactmin_band not in EXACTMIN_BANDS:
+        raise ValueError(f"exactmin_band {exactmin_band!r}: expected one of "
+                         f"{EXACTMIN_BANDS}")
     with_chi = method == P.M_TVL1_OCC
     n = h * w
     stride = n + 1
@@ -369,9 +459,15 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
 
     # --- selection, per lane: top-bsz eligible, delta band, queue-adaptive
     # floor
-    eligible = torch.where(state.fixed[rows, :n],
-                           torch.full((), INF, device=dev),
-                           state.cand_e[rows, :n])
+    inf = torch.full((), INF, device=dev)
+    cand_rows = state.cand_e[rows, :n]
+    if relax:
+        improving = cand_rows < state.ene[rows, :n] * RELAX_MARGIN - 1e-6
+        key = torch.where(state.fixed[rows, :n], cand_rows + RECLAIM_BIAS,
+                          cand_rows)
+        eligible = torch.where(improving, key, inf)
+    else:
+        eligible = torch.where(state.fixed[rows, :n], inf, cand_rows)
     vals, order = torch.sort(eligible, dim=1, stable=True)
     e_pop = vals[:, :bsz]
     idx = order[:, :bsz]
@@ -392,7 +488,23 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                             floor_base)
     width = e_pop.shape[1]
     rank = torch.arange(width, device=dev)
-    valid = torch.isfinite(e_pop) & (e_ok | (rank < floor_dyn))
+    in_floor = e_ok | (rank < floor_dyn)
+    valid = torch.isfinite(e_pop) & in_floor
+    if exactmin > 0:
+        # the window minima of the keys, in place of the band and the floor
+        wmin = _window_reduce(eligible.view(-1, h, w), int(exactmin), "min")
+        valid = torch.isfinite(e_pop) & (eligible <= wmin.view(-1, n)).gather(
+            1, idx)
+        if exactmin_band == "1":
+            valid = valid & e_ok
+        elif exactmin_band == "2":
+            valid = valid & in_floor
+    if defer > 0:
+        pops = [getattr(state, f)[rows, :n].gather(1, idx)
+                for f in ("cand_u", "cand_v")]
+        valid = valid & ~_contested(valid, idx, e_pop, *pops, h, w,
+                                    float(np.float32(defer)),
+                                    int(defer_win) or p)
     counts = valid.sum(1).tolist()          # the sweep's one host read
     k = sum(counts)
     if k == 0:
@@ -425,9 +537,10 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
 
     # --- per-patch init (add_neighbors :688-705): one launch of K0's planes
     # form crops the five state planes where they lie (the flat planes with
-    # their dump slot, the trust map in the dtype the caller holds), and
-    # out_chi and wchi for method 8, into contiguous (k, p, p) canvases; the
-    # edge pad is the kernel's clamp, at each patch's own lane's edge
+    # their dump slot, the trust map in the dtype the caller holds), out_chi
+    # and wchi for method 8, and the dense fill's u and v, into contiguous
+    # (k, p, p) canvases; the edge pad is the kernel's clamp, at each patch's
+    # own lane's edge
     planes = (out_u, out_v, flat.wu, flat.wv)
     if with_chi:
         planes += (out_chi, flat.wchi)
@@ -438,6 +551,10 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     else:
         planes = planes[:4] + (trust2d[0],) + planes[4:]
         ln = None
+    if dense:
+        fills = _dense_fill(fixed, out_u, out_v, nl, rows, h, w)
+        planes += ((fills[:, 0], fills[:, 1]) if stacked
+                   else (fills[0, 0], fills[0, 1]))
     crops = gather_plane_patches(planes, oy, ox, p, h, w, lane=ln).unbind(0)
     ou, ov, wu_p, wv_p, tr = crops[:5]
     rows_c, cols_c = canvas_ids(p, dev)
@@ -445,8 +562,12 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     fxp = torch.isfinite(ou) & inbox
     nan = torch.full((), NAN, device=dev)
     zero = torch.zeros((), device=dev)
-    fill_u, fill_v = _fill_pair(torch.where(fxp, ou, nan),
-                                torch.where(fxp, ov, nan), ph, pw, exact=exact)
+    if dense:
+        fill_u, fill_v = crops[-2], crops[-1]
+    else:
+        fill_u, fill_v = _fill_pair(torch.where(fxp, ou, nan),
+                                    torch.where(fxp, ov, nan), ph, pw,
+                                    exact=exact)
     alt_u = torch.where(fxp, ou, wu_p)
     alt_v = torch.where(fxp, ov, wv_p)
     if iteration == 0:
@@ -476,7 +597,11 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     q4, inb4, e4, nu4, nv4, nc4 = _neighbour_candidates(
         su, sv, ener, i, j, oy, ox, sal.reshape(-1), h, w, p, schi, base)
     dump4 = dump.repeat(len(NEIGHBOURS))
-    ok = inb4 & ~fixed[q4] & (e4 < cand_e[q4])
+    if relax:
+        ok = (inb4 & (e4 < cand_e[q4])
+              & (e4 < ene[q4] * RELAX_MARGIN - 1e-6))
+    else:
+        ok = inb4 & ~fixed[q4] & (e4 < cand_e[q4])
     okd = inb4 & fixed[q4] & ~flat.fixed[q4] & (e4 < ene[q4])
     cand = scatter_min_payload(cand_e, flat.cand_u, flat.cand_v, q4, e4,
                                nu4, nv4, ok, dump4,
@@ -651,3 +776,74 @@ def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                              bsz, warps, max_iters, floor_scale, method,
                              on_chunk=on_chunk, **throttles)
     return lane_state(st, 0), sweeps[0]
+
+
+def polish_lanes(state: GrowState, sconsts: SolverConsts, sal, h: int, w: int,
+                 wr: int, bsz: int, warps: int, max_iters: int,
+                 method: int = P.M_TVL1, lanes=None) -> GrowState:
+    """One re-polish pass over the lanes ``lanes`` (None: all) of a
+    lane-stacked state (JAX's ``polish_all``, local_step.py:1466-1546, a
+    lane at a time): every fixed pixel's patch is solved again from the
+    current flow, in raster chunks of ``bsz`` pixels, each chunk reading the
+    planes the chunks before it wrote (within a chunk, Jacobi).  The init is
+    out_u, out_v (and method 8's out_chi) cropped exactly (K0's planes
+    form; NaN as 0, 0 outside the patch box); where the solved centre flow is
+    finite, out_u, out_v (out_chi), ene = energy * saliency and the working
+    flow at the centre take the re-solve.  Unfixed pixels keep their state.
+
+    ``sconsts``, ``sal`` and the lane layout as in ``sweep_lanes``.  Every
+    pixel of a chunk is solved for every lane and the results of unfixed
+    ones are dropped (each patch solve is independent of the others)."""
+    solver = solver_for(method)
+    with_chi = method == P.M_TVL1_OCC
+    n = h * w
+    stride = n + 1
+    nl = state.fixed.shape[0]
+    stacked = sconsts.i0pad.dim() == 3
+    if nl > 1 and not stacked:
+        raise ValueError(f"{nl} lanes need lane-stacked consts "
+                         "(stack_solver_consts)")
+    p = 2 * wr + 1
+    dev = state.out_u.device
+    rows_l = list(range(nl)) if lanes is None else list(lanes)
+    lanes_t = torch.as_tensor(rows_l, dtype=torch.int64, device=dev)
+    flat = GrowState(*(t.reshape(-1) for t in state))
+    out_u, out_v, out_chi = flat.out_u, flat.out_v, flat.out_chi
+    ene, wu, wv = flat.ene, flat.wu, flat.wv
+    sal_f = sal.reshape(-1)
+    zero = torch.zeros((), device=dev)
+    for c0 in range(0, n, bsz):
+        pix1 = torch.arange(c0, min(c0 + bsz, n), device=dev)
+        lane = lanes_t.repeat_interleave(pix1.shape[0])
+        pix = pix1.repeat(len(rows_l))
+        q = lane * stride + pix
+        dump = lane * stride + n
+        i, j, oy, ox, ph, pw = patch_geometry(pix, h, w, wr)
+        planes = (out_u, out_v) + ((out_chi,) if with_chi else ())
+        if stacked:
+            planes = tuple(pl.view(nl, stride) for pl in planes)
+        ln = lane if stacked else None
+        crops = gather_plane_patches(planes, oy, ox, p, h, w, lane=ln)
+        rows_c, cols_c = canvas_ids(p, dev)
+        inbox = (rows_c < ph[:, None, None]) & (cols_c < pw[:, None, None])
+        init = [torch.where(inbox, torch.nan_to_num(cr), zero) for cr in crops]
+        su, sv, schi, ener = _solve(solver, sconsts, i, j, oy, ox, ph, pw,
+                                    init[0], init[1], p, warps, max_iters,
+                                    init[2] if with_chi else None, ln)
+        bidx = torch.arange(pix.shape[0], device=dev)
+        cy, cx = j - oy, i - ox
+        cu, cv = su[bidx, cy, cx], sv[bidx, cy, cx]
+        good = flat.fixed[q] & torch.isfinite(cu) & torch.isfinite(cv)
+        upd = torch.where(good, q, dump)
+
+        def put(t, v):
+            return t.index_put((upd,), torch.where(good, v, t[upd]))
+
+        out_u, out_v = put(out_u, cu), put(out_v, cv)
+        if with_chi:
+            out_chi = put(out_chi, schi[bidx, cy, cx])
+        ene = put(ene, ener * sal_f[q])
+        wu, wv = put(wu, cu), put(wv, cv)
+    new = flat._replace(out_u=out_u, out_v=out_v, out_chi=out_chi, ene=ene,
+                        wu=wu, wv=wv)
+    return GrowState(*(t.view(state.fixed.shape) for t in new))

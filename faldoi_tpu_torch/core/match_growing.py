@@ -9,9 +9,12 @@ warm one with band 10 by default; ``warm_band=0`` gives the cold requeue, the
 reference's full re-grow of every outer iteration (``_delete_untrusted`` +
 ``_insert_potential``, local_faldoi.cpp:283-311, 813-870).  The floor scale
 is ``floor_scale`` (64) in iteration 0 and ``floor_scale_late`` (by default
-``min(floor_scale, 16)``) after.  The throttles are arguments here, where
-JAX also reads them from its ``FALDOI_GROW_*`` environment; the port reads
-no environment.
+``min(floor_scale, 16)``) after.  The throttles and the ordering modes
+(relax, relax_late, exactmin, defer, polish, the dense fill, the bilateral
+pre-fill) are arguments here, where JAX also reads them from its
+``FALDOI_GROW_*`` environment; the port reads no environment, and applies
+relax_late and polish on every path in the order of JAX's chunked loop
+(JAX's fused path ignores them).
 
 The growing runs in lanes: N pairs are 2N lanes [fwd0..fwdN-1,
 bwd0..bwdN-1] (``match_growing`` is N = 1), and for methods 0-7 they drain
@@ -48,9 +51,12 @@ from faldoi_tpu_torch import params as P
 from faldoi_tpu_torch.core.functionals import (
     make_solver_consts, solver_for, stack_solver_consts,
 )
+from faldoi_tpu_torch.core.bilateral import (
+    bilateral_filter_flow, bilateral_weights,
+)
 from faldoi_tpu_torch.core.local_step import (
     GrowState, drain, drain_lanes, exact_fill, init_state, insert_seeds,
-    lane_state, stack_states,
+    lane_state, polish_lanes, stack_states,
 )
 from faldoi_tpu_torch.core.pruning import prune
 from faldoi_tpu_torch.io.flo import write_flo
@@ -181,7 +187,11 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                   floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
                   floor_scale_late: Optional[int] = None, block: int = 0,
                   fill: str = "patch", i_1n: Optional[torch.Tensor] = None,
-                  i2n: Optional[torch.Tensor] = None):
+                  i2n: Optional[torch.Tensor] = None, relax: bool = False,
+                  relax_late: bool = False, exactmin: int = 0,
+                  exactmin_band: str = "0", defer: float = 0.0,
+                  defer_win: int = 0, polish: int = 0,
+                  bilateral: bool = False):
     """Grow the (h, w, 2) NaN-sparse forward seeds ``go`` and backward seeds
     ``ba`` over the normalized, smoothed frames ``i0n``, ``i1n`` (tensors on
     the run's device) with method ``prm.val_method`` (0 to 8).  Returns
@@ -205,7 +215,20 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     ``floor`` (None = 4096), ``floor_scale``, ``floor_scale_hi``,
     ``queue_hi``, ``block``, ``fill`` (see ``local_step.sweep_lanes``) and
     ``floor_scale_late`` (the requeue and final drains' scale; None =
-    ``min(floor_scale, 16)``, ``FALDOI_GROW_FS_LATE``).
+    ``min(floor_scale, 16)``, ``FALDOI_GROW_FS_LATE``).  ``fill`` also takes
+    "dense": one whole-image nearest fill (K10) a sweep.
+    The ordering modes (JAX's arguments and ``FALDOI_GROW_*`` knobs):
+    ``relax`` (label-correcting drains; ``floor`` then defaults to bsz),
+    ``relax_late`` (relax in the drains of iterations >= 1 and the final
+    one; ``FALDOI_GROW_RELAX_LATE``), ``exactmin``, ``exactmin_band``,
+    ``defer``, ``defer_win`` (``FALDOI_GROW_EXACTMIN[_BAND]``,
+    ``FALDOI_GROW_DEFER[_WIN]``; see ``local_step.sweep_lanes``), ``polish``
+    (``polish_lanes`` passes after the drains of iterations >= 1 and after
+    the final drain; ``FALDOI_GROW_POLISH``) and ``bilateral`` (the
+    bilateral pre-fill of the untrusted working flow after each prune and
+    requeue, K11, both lanes weighted by I0 as JAX weights them).  The
+    order per outer iteration is JAX's chunked loop (match_growing.py:
+    857-903): drains, polish, prune and requeue, bilateral.
     ``snapshot_dir``: where the partial-results snapshots go (the CLIs'
     ``-partial_res``); None = none.
     ``stats`` (a dict, optional) receives the stage seconds and the sweeps
@@ -220,7 +243,10 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
                  [(sal_go, sal_ba)], occ, floor_scale, floor_scale_late,
                  dict(delta=delta, delta_rel=delta_rel, floor=floor,
                       floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
-                      block=block, fill=fill))[0]
+                      block=block, fill=fill, relax=relax, exactmin=exactmin,
+                      exactmin_band=exactmin_band, defer=defer,
+                      defer_win=defer_win),
+                 relax_late, polish, bilateral)[0]
 
 
 def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
@@ -231,7 +257,10 @@ def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
                         floor_scale_hi: int = 0, queue_hi: int = 1 << 30,
                         floor_scale_late: Optional[int] = None,
                         block: int = 0, fill: str = "patch",
-                        relax: bool = False):
+                        relax: bool = False, relax_late: bool = False,
+                        exactmin: int = 0, exactmin_band: str = "0",
+                        defer: float = 0.0, defer_win: int = 0,
+                        polish: int = 0, bilateral: bool = False):
     """Grow N frame pairs together (JAX's ``match_growing_pairs``, the
     throughput mode): the 2N lanes [fwd0..fwdN-1, bwd0..bwdN-1] drain as one
     lane-batched sweep (``local_step.drain_lanes``: one selection, one patch
@@ -244,12 +273,13 @@ def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
     ``frames_pairs``: N (i0n, i1n) normalized, smoothed frames of one shape,
     on the run's device.  ``planes_pairs``: N (i0_planes, i1_planes) raw
     colour planes (the NLTV methods 2, 3, 6, 7); ``sal_pairs``: N (sal_go,
-    sal_ba) saliency maps or None.  The throttles are ``match_growing``'s, each
-    applied to every lane alone (JAX's pairs mode ignores ``block``,
-    ``floor_scale_hi`` and ``queue_hi``; the port takes them).  Defaults are
-    JAX's: bsz 8192, floor 4096, the ``fill`` resolution of
-    ``local_step.exact_fill``.  Methods 0-7; method 8 (whose patch solver
-    takes no lane index) and ``relax=True`` (not ported) raise.
+    sal_ba) saliency maps or None.  The throttles and the ordering modes are
+    ``match_growing``'s, each applied to every lane alone (JAX's pairs mode
+    takes ``relax`` and ``relax_late`` and ignores ``block``,
+    ``floor_scale_hi``, ``queue_hi``, ``polish`` and ``bilateral``; the port
+    takes them all).  Defaults are JAX's: bsz 8192, floor 4096 (bsz under
+    ``relax``), the ``fill`` resolution of ``local_step.exact_fill``.
+    Methods 0-7; method 8 (whose patch solver takes no lane index) raises.
 
     Returns a list of (flow (h, w, 2), energy (h, w), occlusions (h, w)),
     one a pair.  ``stats`` receives the stage seconds and every lane's
@@ -257,9 +287,6 @@ def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
     if prm.val_method == P.M_TVL1_OCC:
         raise ValueError("pairs mode takes methods 0-7; run method 8 per pair "
                          "(match_growing)")
-    if relax:
-        raise NotImplementedError("relax=True is not ported: the port's sweep "
-                                  "is strict mode only")
     npairs = len(seeds_pairs)
     if npairs < 1 or len(frames_pairs) != npairs:
         raise ValueError(f"{npairs} seed pairs and {len(frames_pairs)} frame "
@@ -273,17 +300,24 @@ def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
                  floor_scale_late,
                  dict(delta=delta, delta_rel=delta_rel, floor=floor,
                       floor_scale_hi=floor_scale_hi, queue_hi=queue_hi,
-                      block=block, fill=fill))
+                      block=block, fill=fill, relax=relax, exactmin=exactmin,
+                      exactmin_band=exactmin_band, defer=defer,
+                      defer_win=defer_win),
+                 relax_late, polish, bilateral)
 
 
 def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
           snapshot_dir, planes_pairs, sal_pairs, occ_pairs, floor_scale,
-          floor_scale_late, throttles):
+          floor_scale_late, throttles, relax_late=False, polish=0,
+          bilateral=False):
     """The iterated growing of N pairs as 2N lanes [fwd0..fwdN-1,
     bwd0..bwdN-1] (``match_growing`` is N = 1).  Methods 0-7 drain the lanes
     in lockstep (``drain_lanes`` on lane-stacked consts); method 8
     (``occ_pairs``: N (i_1n, i2n)) drains them one lane after the other.
-    ``stats["sweeps"]`` entries name their pair where N > 1."""
+    Per outer iteration: the drains (relax also from iteration 1 on under
+    ``relax_late``), ``polish`` passes from iteration 1 on, prune and
+    requeue, the bilateral pre-fill; then the final forward drain and its
+    polish.  ``stats["sweeps"]`` entries name their pair where N > 1."""
     method = prm.val_method
     solver_for(method)
     npairs = len(seeds_pairs)
@@ -321,8 +355,10 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
         floor_scale_late = min(floor_scale, 16)
     throttles = dict(throttles)
     if throttles["floor"] is None:
-        throttles["floor"] = 4096
+        # relax mode accepts the whole top-k batch (LocalSolver's default)
+        throttles["floor"] = bsz if throttles["relax"] else 4096
     exact_fill(throttles["fill"], method)
+    relax = throttles.pop("relax")
     stats = {} if stats is None else stats
     stats.setdefault("sweeps", [])
     stats.setdefault("seconds", {})
@@ -364,7 +400,8 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
         nonlocal sts
         marks["it"] = it
         label = "drain_final" if it == prm.iterations_of else f"drain_it{it}"
-        kw = dict(on_chunk=snapshot, **throttles)
+        kw = dict(on_chunk=snapshot, relax=relax or (relax_late and it >= 1),
+                  **throttles)
         if lockstep:
             st, ks = drain_lanes(stack_states(sts), sc_lanes, trust2d, sal, it,
                                  h, w, wr, bsz, prm.warps, max_iters, fs,
@@ -382,9 +419,48 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
             record(it, lane, k)
             tick(f"{label}_{('fwd', 'bwd')[lane >= npairs]}")
 
+    def run_polish(lanes, label):
+        nonlocal sts
+        if not polish:
+            return
+        for _ in range(polish):
+            if lockstep:
+                st = polish_lanes(stack_states(sts), sc_lanes, sal, h, w, wr,
+                                  bsz, prm.warps, max_iters, method, lanes)
+                sts = [lane_state(st, lane) for lane in range(nlanes)]
+                continue
+            for lane in lanes:
+                st = polish_lanes(stack_states([sts[lane]]), scs[lane],
+                                  sal[lane:lane + 1], h, w, wr, bsz, prm.warps,
+                                  max_iters, method)
+                sts[lane] = lane_state(st, 0)
+        tick(label)
+
+    bweights = ([bilateral_weights(a) for a, _ in frames_pairs] if bilateral
+                else None)
+
+    def run_bilateral(k, tg, tb):
+        """JAX's ``_bfill`` of pair k's two lanes: the NaN-free working
+        flow filtered where the new trust is 0, both weighted by I0."""
+        fwd, bwd = k, npairs + k
+        wu = torch.stack([torch.nan_to_num(sts[ln].wu[:n]).view(h, w)
+                          for ln in (fwd, bwd)])
+        wv = torch.stack([torch.nan_to_num(sts[ln].wv[:n]).view(h, w)
+                          for ln in (fwd, bwd)])
+        tr = torch.stack([tg, tb])
+        bu, bv = bilateral_filter_flow(frames_pairs[k][0], wu, wv, tr,
+                                       torch.zeros_like(tr),
+                                       weights=bweights[k])
+        for m, ln in enumerate((fwd, bwd)):
+            sts[ln] = sts[ln]._replace(
+                wu=torch.cat([bu[m].reshape(-1), sts[ln].wu[n:]]),
+                wv=torch.cat([bv[m].reshape(-1), sts[ln].wv[n:]]))
+
     for it in range(prm.iterations_of):
         fs = floor_scale if it == 0 else floor_scale_late
         run_drains(it, fs, list(range(nlanes)))
+        if it >= 1:
+            run_polish(list(range(nlanes)), f"polish_it{it}")
         trusts = [None] * nlanes
         for k, (a, b) in enumerate(frames_pairs):
             fwd, bwd = k, npairs + k
@@ -397,9 +473,12 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
                 sts[lane] = (warm_requeue(sts[lane], trust, h, w, warm_band)
                              if warm_band else
                              insert_potential(delete_untrusted(sts[lane], trust)))
+            if bilateral:
+                run_bilateral(k, tg, tb)
         trust2d = torch.stack(trusts)
         tick(f"prune_requeue_it{it}")
 
     run_drains(prm.iterations_of, floor_scale_late, list(range(npairs)))
+    run_polish(list(range(npairs)), "polish_final")
     return [(flow_of(st, h, w), st.ene[:n].view(h, w),
              st.out_chi[:n].view(h, w)) for st in sts[:npairs]]

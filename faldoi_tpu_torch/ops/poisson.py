@@ -14,6 +14,12 @@ It runs on B canvases at once: ``x`` is (B, P, P) with per-canvas valid boxes
   r+c-1 and the old (r+1, c), (r, c+1)); ``seed_batch`` uses it at p = 3;
 * ``exact=False``: red-black Gauss-Seidel, which the sweep uses
   (``fill="patch_rb"``).
+
+Also the whole-image fills of ``faldoi_tpu/ops/poisson.py``: the
+rectangular multigrid ``poisson_fill_image`` (plain torch, on no path), and
+``nearest_fill_image``, the growing's dense fill (``fill="dense"``): the
+jump-flood nearest fill, kernel K10 (``csrc/dense_fill.cu``), with its plain
+twin ``nearest_fill_image_plain``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 
 import torch
 
+from faldoi_tpu_torch.kernels import build as kb
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 
@@ -133,3 +140,191 @@ def poisson_fill_canvas(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
         y = torch.where(torch.isfinite(y), y, zero)
         out = _relax(y, hole, phs[k], pws[k], timestep, niter, sizes[k], exact)
     return out
+
+
+def poisson_fill_batch(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
+                       timestep: float = 0.4, niter: int = 3, scale: int = 7,
+                       exact: bool = True) -> torch.Tensor:
+    """``poisson_fill_canvas`` over a (B, P, P) batch with (B,) boxes (JAX's
+    ``poisson_fill_batch``, a vmap of the one-canvas fill; here the canvas
+    fill is batched already)."""
+    return poisson_fill_canvas(x, ph, pw, timestep, niter, scale, exact)
+
+
+def _rect_level_sizes(py: int, px: int, scale: int):
+    sizes = [(py, px)]
+    for _ in range(scale - 1):
+        if max(sizes[-1]) == 1:
+            break
+        sizes.append((max(1, math.ceil(sizes[-1][0] / 2)),
+                      max(1, math.ceil(sizes[-1][1] / 2))))
+    return sizes
+
+
+def _rect_zoom_out2(x, child):
+    """NaN-discarding 2x2 block average of (..., y, x) onto (..., cy, cx)."""
+    cy, cx = child
+    pad_y, pad_x = 2 * cy - x.shape[-2], 2 * cx - x.shape[-1]
+    if pad_y or pad_x:
+        x = torch.nn.functional.pad(x, (0, pad_x, 0, pad_y), value=float("nan"))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    s = torch.zeros_like(x[..., 0::2, 0::2])
+    cnt = torch.zeros(s.shape, dtype=torch.int32, device=x.device)
+    for b in (x[..., 0::2, 0::2], x[..., 0::2, 1::2], x[..., 1::2, 0::2],
+              x[..., 1::2, 1::2]):
+        fin = torch.isfinite(b)
+        cnt = cnt + fin.to(torch.int32)
+        s = s + torch.where(fin, b, zero)
+    return torch.where(cnt > 0, s / cnt.clamp(min=1).to(x.dtype),
+                       torch.full((), float("nan"), dtype=x.dtype,
+                                  device=x.device))
+
+
+def _rect_relax(y, hole, timestep, niter):
+    """Red-black Gauss-Seidel of the holes of full (..., py, px) canvases
+    with Neumann (clamped) edges, red = (row + col) even first; the
+    Laplacian summed right, left, down, up after -4 y."""
+    py, px = y.shape[-2:]
+    rows = torch.arange(py, device=y.device)[:, None]
+    cols = torch.arange(px, device=y.device)[None, :]
+    red = (rows + cols) % 2 == 0
+
+    def lap(a):
+        right = torch.cat([a[..., 1:], a[..., -1:]], -1)
+        left = torch.cat([a[..., :1], a[..., :-1]], -1)
+        down = torch.cat([a[..., 1:, :], a[..., -1:, :]], -2)
+        up = torch.cat([a[..., :1, :], a[..., :-1, :]], -2)
+        return -4.0 * a + right + left + down + up
+
+    for _ in range(niter):
+        for color in (red, ~red):
+            y = torch.where(hole & color, y + timestep * lap(y), y)
+    return y
+
+
+def poisson_fill_image(x: torch.Tensor, timestep: float = 0.4, niter: int = 3,
+                       scale: int = 0) -> torch.Tensor:
+    """Whole-image NaN fill of an (h, w) image with the patch fill's
+    coarse-to-fine multigrid on rectangular levels (JAX's
+    ``poisson_fill_image``); ``scale=0``: levels down to 1x1."""
+    h, w = x.shape[-2:]
+    if not scale:
+        scale = max(h, w).bit_length() + 1
+    sizes = _rect_level_sizes(h, w, scale)
+    levels = [x]
+    for k in range(1, len(sizes)):
+        levels.append(_rect_zoom_out2(levels[-1], sizes[k]))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = None
+    for k in range(len(sizes) - 1, -1, -1):
+        xk = levels[k]
+        if out is None:
+            init = torch.zeros_like(xk)
+        else:
+            up = out.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+            init = up[..., :sizes[k][0], :sizes[k][1]]
+        hole = ~torch.isfinite(xk)
+        y = torch.where(hole, init, xk)
+        y = torch.where(torch.isfinite(y), y, zero)
+        out = _rect_relax(y, hole, timestep, niter)
+    return out
+
+
+# the far state of the jump flood's empty cells, JAX's (-1e6, -1e6)
+_FAR = -1.0e6
+
+
+def flood_strides(h: int, w: int):
+    """The jump flood's strides: the largest power of two k with 2k <
+    max(h, w), halved down to 1."""
+    k = 1
+    while k * 2 < max(h, w):
+        k *= 2
+    out = []
+    while k >= 1:
+        out.append(k)
+        k //= 2
+    return out
+
+
+def nearest_fill_image_plain(x: torch.Tensor, smooth_iters: int = 6,
+                             timestep: float = 0.4) -> torch.Tensor:
+    """Plain twin of K10 on (L, C, h, w) planes: the jump flood of plane 0's
+    finite cells (each cell's nearest finite cell as a flat index, -1 for
+    none yet), the 8 directions of a stride in JAX's order, each reading the
+    previous one's state; the holes then take their nearest cell's values
+    (0 with none) and get ``smooth_iters`` pinned red-black sweeps."""
+    nl, c, h, w = x.shape
+    dev = x.device
+    fin = torch.isfinite(x[:, 0])
+    cell = torch.arange(h * w, device=dev).view(h, w)
+    seed = torch.where(fin, cell, torch.full((), -1, device=dev))
+    inf = torch.full((), float("inf"), device=dev)
+    best = torch.where(fin, torch.zeros((), device=dev), inf)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    far = torch.full((), _FAR, device=dev)
+    ri, ci = torch.arange(h, device=dev), torch.arange(w, device=dev)
+    for k in flood_strides(h, w):
+        for dy in (-k, 0, k):
+            for dx in (-k, 0, k):
+                if dy == 0 and dx == 0:
+                    continue
+                nb = (seed.index_select(1, (ri - dy).clamp(0, h - 1))
+                      .index_select(2, (ci - dx).clamp(0, w - 1)))
+                real = nb >= 0
+                ey = yy - torch.where(real, (nb // w).to(torch.float32), far)
+                ex = xx - torch.where(real, (nb % w).to(torch.float32), far)
+                d2 = ey * ey + ex * ex
+                better = d2 < best
+                best = torch.where(better, d2, best)
+                seed = torch.where(better, nb, seed)
+    flat = x.reshape(nl, c, h * w)
+    take = flat.gather(2, seed.clamp(min=0).view(nl, 1, h * w).expand(nl, c, -1))
+    take = torch.where(seed.view(nl, 1, h * w) >= 0, take,
+                       torch.zeros((), device=dev)).view(nl, c, h, w)
+    y = torch.where(fin[:, None], x, take)
+    return _rect_relax(y, ~fin[:, None], timestep, smooth_iters)
+
+
+def nearest_fill_image(x: torch.Tensor, smooth_iters: int = 6,
+                       timestep: float = 0.4, check: bool = True) -> torch.Tensor:
+    """K10: whole-image NaN fill by nearest-finite-cell extension (jump
+    flooding) plus ``smooth_iters`` pinned red-black relaxation sweeps
+    (JAX's ``ops/poisson.py::nearest_fill_image``, the dense fill of the
+    growing).  ``x``: (h, w), (C, h, w) or (L, C, h, w) float32; the C planes
+    of a lane must be finite on one set (u and v of the fixed flow), which
+    is checked (one host read on the card; ``check=False`` skips it, as a
+    CUDA graph capture must); one flood serves them all.  Returns x's shape.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise)."""
+    if not 2 <= x.dim() <= 4:
+        raise ValueError(f"x must be (h, w), (C, h, w) or (L, C, h, w), got "
+                         f"{tuple(x.shape)}")
+    shape = x.shape
+    x4 = x.reshape((1,) * (4 - x.dim()) + tuple(shape))
+    nl, c, h, w = x4.shape
+    if c > 1 and check:
+        fin = torch.isfinite(x4)
+        if not torch.equal(fin, fin[:, :1].expand_as(fin)):
+            raise ValueError("the planes of a lane must be finite on the same "
+                             "cells")
+    if x.device.type == "cpu":
+        return nearest_fill_image_plain(x4, smooth_iters, timestep).reshape(shape)
+    kb.require_cuda_tensor(x4, "x", torch.float32)
+    out = torch.empty_like(x4)
+    if out.numel() == 0:
+        return out.reshape(shape)
+    seeds = torch.empty((2, nl, h, w), dtype=torch.int32, device=x.device)
+    best = torch.empty((nl, h, w), dtype=torch.float32, device=x.device)
+    code = kb.library().faldoi_dense_fill(
+        x4.data_ptr(), out.data_ptr(), seeds[0].data_ptr(), seeds[1].data_ptr(),
+        best.data_ptr(), nl, c, h, w, smooth_iters, timestep,
+        kb.stream_ptr(x.device))
+    kb.check(code, "nearest_fill_image")
+    nearest_fill_image.launches += 1
+    return out.reshape(shape)
+
+
+nearest_fill_image.launches = 0   # launches of K10, one a fill of all lanes

@@ -1,11 +1,13 @@
 """The hand-written CUDA kernels (K0 in its stack and planes forms, K4 in its
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
 probes P1-P3, K8 in its whole-image and patch forms, the K8 loop and the
-occlusion PD loop K9 in its patch and whole-image forms) against their plain
-twins, on the card (K0's two forms and K4's patch form also with a lane
-index), and the weighted, the NLTV, the CSAD and the occlusion solvers and
-global steps, the lane-batched sweep and pairs mode on the card against
-their CPU runs.
+occlusion PD loop K9 in its patch and whole-image forms, the jump-flood
+dense fill K10 and the bilateral filter K11) against their plain twins, on
+the card (K0's two forms and K4's patch form also with a lane index), and
+the weighted, the NLTV, the CSAD and the occlusion solvers and global steps,
+the lane-batched sweep, pairs mode and the growing's ordering modes and
+fills (relax, exactmin, defer, polish, dense, bilateral, relax_late) on the
+card against their CPU runs.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip on a
 host without one.  The file imports no JAX, so it runs on a machine that has
@@ -19,9 +21,10 @@ twins within 1e-5 abs (the kernels are built with --fmad=false
 and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
 summation order).  K6, K7, K8, the K8 loop, K9 and the NLTV, CSAD and
-occlusion solvers, the lane-batched sweep and pairs mode must equal their
-twins (and CPU runs) bit for bit: they sum in the twins' order, and K8
-selects one of the entries the twin sorts."""
+occlusion solvers, the lane-batched sweep, pairs mode, K10, K11 and the
+growings under the ordering modes must equal their twins (and CPU runs) bit
+for bit: they sum in the twins' order, and K8 selects one of the entries the
+twin sorts."""
 
 import numpy as np
 import pytest
@@ -1308,3 +1311,180 @@ def test_pairs_growing_on_card_matches_cpu(dev):
         assert np.isfinite(a[0]).all()
         for x, y in zip(a, b):
             assert _np_same_bits(x, y)
+
+
+def _one_pass_flood(x):
+    """A one-pass jump flood (each stride's 8 neighbours read from the state
+    before the stride), then K10's take and relaxation: the function K10
+    must NOT compute.  x: (L, C, h, w) on the CPU."""
+    from faldoi_tpu_torch.ops.poisson import _rect_relax, flood_strides
+
+    nl, c, h, w = x.shape
+    fin = torch.isfinite(x[:, 0])
+    seed = torch.where(fin, torch.arange(h * w).view(h, w), -1)
+    best = torch.where(fin, 0.0, float("inf"))
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    far = torch.tensor(-1e6)
+    for k in flood_strides(h, w):
+        before = seed
+        for dy in (-k, 0, k):
+            for dx in (-k, 0, k):
+                if dy == 0 and dx == 0:
+                    continue
+                nb = (before.index_select(1, (torch.arange(h) - dy).clamp(0, h - 1))
+                      .index_select(2, (torch.arange(w) - dx).clamp(0, w - 1)))
+                ey = yy - torch.where(nb >= 0, (nb // w).float(), far)
+                ex = xx - torch.where(nb >= 0, (nb % w).float(), far)
+                d2 = ey * ey + ex * ex
+                better = d2 < best
+                best = torch.where(better, d2, best)
+                seed = torch.where(better, nb, seed)
+    take = x.reshape(nl, c, h * w).gather(
+        2, seed.clamp(min=0).view(nl, 1, -1).expand(nl, c, -1))
+    take = torch.where(seed.view(nl, 1, -1) >= 0, take, 0.0).view(nl, c, h, w)
+    return _rect_relax(torch.where(fin[:, None], x, take), ~fin[:, None], 0.4, 6)
+
+
+def _golden_seed_field(h, w, lanes):
+    """(L, 2, h, w) planes finite at the golden DeepMatching seed positions
+    (clipped to h x w), NaN elsewhere."""
+    import os
+
+    from faldoi_tpu_torch.io.flo import read_flo
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    x = np.full((lanes, 2, h, w), np.nan, np.float32)
+    for lane, name in zip(range(lanes), ("deep_mt_1.flo", "deep_mt_2.flo")):
+        f = read_flo(os.path.join(gold, name))[:h, :w]
+        fin = np.isfinite(f).all(-1)
+        x[lane][:, fin] = np.moveaxis(f[fin], -1, 0)
+    return x
+
+
+@pytest.mark.parametrize("h,w", [(436, 1024), (97, 131), (5, 7)])
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("kind", ["golden", "sparse", "one", "none"])
+def test_k10_matches_twin_on_card(dev, h, w, lanes, kind):
+    """K10 against its twin (on the CPU and on the card), bit for bit: the
+    golden seed positions, 2% random cells, one finite cell, none."""
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image, nearest_fill_image_plain
+
+    rng = np.random.default_rng(h + lanes)
+    if kind == "golden":
+        x = _golden_seed_field(h, w, lanes)
+    else:
+        x = rng.normal(size=(lanes, 2, h, w)).astype(np.float32) * 3
+        keep = {"sparse": rng.random((lanes, 1, h, w)) < 0.02,
+                "one": np.zeros((lanes, 1, h, w), bool),
+                "none": np.zeros((lanes, 1, h, w), bool)}[kind]
+        if kind == "one":
+            keep[:, 0, h // 3, w - 2] = True
+        x[~np.broadcast_to(keep, x.shape)] = np.nan
+    xc = torch.as_tensor(x)
+    before = nearest_fill_image.launches
+    got = nearest_fill_image(xc.to(dev))
+    assert nearest_fill_image.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(_bits(got.cpu()), _bits(nearest_fill_image_plain(xc)))
+    assert torch.equal(_bits(got), _bits(nearest_fill_image_plain(xc.to(dev))))
+
+
+@pytest.mark.parametrize("shape,seed", [((5, 7), 3), ((13, 17), 0)])
+def test_k10_keeps_the_direction_order_on_card(dev, shape, seed):
+    """Inputs where a one-pass flood picks other nearest cells: K10 equals
+    its twin and not the one-pass flood."""
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image, nearest_fill_image_plain
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(1, 1) + shape).astype(np.float32)
+    x[rng.random(x.shape) >= 0.15] = np.nan
+    got = nearest_fill_image(torch.as_tensor(x, device=dev)).cpu()
+    assert torch.equal(_bits(got), _bits(nearest_fill_image_plain(torch.as_tensor(x))))
+    assert not torch.equal(got, _one_pass_flood(torch.as_tensor(x)))
+
+
+def test_k10_refuses_unequal_finite_sets_on_card(dev):
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image
+
+    x = torch.full((1, 2, 9, 9), float("nan"), device=dev)
+    x[0, 0, 3, 3] = 1.0
+    with pytest.raises(ValueError, match="same"):
+        nearest_fill_image(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        nearest_fill_image(torch.zeros((1, 9, 9, 2), device=dev).permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("h,w", [(436, 1024), (97, 131), (5, 7)])
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_k11_matches_twin_on_card(dev, h, w, lanes):
+    """K11 against its twin on the same weight planes (on the CPU and on
+    the card), bit for bit; trust from the golden positions' neighbourhoods
+    and random cells, some cells fixed."""
+    from faldoi_tpu_torch.core.bilateral import (
+        bilateral_filter_flow, bilateral_filter_flow_plain, bilateral_weights,
+    )
+
+    rng = np.random.default_rng(3 * h + lanes)
+    i0 = torch.as_tensor(rng.random((h, w)).astype(np.float32))
+    u = torch.as_tensor(rng.normal(size=(2, lanes, h, w)).astype(np.float32) * 4)
+    trust = np.isfinite(_golden_seed_field(h, w, 2)[:lanes, 0])
+    trust |= rng.random((lanes, h, w)) < 0.5
+    tr = torch.as_tensor(trust.astype(np.int32))
+    fx = torch.as_tensor((rng.random((lanes, h, w)) < 0.05).astype(np.int32))
+    wts = bilateral_weights(i0)
+    want = bilateral_filter_flow_plain(wts, u[0], u[1], tr, fx)
+    before = bilateral_filter_flow.launches
+    got = bilateral_filter_flow(i0.to(dev), u[0].to(dev), u[1].to(dev),
+                                tr.to(dev), fx.to(dev), weights=wts.to(dev))
+    assert bilateral_filter_flow.launches == before + 1
+    twin = bilateral_filter_flow_plain(wts.to(dev), u[0].to(dev), u[1].to(dev),
+                                       tr.to(dev), fx.to(dev))
+    for g, wc, wg in zip(got, want, twin):
+        assert torch.equal(_bits(g.cpu()), _bits(wc))
+        assert torch.equal(_bits(g), _bits(wg))
+    # the weights on the card are the host's
+    assert torch.equal(bilateral_weights(i0.to(dev)).cpu(), wts)
+
+
+# the crops of the growing's modes (m0, 48x64, bsz 256, two outer
+# iterations; exactmin and defer, at ~400 sweeps a drain, one): card
+# against CPU
+CARD_MODES = {
+    "relax": (2, dict(relax=True)),
+    "exactmin_11_band0": (1, dict(exactmin=11)),
+    "exactmin_11_band1": (1, dict(exactmin=11, exactmin_band="1")),
+    "exactmin_10_band2": (1, dict(exactmin=10, exactmin_band="2")),
+    "defer": (1, dict(defer=0.25, defer_win=21)),
+    "polish": (2, dict(polish=1)),
+    "dense": (2, dict(fill="dense")),
+    "bilateral": (2, dict(bilateral=True)),
+    "relax_late_cold": (2, dict(relax_late=True, warm_band=0, polish=1)),
+}
+
+
+@pytest.mark.parametrize("mode", list(CARD_MODES))
+def test_growing_mode_on_card_matches_cpu(dev, mode):
+    """``match_growing`` under each ordering mode and fill on the card
+    against the CPU, bit for bit, with the same sweeps."""
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.match_growing import match_growing
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    h, w = 48, 64
+    i0, i1, gf, gb = syn.make_pair(h, w, seed=171)
+    rng = np.random.default_rng(172)
+    go = syn.make_seeds(gf, syn.random_seed_positions(h, w, 40, rng), rng)
+    ba = syn.make_seeds(gb, syn.random_seed_positions(h, w, 40, rng), rng)
+    prm = P.Parameters()
+    prm.iterations_of, modes = CARD_MODES[mode]
+    res = []
+    for d in ("cpu", dev):
+        st = {}
+        out = match_growing(go, ba, *prepare_pair(i0, i1, device=d), prm,
+                            bsz=256, stats=st, **modes)
+        res.append(([t.cpu().numpy() for t in out], st["sweeps"]))
+    assert res[0][1] == res[1][1]
+    assert np.isfinite(res[0][0][0]).all()
+    for x, y in zip(res[0][0], res[1][0]):
+        assert _np_same_bits(x, y)

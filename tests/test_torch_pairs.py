@@ -4,7 +4,8 @@
 0 whose lanes hold different seed counts, so that they drain at different
 sweeps, and one pair of pairs each of methods 2 and 4.  Every pair's flow,
 energy and occlusions must equal its single-pair run bit for bit, and every
-lane's sweep counts its own.  Method 8 and ``relax=True`` are refused."""
+lane's sweep counts its own.  Method 8 is refused; ``relax=True`` is taken
+(the modes in pairs mode: ``test_torch_modes.py``)."""
 
 import numpy as np
 import pytest
@@ -117,5 +118,7 @@ def test_pairs_refuse_method_8_and_relax():
     args = ([pair["seeds"]], [pair["frames"]])
     with pytest.raises(ValueError, match="method 8"):
         match_growing_pairs(*args, prm_of(P.M_TVL1_OCC))
-    with pytest.raises(NotImplementedError, match="relax"):
-        match_growing_pairs(*args, prm_of(P.M_TVL1), relax=True)
+    # relax is ported: taken, not refused
+    (flow, _, _), = match_growing_pairs(*args, prm_of(P.M_TVL1, 1), bsz=BSZ,
+                                        relax=True)
+    assert np.isfinite(flow.numpy()).all()

@@ -194,13 +194,15 @@ def test_sweep_throttle_matches_jax(setup, case):
 
 
 def test_sweep_refuses_the_dense_fill(setup):
+    """The fills' resolution; since the dense fill is ported (K10) it is
+    taken and is no patch fill (``test_torch_ordering.py`` holds its sweep
+    against JAX's); an unknown fill is refused."""
     from faldoi_tpu_torch.core.local_step import exact_fill
 
     assert exact_fill("patch", 0) is False and exact_fill("patch", 4) is True
     assert exact_fill("patch_exact", 1) is True
     assert exact_fill("patch_rb", 7) is False
-    with pytest.raises(NotImplementedError, match="not ported"):
-        exact_fill("dense", 0)
+    assert exact_fill("dense", 0) is False and exact_fill("dense", 4) is False
     with pytest.raises(ValueError, match="fill"):
         exact_fill("raster", 0)
 

@@ -126,7 +126,8 @@ EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m8",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
          "ms_spread", "library_spread", "sort_ms", "corner_n", "shapes",
          "per_iteration_ms", "path_calls", "path_per_iteration_s", "path_loop_s",
-         "path_call_ms")
+         "path_call_ms", "former_spread", "former_bound_ms", "setup_ms",
+         "former_setup_ms")
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")
 # PD iterations per global warp, identical on the CPU twins and the card
@@ -231,6 +232,14 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def digest(a) -> str:
+    """The first 16 hex digits of the sha256 of an array's bytes: a flow
+    later runs can compare bit for bit."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
 def same_bits(a, b):
@@ -1489,12 +1498,15 @@ def k10_bound(x):
     return bound(2 * x.numel() * 4, ops)
 
 
-def check_k10(dev, rng):
-    """K10 (the dense fill) against its twin on the card, bit for bit, at
-    436x1024, 97x131 and 5x7, L 1 and 2, with no finite cell, one, and the
-    golden seed positions; timed (a CUDA graph of 20 calls, the finite-set
-    check off) at the path's shapes: L 2 (the lockstep drains) and L 1 (the
-    final drain) at 436x1024, golden positions."""
+def check_k10(dev, rng, variants):
+    """K10 (the dense fill, one cooperative launch) against its twin on the
+    card, bit for bit, at 436x1024, 97x131 and 5x7, L 1 and 2, with no
+    finite cell, one, and the golden seed positions; timed at the path's
+    shapes, L 2 (the lockstep drains) and L 1 (the final drain) at
+    436x1024, golden positions, twice in turns with its former form (one
+    launch a flood direction, ``cli/fill_variants.py``), a CUDA graph of 20
+    calls each, the finite-set check off."""
+    from faldoi_tpu_torch.cli.fill_variants import time_k10
     from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
     from faldoi_tpu_torch.ops.poisson import nearest_fill_image, nearest_fill_image_plain
 
@@ -1519,13 +1531,17 @@ def check_k10(dev, rng):
                                          f"from its twin (max abs {d})")
                 if kind != "golden" or h != H:
                     continue
-                ms = cuda_ms(lambda: nearest_fill_image(xg, check=False), graph=True)
+                both = time_k10(variants, xg)
+                ms = float(np.mean(both["library"]))
                 least = k10_bound(xg)
                 row = dict(shape=f"L {lanes} x 2 x {h}x{w}, golden positions",
-                           ms=ms, **least)
+                           ms=ms, ms_spread=both["library"],
+                           former_ms=float(np.mean(both["former"])),
+                           former_spread=both["former"], **least)
                 shapes.append(row)
                 log(f"K10 nearest_fill_image {row['shape']}: bit-exact; "
-                    f"{ms:.4f} ms (graph of 20 calls)  bound "
+                    f"{both['library']} ms (graph of 20 calls; former form, one "
+                    f"launch a direction: {both['former']} ms)  bound "
                     f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
                 if rec is None:
                     plain = cuda_ms(lambda: nearest_fill_image_plain(xg), reps=5)
@@ -1534,30 +1550,37 @@ def check_k10(dev, rng):
                                source="faldoi_tpu_torch/csrc/dense_fill.cu",
                                replaces="faldoi_tpu/ops/poisson.py:307",
                                shape=row["shape"], max_abs_err=0.0, ms=ms,
-                               plain_ms=plain, library_ms=None, eager_ms=eager,
-                               **least)
+                               ms_spread=row["ms_spread"],
+                               former_ms=row["former_ms"], plain_ms=plain,
+                               library_ms=None, eager_ms=eager, **least)
     log("K10: bit-exact against its twin at 436x1024, 97x131, 5x7, L 1 and 2, "
         "no finite cell, one, the golden positions")
     rec["shapes"] = shapes
     return rec
 
 
-def check_k11(dev, rng, i0n):
-    """K11 (the bilateral filter) against its twin on the same weight planes
-    on the card, bit for bit, at 436x1024 (the path's frame), 97x131 and 5x7,
-    L 1 and 2, trust at the golden positions and half the cells, a few
-    fixed; timed (graph of 20 calls) at L 2, 436x1024 (one pair's fwd and
-    bwd lanes, as the path calls it)."""
+def check_k11(dev, rng, i0n, variants):
+    """K11 (the bilateral filter, one launch on the 5 colour planes) against
+    its twin on the 25 weight planes on the card, bit for bit, at 436x1024
+    (the path's frame), 97x131 and 5x7, L 1 and 2, trust at the golden
+    positions and half the cells, a few fixed; timed at L 2, 436x1024 (one
+    pair's fwd and bwd lanes, as the path calls it), twice in turns with its
+    former form (a launch a Jacobi iteration on the 25 planes,
+    ``cli/fill_variants.py``), a CUDA graph of 20 calls each, and the host
+    set-up once a pair (the 5 colour planes against the former 25 planes)."""
+    from faldoi_tpu_torch.cli.fill_variants import time_k11
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.bilateral import (
-        bilateral_filter_flow, bilateral_filter_flow_plain, bilateral_weights,
+        bilateral_colour_planes, bilateral_filter_flow,
+        bilateral_filter_flow_plain, bilateral_weights,
     )
 
     rec = None
     for (h, w) in ((H, W), (97, 131), (5, 7)):
         frame = (i0n if h == H else torch.as_tensor(
             rng.random((h, w)).astype(np.float32), device=dev))
-        wts = bilateral_weights(frame)
+        colour = bilateral_colour_planes(frame)
+        wts = bilateral_weights(frame, colour)
         for lanes in (2, 1):
             u = torch.as_tensor(rng.normal(size=(2, lanes, h, w)).astype(np.float32)
                                 * 3, device=dev)
@@ -1566,7 +1589,7 @@ def check_k11(dev, rng, i0n):
             tr = torch.as_tensor(trust.astype(np.int32), device=dev)
             fx = torch.as_tensor((rng.random((lanes, h, w)) < 0.02).astype(np.int32),
                                  device=dev)
-            got = bilateral_filter_flow(frame, u[0], u[1], tr, fx, weights=wts)
+            got = bilateral_filter_flow(frame, u[0], u[1], tr, fx, colour=colour)
             want = bilateral_filter_flow_plain(wts, u[0], u[1], tr, fx)
             torch.cuda.synchronize()
             if not all(same_bits(a, b) for a, b in zip(got, want)):
@@ -1575,23 +1598,37 @@ def check_k11(dev, rng, i0n):
                                      f"twin (max abs {d})")
             if rec is not None or h != H:
                 continue
-            ms = cuda_ms(lambda: bilateral_filter_flow(frame, u[0], u[1], tr, fx,
-                                                       weights=wts), graph=True)
+            both = time_k11(variants, frame, u[0], u[1], tr, fx)
+            ms = float(np.mean(both["library"]))
             plain = cuda_ms(lambda: bilateral_filter_flow_plain(wts, u[0], u[1], tr,
                                                                 fx), reps=5)
             open_cells = int(((tr == 0) & (fx == 0)).sum())
             cells = lanes * h * w
-            least = bound(wts.numel() * 4 + cells * (2 * 4 + 4 + 4) + cells * 2 * 4,
-                          open_cells * K11_OPS_CELL * 10)
+            ops = open_cells * K11_OPS_CELL * 10
+            # the kernel's inputs (5 colour planes, the flow, the uint8 keep
+            # mask) and outputs once; the former count took the 25 weight planes and
+            # the int32 trust and fixed masks
+            least = bound(colour.numel() * 4 + cells * (2 * 4 + 1) + cells * 2 * 4,
+                          ops)
+            former = bound(wts.numel() * 4 + cells * (2 * 4 + 4 + 4) + cells * 2 * 4,
+                           ops)
             rec = dict(name="bilateral_filter_flow", route="cuda",
                        source="faldoi_tpu_torch/csrc/bilateral.cu",
                        replaces="faldoi_tpu/core/bilateral.py:60",
                        shape=f"L {lanes} x {h}x{w}, 10 iterations",
-                       max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
-                       **least)
-            log(f"K11 bilateral_filter_flow {rec['shape']}: bit-exact; {ms:.4f} "
-                f"ms (graph of 20 calls)  twin {plain:.4f} ms  bound "
-                f"{least['bound_ms']:.4f} ms ({least['bound_by']})")
+                       max_abs_err=0.0, ms=ms, ms_spread=both["library"],
+                       former_ms=float(np.mean(both["former"])),
+                       former_bound_ms=former["bound_ms"],
+                       setup_ms=float(np.mean(both["setup"])),
+                       former_setup_ms=float(np.mean(both["former_setup"])),
+                       plain_ms=plain, library_ms=None, **least)
+            log(f"K11 bilateral_filter_flow {rec['shape']}: bit-exact; "
+                f"{both['library']} ms (graph of 20 calls; former form, a launch "
+                f"an iteration: {both['former']} ms)  twin {plain:.4f} ms  bound "
+                f"{least['bound_ms']:.4f} ms ({least['bound_by']}; the former count "
+                f"on 25 planes {former['bound_ms']:.4f} ms); host set-up once a "
+                f"pair: 5 colour planes {both['setup']} ms, the former 25 weight "
+                f"planes {both['former_setup']} ms")
     log("K11: bit-exact against its twin at 436x1024, 97x131, 5x7, L 1 and 2")
     return rec
 
@@ -1906,7 +1943,8 @@ def run_f2_path(i0, i1, go, ba, gf, wrappers):
     log(f"F2 global PD iterations per warp: {st['global_iters']}")
     log(f"launches on the F2 path: {json.dumps(launches)}")
     log(f"F2 fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} "
-        f"px  var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
+        f"px  var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic); "
+        f"sha256 rg {digest(rg)}, var {digest(var)}")
     if fill < 1.0:
         raise AssertionError(f"F2 growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
@@ -2239,11 +2277,20 @@ def run_all(jobs, tmp):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # phase 2: build the kernels from the checkout's sources (in parallel)
+    # phase 2: build the kernels from the checkout's sources (in parallel),
+    # and beside them K10's and K11's former forms, which phase 3 times
+    from concurrent.futures import ThreadPoolExecutor
+
+    from faldoi_tpu_torch.cli.fill_variants import build_variants
+
     t0 = time.perf_counter()
-    path = kb.build(verbose=True)
-    kb.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)}")
+    with ThreadPoolExecutor(1) as pool:
+        former = pool.submit(build_variants)
+        path = kb.build(verbose=True)
+        kb.library()
+        fill_lib = former.result()
+    log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)} "
+        "(and csrc/variants/fill_variants.cu)")
 
     # the synthetic pair and the golden seed positions; the CSAD crops'
     # CPU twins start in child processes at once and run beside the card
@@ -2270,8 +2317,8 @@ def run_all(jobs, tmp):
             for m in (4, 5)}
     kernels += [check_k8(dev, rng, a, b, gf, sc45),
                 check_k8_loop(dev, rng, sc45, len(pos_f)),
-                *check_k9(dev, len(pos_f)), check_k10(dev, rng),
-                check_k11(dev, rng, a)]
+                *check_k9(dev, len(pos_f)), check_k10(dev, rng, fill_lib),
+                check_k11(dev, rng, a, fill_lib)]
     later = quad_frames()
 
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 3b")

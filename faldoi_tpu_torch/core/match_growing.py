@@ -52,7 +52,7 @@ from faldoi_tpu_torch.core.functionals import (
     make_solver_consts, solver_for, stack_solver_consts,
 )
 from faldoi_tpu_torch.core.bilateral import (
-    bilateral_filter_flow, bilateral_weights,
+    bilateral_colour_planes, bilateral_filter_flow,
 )
 from faldoi_tpu_torch.core.local_step import (
     GrowState, drain, drain_lanes, exact_fill, init_state, insert_seeds,
@@ -436,8 +436,8 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
                 sts[lane] = lane_state(st, 0)
         tick(label)
 
-    bweights = ([bilateral_weights(a) for a, _ in frames_pairs] if bilateral
-                else None)
+    bcolour = ([bilateral_colour_planes(a) for a, _ in frames_pairs]
+               if bilateral else None)
 
     def run_bilateral(k, tg, tb):
         """JAX's ``_bfill`` of pair k's two lanes: the NaN-free working
@@ -450,7 +450,7 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
         tr = torch.stack([tg, tb])
         bu, bv = bilateral_filter_flow(frames_pairs[k][0], wu, wv, tr,
                                        torch.zeros_like(tr),
-                                       weights=bweights[k])
+                                       colour=bcolour[k])
         for m, ln in enumerate((fwd, bwd)):
             sts[ln] = sts[ln]._replace(
                 wu=torch.cat([bu[m].reshape(-1), sts[ln].wu[n:]]),

@@ -85,10 +85,10 @@ _SIGNATURES = {
     "faldoi_occ_global_loop": (_P,) * 5 + (_L, _I, _I, _I, _P),
     # st wc g scal scratch, scratch floats, h, w, max_iters, n_kernels (int*)
     "faldoi_occ_global_loop_kernels": (_P,) * 5 + (_L, _I, _I, _I, _P),
-    # x, out, seed_a, seed_b, best, lanes, c, h, w, smooth_iters, timestep,
-    # stream
-    "faldoi_dense_fill": (_P,) * 5 + (_I,) * 5 + (_F, _P),
-    # wgt, keep, u1, u2, scratch, o1, o2, lanes, h, w, iters, stream
+    # x, out, seed_a, seed_b, lanes, c, h, w, smooth_iters, timestep, stream
+    "faldoi_dense_fill": (_P,) * 4 + (_I,) * 5 + (_F, _P),
+    # colour, spatial (25 floats on the host), keep, u1, u2, o1, o2, lanes,
+    # h, w, iters, stream
     "faldoi_bilateral_filter": (_P,) * 7 + (_I,) * 4 + (_P,),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),

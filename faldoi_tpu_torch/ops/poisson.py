@@ -292,10 +292,11 @@ def nearest_fill_image(x: torch.Tensor, smooth_iters: int = 6,
     """K10: whole-image NaN fill by nearest-finite-cell extension (jump
     flooding) plus ``smooth_iters`` pinned red-black relaxation sweeps
     (JAX's ``ops/poisson.py::nearest_fill_image``, the dense fill of the
-    growing).  ``x``: (h, w), (C, h, w) or (L, C, h, w) float32; the C planes
-    of a lane must be finite on one set (u and v of the fixed flow), which
-    is checked (one host read on the card; ``check=False`` skips it, as a
-    CUDA graph capture must); one flood serves them all.  Returns x's shape.
+    growing), in one cooperative launch.  ``x``: (h, w), (C, h, w) or (L,
+    C, h, w) float32; the C planes of a lane must be finite on one set (u
+    and v of the fixed flow), which is checked (one host read on the card;
+    ``check=False`` skips it, as a CUDA graph capture must); one flood
+    serves them all.  Returns x's shape.
 
     CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
     raise)."""
@@ -313,15 +314,17 @@ def nearest_fill_image(x: torch.Tensor, smooth_iters: int = 6,
     if x.device.type == "cpu":
         return nearest_fill_image_plain(x4, smooth_iters, timestep).reshape(shape)
     kb.require_cuda_tensor(x4, "x", torch.float32)
+    if h >= 1 << 15 or w >= 1 << 16 or nl * h * w >= 1 << 31:
+        raise ValueError(f"K10 packs a seed's (y, x) into 16 bits each and "
+                         f"indexes cells in 32 bits: h < 32768, w < 65536 and "
+                         f"fewer than 2^31 cells, got {nl} x {h}x{w}")
     out = torch.empty_like(x4)
     if out.numel() == 0:
         return out.reshape(shape)
     seeds = torch.empty((2, nl, h, w), dtype=torch.int32, device=x.device)
-    best = torch.empty((nl, h, w), dtype=torch.float32, device=x.device)
     code = kb.library().faldoi_dense_fill(
         x4.data_ptr(), out.data_ptr(), seeds[0].data_ptr(), seeds[1].data_ptr(),
-        best.data_ptr(), nl, c, h, w, smooth_iters, timestep,
-        kb.stream_ptr(x.device))
+        nl, c, h, w, smooth_iters, timestep, kb.stream_ptr(x.device))
     kb.check(code, "nearest_fill_image")
     nearest_fill_image.launches += 1
     return out.reshape(shape)

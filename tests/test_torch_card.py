@@ -2,8 +2,9 @@
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
 probes P1-P3, K8 in its whole-image and patch forms, the K8 loop and the
 occlusion PD loop K9 in its patch and whole-image forms, the jump-flood
-dense fill K10 and the bilateral filter K11) against their plain twins, on
-the card (K0's two forms and K4's patch form also with a lane index), and
+dense fill K10 and the bilateral filter K11, each in one launch) against
+their plain twins, on the card (K0's two forms and K4's patch form also
+with a lane index), and
 the weighted, the NLTV, the CSAD and the occlusion solvers and global steps,
 the lane-batched sweep, pairs mode and the growing's ordering modes and
 fills (relax, exactmin, defer, polish, dense, bilateral, relax_late) on the
@@ -1422,7 +1423,8 @@ def test_k11_matches_twin_on_card(dev, h, w, lanes):
     the card), bit for bit; trust from the golden positions' neighbourhoods
     and random cells, some cells fixed."""
     from faldoi_tpu_torch.core.bilateral import (
-        bilateral_filter_flow, bilateral_filter_flow_plain, bilateral_weights,
+        bilateral_colour_planes, bilateral_filter_flow,
+        bilateral_filter_flow_plain, bilateral_weights,
     )
 
     rng = np.random.default_rng(3 * h + lanes)
@@ -1436,7 +1438,8 @@ def test_k11_matches_twin_on_card(dev, h, w, lanes):
     want = bilateral_filter_flow_plain(wts, u[0], u[1], tr, fx)
     before = bilateral_filter_flow.launches
     got = bilateral_filter_flow(i0.to(dev), u[0].to(dev), u[1].to(dev),
-                                tr.to(dev), fx.to(dev), weights=wts.to(dev))
+                                tr.to(dev), fx.to(dev),
+                                colour=bilateral_colour_planes(i0).to(dev))
     assert bilateral_filter_flow.launches == before + 1
     twin = bilateral_filter_flow_plain(wts.to(dev), u[0].to(dev), u[1].to(dev),
                                        tr.to(dev), fx.to(dev))
@@ -1445,6 +1448,99 @@ def test_k11_matches_twin_on_card(dev, h, w, lanes):
         assert torch.equal(_bits(g), _bits(wg))
     # the weights on the card are the host's
     assert torch.equal(bilateral_weights(i0.to(dev)).cpu(), wts)
+
+
+def _tiled_golden_field(h, w, lanes):
+    """(L, 2, h, w) planes finite at the golden DeepMatching seed positions
+    tiled over h x w (lane l from deep_mt_{1 + l % 2}), NaN elsewhere."""
+    base = _golden_seed_field(436, 1024, 2)
+    reps = (-(-h // 436), -(-w // 1024))
+    return np.stack([np.tile(base[lane % 2], (1,) + reps)[:, :h, :w]
+                     for lane in range(lanes)])
+
+
+@pytest.mark.parametrize("h,w,lanes", [(436, 1024, 2), (436, 1024, 1),
+                                       (97, 131, 2), (5, 7, 1), (1, 300, 1),
+                                       (300, 1, 2), (1088, 1920, 1),
+                                       (1088, 1920, 2), (1088, 1920, 8)])
+@pytest.mark.parametrize("kind", ["none", "one", "golden", "corners"])
+def test_k10_one_launch_matches_twin_on_card(dev, h, w, lanes, kind):
+    """K10 as one cooperative launch without a distance buffer, bit for bit
+    its twin on the card (and on the CPU below a million cells): no finite
+    cell, one, the golden positions (tiled past 436x1024), a finite cell in
+    each corner only (the image-edge clamp); a stride set longer along one
+    side at 1x300 and 300x1; 1088x1920 at L 1, 2 and 8."""
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image, nearest_fill_image_plain
+
+    rng = np.random.default_rng(h * 7 + w + lanes)
+    if kind == "golden":
+        x = _tiled_golden_field(h, w, lanes)
+    else:
+        x = np.full((lanes, 2, h, w), np.nan, np.float32)
+        cells = ({"one": [(h // 3, w - 1)],
+                  "corners": [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)]}
+                 .get(kind, []))
+        for y, c in cells:
+            x[:, :, y, c] = rng.normal(size=(lanes, 2))
+    xg = torch.as_tensor(x, device=dev)
+    before = nearest_fill_image.launches
+    got = nearest_fill_image(xg)
+    assert nearest_fill_image.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(_bits(got), _bits(nearest_fill_image_plain(xg)))
+    if x.size <= 2_000_000:
+        assert torch.equal(_bits(got.cpu()),
+                           _bits(nearest_fill_image_plain(torch.as_tensor(x))))
+
+
+def test_k10_refuses_sides_past_its_packed_seeds_on_card(dev):
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image
+
+    for shape in ((1, 1, 1 << 15, 1), (1, 1, 1, 1 << 16)):
+        with pytest.raises(ValueError, match="16 bits each"):
+            nearest_fill_image(torch.full(shape, float("nan"), device=dev))
+
+
+@pytest.mark.parametrize("h,w", [(436, 1024), (97, 131), (5, 7), (3, 40),
+                                 (1, 17), (60, 1), (1088, 1920)])
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_k11_one_launch_matches_twin_on_card(dev, h, w, lanes):
+    """K11 as one launch over column strips on the 5 colour planes, bit for
+    bit its twin on the 25 weight planes (on the card, and on the CPU below
+    a million cells): h < 5, w = 1, and 1088x1920 (more rows than a block
+    has threads); trust from the golden positions and random cells, some
+    cells fixed; one lane as an (h, w) call."""
+    from faldoi_tpu_torch.core.bilateral import (
+        bilateral_colour_planes, bilateral_filter_flow,
+        bilateral_filter_flow_plain, bilateral_weights,
+    )
+
+    rng = np.random.default_rng(5 * h + w + lanes)
+    i0 = torch.as_tensor(rng.random((h, w)).astype(np.float32))
+    u = rng.normal(size=(2, lanes, h, w)).astype(np.float32) * 4
+    trust = np.isfinite(_tiled_golden_field(h, w, lanes)[:, 0])
+    trust |= rng.random((lanes, h, w)) < 0.5
+    fixed = rng.random((lanes, h, w)) < 0.05
+    if lanes == 1:
+        u, trust, fixed = u[:, 0], trust[0], fixed[0]
+    ug = torch.as_tensor(u, device=dev)
+    tr = torch.as_tensor(trust.astype(np.int32), device=dev)
+    fx = torch.as_tensor(fixed.astype(np.int32), device=dev)
+    colour = bilateral_colour_planes(i0)
+    assert torch.equal(bilateral_colour_planes(i0.to(dev)).cpu(), colour)
+    before = bilateral_filter_flow.launches
+    got = bilateral_filter_flow(i0.to(dev), ug[0], ug[1], tr, fx,
+                                colour=colour.to(dev))
+    assert bilateral_filter_flow.launches == before + 1
+    wts = bilateral_weights(i0)
+    twin = bilateral_filter_flow_plain(wts.to(dev), ug[0], ug[1], tr, fx)
+    for g, wg in zip(got, twin):
+        assert torch.equal(_bits(g), _bits(wg))
+    if u.size <= 2_000_000:
+        want = bilateral_filter_flow_plain(
+            wts, *(torch.as_tensor(a) for a in (u[0], u[1], trust, fixed)))
+        for g, wc in zip(got, want):
+            assert torch.equal(_bits(g.cpu()), _bits(wc))
 
 
 # the crops of the growing's modes (m0, 48x64, bsz 256, two outer

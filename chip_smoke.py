@@ -104,6 +104,17 @@ list ``cli/k9_m8_calls.json`` that ``k9_variants`` replays.  K10 is held
 bit for bit to its twin at 436x1024, 97x131 and 5x7, one and two lanes, with
 no finite cell, one, and the golden seed positions, and K11 at the same
 shapes; each is timed in a CUDA graph of 20 calls at the F2 path's shapes.
+K13 (the canvas Poisson fill) is held bit for bit to its twin at the
+sweep's u and v (two planes of one launch) at P 11 with B 8192, 1900 and 1,
+red-black and exact, and at the seed insertion's P 3; K12 (the TV-L1 patch
+solve) at the m0 sweep's two lanes (B 16384), P 11 with B 8192, 1900, 297
+and 1, methods 0 and 1, P 3 at the seed count, two warps, and a tol that
+stops every canvas after one PD step; each timed in a CUDA graph of 20
+calls beside its twin.  On the m0, pairs and ``faldoi_sift`` paths K12 must
+launch once a patch solve and K13 once a fill, and K0's stack form and K4's
+patch form never; after the m0 path, ``cli/sweep_profile.py`` times a
+window of its sweeps and counts, under ``torch.profiler``, each sweep's
+host ops, kernel launches and the card's busy share.
 The growing's ordering modes and fills (relax, exactmin 11 with bands 0, 1
 and 2, defer 0.25 over 21 px, polish, dense, bilateral, relax_late) run on
 m0 crops, warm and cold (96x128; exactmin and defer 48x64, the final drain
@@ -156,13 +167,19 @@ KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
 ITERS_M0 = [400, 111, 133, 115, 160]
 ITERS_SIFT = [400] * 5
 # the kernels whose main path is the m2 one, and the m4 one (every other
-# kernel's is the faldoi_sift path, and it runs on the m0 path too)
-M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop")
+# kernel's is the faldoi_sift path, and it runs on the m0 path too): K0's
+# stack form and K4's patch form crop and sample for the solvers of methods
+# 2-8 only since K12 does both for methods 0 and 1 (on m2 with a lane index)
+M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop", "gather_patches",
+              "bicubic_sample_patches", "gather_patches_lanes",
+              "bicubic_sample_patches_lanes")
 M4_KERNELS = ("csad_vstep", "csad_patch_loop")
 M8_KERNELS = ("occ_patch_loop", "occ_global_loop")
 # the lane forms' records, whose main path is pairs mode (N = 4)
-PAIRS_KERNELS = ("gather_patches_lanes", "gather_plane_patches_lanes",
-                 "bicubic_sample_patches_lanes")
+PAIRS_KERNELS = ("gather_plane_patches_lanes",)
+# the kernels that must not launch on the m0, pairs (m0) and faldoi_sift
+# (m1) paths: K12 crops the source frame and samples the warps there
+NOT_ON_TVL1_PATHS = ("gather_patches", "bicubic_sample_patches")
 # pairs mode's pair counts: N synthetic pairs grown together
 PAIRS_N = (1, 2, 4)
 # K8's card times in its former design (a thread a cell, insertion sort), a
@@ -1669,6 +1686,266 @@ def check_k11(dev, rng, i0n, variants):
     return rec
 
 
+# K13's float operations: a relaxation update 7 a hole in the box (the
+# Laplacian's multiply and four additions, the step's multiply and add) an
+# iteration, a zoom-out child 9 (four finite tests and additions, the
+# division)
+K13_OPS_UPDATE, K13_OPS_CHILD = 7, 9
+# K12's a cell in the box: the warp constants 8 after K4's sample of 3
+# planes, a PD step 66 (threshold 13, forward gradients 4, getD 21,
+# divergence 6, getP 12, the squared update 5, u_bar 4, the max 1), the
+# energy 23 after K4's sample of 1 plane
+K12_OPS_WARP, K12_OPS_STEP, K12_OPS_EVAL = 8, 66, 23
+
+
+def fill_canvases(dev, rng, b, p, holes=0.6):
+    """The fill's input at B canvases of side p: u and v with ``holes`` of
+    the cells missing (NaN), the first canvas centre-only (the seed
+    insertion's), boxes from ``patch_geometry`` of random pixels (corners
+    first: ragged boxes)."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    idx = torch.as_tensor(rng.integers(0, H * W, b), device=dev)
+    idx[:4] = torch.as_tensor([0, W - 1, H * W - 1, (H - 1) * W], device=dev)[:b]
+    _, _, _, _, ph, pw = patch_geometry(idx, H, W, p // 2)
+    nan = torch.as_tensor(rng.random((b, p, p)) < holes, device=dev)
+    nan[0] = True
+    nan[0, min(p // 2, int(ph[0]) - 1), min(p // 2, int(pw[0]) - 1)] = False
+    u, v = (torch.where(nan, float("nan"), torch.as_tensor(
+        rng.uniform(-8, 8, (b, p, p)).astype(np.float32), device=dev))
+        for _ in range(2))
+    return u.contiguous(), v.contiguous(), ph, pw
+
+
+def k13_ops(x, ph, pw, exact, niter=3, scale=7):
+    """K13's float operations on these canvases: the zoom-outs' children
+    and, at every level, the holes in the box times the iterations."""
+    from faldoi_tpu_torch.ops.poisson import _level_sizes, _zoom_out2
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    sizes = _level_sizes(x.shape[-1], scale)
+    lv, bh, bw = x, ph[:, None, None], pw[:, None, None]
+    ops = 0
+    for k, s in enumerate(sizes):
+        if k:
+            lv = _zoom_out2(lv, bh, bw, sizes[k - 1], s)
+            bh, bw = (bh + 1) // 2, (bw + 1) // 2
+            ops += K13_OPS_CHILD * lv.numel()
+        rows, cols = canvas_ids(s, x.device)
+        holes = int((~torch.isfinite(lv) & (rows < bh) & (cols < bw)).sum())
+        ops += K13_OPS_UPDATE * niter * holes
+    return ops
+
+
+def k13_row(dev, rng, b, p, exact, n_planes=2):
+    """K13 on one call's canvases: bit for bit against its twin on the card
+    (the two planes as the twin's one batch); timed as a graph of 20 calls,
+    eagerly and beside the twin.  Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.poisson import (
+        poisson_fill_canvas_plain, poisson_fill_planes,
+    )
+
+    u, v, ph, pw = fill_canvases(dev, rng, b, p)
+    planes = (u, v)[:n_planes]
+
+    def twin():
+        return poisson_fill_canvas_plain(torch.cat(planes), ph.repeat(n_planes),
+                                         pw.repeat(n_planes), exact=exact)
+
+    got = torch.cat(poisson_fill_planes(planes, ph, pw, exact=exact))
+    want = twin()
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        d = (got - want).abs().max().item()
+        raise AssertionError(f"K13 P {p} B {b} exact={exact} differs from its "
+                             f"twin (max abs {d})")
+    x = torch.cat(planes)
+    nbytes = 2 * x.numel() * 4 + 2 * b * 8
+    mode = "exact" if exact else "red-black"
+    row = dict(shape=f"{n_planes} x P {p} B {b} {mode}", max_abs_err=0.0,
+               ms=cuda_ms(lambda: poisson_fill_planes(planes, ph, pw,
+                                                      exact=exact), graph=True),
+               eager_ms=cuda_ms(lambda: poisson_fill_planes(planes, ph, pw,
+                                                            exact=exact)),
+               plain_ms=cuda_ms(twin, reps=3, warmup=1),
+               **bound(nbytes, k13_ops(x, ph.repeat(n_planes),
+                                       pw.repeat(n_planes), exact)))
+    log(f"K13 poisson_fill_planes {row['shape']}: bit-exact; kernel "
+        f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f})  twin "
+        f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_k13(dev, rng, n_seeds):
+    """K13 at the paths' shapes: the sweep's u and v (two planes) at P 11,
+    B 8192, 1900 and 1, red-black (methods 0-3, 8) and exact (4-7); the
+    seed insertion's at P 3, B the seed count, exact.  The record is the
+    first row's (the m0 sweep's)."""
+    rows = [k13_row(dev, rng, b, p, exact)
+            for p, b, exact in ((11, BSZ, False), (11, BSZ, True),
+                                (11, 1900, False), (11, 1900, True),
+                                (11, 1, False), (11, 1, True),
+                                (3, n_seeds, True))]
+    return dict(name="poisson_fill_planes", route="cuda",
+                source="faldoi_tpu_torch/csrc/poisson_fill.cu",
+                replaces="faldoi_tpu/ops/poisson.py:159", library_ms=None,
+                **rows[0], shapes=rows)
+
+
+def k12_args(dev, rng, scs, b, p, lanes):
+    """K12's call at B patches of side p (``solver_patches``' boxes and
+    smooth-flow inits; int64 indices, as the sweep passes them); with two
+    lanes, the fwd and bwd consts stacked and a random lane index."""
+    from faldoi_tpu_torch.core.functionals import stack_solver_consts
+
+    oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, b, p, centres=True)
+    idx = [t.to(torch.int64).contiguous() for t in (ci, cj, oy, ox, ph, pw)]
+    if lanes == 1:
+        return scs[0], idx, u1, u2, None
+    lane = torch.as_tensor(rng.integers(0, lanes, b), device=dev)
+    return stack_solver_consts(scs), idx, u1, u2, lane
+
+
+def k12_bound(sc, idx, u1, u2, lane, p, iters):
+    """K12's bound for one call: the canvases in and out, the energies, the
+    index vectors, the source crop's in-box cells and the I1 windows the
+    first warp's points read (a lane's distinct cells, 3 planes); the
+    operations of ``K12_OPS_*`` and K4's, the PD steps as run."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound
+    from faldoi_tpu_torch.ops.bicubic import _patch_points
+
+    oy, ox, ph, pw = idx[2:]
+    inbox_n = ph * pw
+    cells = int(inbox_n.sum())
+    uu, vv = _patch_points(oy, ox, ph, pw, u1, u2)
+    h, w = sc.i1.shape[-2:]
+    lanes = [None] if lane is None else list(range(int(lane.max()) + 1))
+    win = sum(window_cells(h, w, uu if k is None else uu[lane == k],
+                           vv if k is None else vv[lane == k]) for k in lanes)
+    b = u1.shape[0]
+    nbytes = (4 * u1.numel() * 4 + b * 4 + (7 if lane is not None else 6) * b * 8
+              + cells * 4 + win * 3 * 4)
+    sample3 = 2 + K4_OPS_POINT + 3 * K4_OPS_PLANE
+    steps = sum(int((n.to(torch.int64) * inbox_n).sum()) for n in iters)
+    ops = (len(iters) * cells * (sample3 + K12_OPS_WARP) + steps * K12_OPS_STEP
+           + cells * (K4_OPS_POINT + K4_OPS_PLANE + K12_OPS_EVAL))
+    return bound(nbytes, ops)
+
+
+def twin_pd_steps(args):
+    """K12's twin on ``args`` (``tvl1_patch_solve``'s), with its PD steps
+    counted: returns (its result, each warp's (B,) step counts).  The twin's
+    masked unroll calls ``tvl2_getP`` ``max_iters`` times a warp on every
+    canvas; a canvas takes step k + 1 of a warp only while step k left its
+    ``err`` (the in-box max of getP's squared update) above tol^2, as the
+    twin's run mask reads it, so the counts follow from getP's outputs."""
+    from faldoi_tpu_torch.core import functionals as fn
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    sc, ph, pw, u1 = args[0], args[5], args[6], args[7]
+    p, warps, max_iters = args[9:12]
+    rows, cols = canvas_ids(p, u1.device)
+    inbox = (rows < ph[:, None, None]) & (cols < pw[:, None, None])
+    errs = []
+    get_p = fn.tvl2_getP
+
+    def counted(*a):
+        out = get_p(*a)
+        errs.append(torch.where(inbox, out[2], 0.0).amax(dim=(1, 2)))
+        return out
+
+    fn.tvl2_getP = counted
+    try:
+        res = fn._solve_tvl1_family_plain(*args)
+    finally:
+        fn.tvl2_getP = get_p
+    if len(errs) != warps * max_iters:
+        raise AssertionError(f"K12's twin called getP {len(errs)} times, not "
+                             f"{warps} x {max_iters}")
+    tol2 = sc.tol * sc.tol
+    steps = []
+    for w in range(warps):
+        run = torch.ones(u1.shape[:1], dtype=torch.bool, device=u1.device)
+        n = torch.zeros(u1.shape[:1], dtype=torch.int32, device=u1.device)
+        for e in errs[w * max_iters:(w + 1) * max_iters]:
+            n += run.to(torch.int32)
+            run = run & (e > tol2)
+        steps.append(n)
+    return res, steps
+
+
+def k12_row(dev, rng, scs, b, p, method, lanes, warps=1, max_iters=4,
+            tol=None):
+    """K12 on one call: bit for bit against its twin on the card (canvases
+    and energies); timed as a graph of 20 calls, eagerly and beside the
+    twin.  Returns the row."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    from faldoi_tpu_torch.core.functionals import (
+        _solve_tvl1_family_plain, tvl1_patch_solve,
+    )
+
+    sc, idx, u1, u2, lane = k12_args(dev, rng, scs, b, p, lanes)
+    if tol is not None:
+        sc = sc._replace(tol=torch.full_like(sc.tol, tol))
+    weighted = method == 1
+    args = (sc, *idx, u1, u2, p, warps, max_iters, weighted, lane)
+    got = tvl1_patch_solve(*args)
+    want, iters = twin_pd_steps(args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        if not same_bits(x, y):
+            raise AssertionError(f"K12 P {p} B {b} m{method} L {lanes} differs "
+                                 "from its twin")
+    counts = {str(k): int(sum(int((n == k).sum()) for n in iters))
+              for k in range(max_iters + 1)}
+    row = dict(shape=f"P {p} B {b} m{method} L {lanes}, {warps} warp(s) x "
+               f"<= {max_iters}" + (f", tol {tol:g}" if tol is not None else ""),
+               max_abs_err=0.0,
+               ms=cuda_ms(lambda: tvl1_patch_solve(*args), graph=True),
+               eager_ms=cuda_ms(lambda: tvl1_patch_solve(*args)),
+               plain_ms=cuda_ms(lambda: _solve_tvl1_family_plain(*args), reps=3,
+                                warmup=1),
+               iterations=counts,
+               **k12_bound(sc, idx, u1, u2, lane, p, iters))
+    log(f"K12 tvl1_patch_solve {row['shape']}: bit-exact (PD iterations "
+        f"{counts}); kernel {row['ms']:.4f} ms (eager {row['eager_ms']:.4f})  "
+        f"twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_k12(dev, rng, a, b, n_seeds):
+    """K12 at the paths' shapes, bit for bit against its twin: the m0 and
+    pairs paths' lockstep sweep (two lanes, B up to 2 x 8192), one lane at P
+    11 with B 8192, 1900, 297 and 1, methods 0 and 1 (the faldoi_sift
+    path's), the seed insertion's P 3 at the seed count, two warps, and a
+    tol that stops every canvas after one PD step.  The record is the
+    first row's (the m0 sweep's)."""
+    from faldoi_tpu_torch.core.functionals import make_solver_consts
+    from faldoi_tpu_torch.models import method_local_params
+
+    scs = {m: [make_solver_consts(x, y, *method_local_params(m, 5), 0.01, 11, m)
+               for x, y in ((a, b), (b, a))] for m in (0, 1)}
+    rows = [k12_row(dev, rng, scs[m], nb, p, m, lanes, warps, 4, tol)
+            for nb, p, m, lanes, warps, tol in (
+                (2 * BSZ, 11, 0, 2, 1, None), (BSZ, 11, 0, 1, 1, None),
+                (BSZ, 11, 1, 1, 1, None), (1900, 11, 0, 2, 1, None),
+                (297, 11, 1, 2, 1, None), (1, 11, 0, 1, 1, None),
+                (n_seeds, 3, 0, 1, 1, None), (n_seeds, 3, 1, 1, 1, None),
+                (1900, 11, 0, 1, 2, None), (297, 11, 0, 1, 1, 1e3))]
+    frozen = rows[-1]["iterations"]
+    if frozen["1"] != 297:
+        raise AssertionError(f"K12: a canvas ran past one PD step under tol 1e3: "
+                             f"{frozen}")
+    rec = {k: v for k, v in rows[0].items() if k != "iterations"}
+    return dict(name="tvl1_patch_solve", route="cuda",
+                source="faldoi_tpu_torch/csrc/tvl1_patch.cu",
+                replaces="faldoi_tpu/core/functionals.py:245", library_ms=None,
+                **rec, shapes=rows)
+
+
 def replay_k8_path(dev, rng, sc, calls):
     """K8's patch-form work of the m4 path, measured: the loop calls the
     path made (``calls``: (B, P) each) replayed on synthetic canvases of the
@@ -1765,6 +2042,52 @@ def write_frames(tmp, *frames):
     with open(ims, "w") as fh:
         fh.write("\n".join(names) + "\n")
     return ims
+
+
+class sweep_calls:
+    """While active, counts the sweeps' and the seed insertion's patch
+    solves (``local_step._solve``) and fills (``local_step.
+    poisson_fill_planes``), so that a path's K12 and K13 launches can be
+    held to them: one launch a solve of methods 0 and 1, one a fill."""
+
+    def __enter__(self):
+        from faldoi_tpu_torch.core import local_step
+
+        self.counts = dict(solve=0, fill=0)
+        self.inner = (local_step._solve, local_step.poisson_fill_planes)
+
+        def counted(key, fn):
+            def call(*args, **kw):
+                self.counts[key] += 1
+                return fn(*args, **kw)
+            return call
+
+        local_step._solve = counted("solve", self.inner[0])
+        local_step.poisson_fill_planes = counted("fill", self.inner[1])
+        return self.counts
+
+    def __exit__(self, *exc):
+        from faldoi_tpu_torch.core import local_step
+
+        local_step._solve, local_step.poisson_fill_planes = self.inner
+
+
+def check_tvl1_path(path, launches, calls=None):
+    """A path of methods 0 and 1: K12 does the source crop and the samples,
+    so K0's stack form and K4's patch form never launch; with ``calls``
+    (``sweep_calls``), K12 launched once a solve and K13 once a fill."""
+    if any(launches[name] for name in NOT_ON_TVL1_PATHS):
+        raise AssertionError(f"{path}: K0's stack form or K4's patch form "
+                             f"launched: {json.dumps(launches)}")
+    if calls is not None and (launches["tvl1_patch_solve"] != calls["solve"]
+                              or launches["poisson_fill_planes"] != calls["fill"]):
+        raise AssertionError(f"{path}: K12 launched {launches['tvl1_patch_solve']}"
+                             f" times for {calls['solve']} solves, K13 "
+                             f"{launches['poisson_fill_planes']} for "
+                             f"{calls['fill']} fills")
+    if calls is not None:
+        log(f"{path}: K12 once a solve ({calls['solve']}), K13 once a fill "
+            f"({calls['fill']}); K0's stack form and K4's patch form 0")
 
 
 class k8_loop_calls:
@@ -2141,6 +2464,7 @@ def run_pairs_phase(data, var0, wrappers):
         for name in PAIRS_KERNELS:
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched in pairs mode")
+        check_tvl1_path(f"pairs mode N {npairs}", launches)
     return launches, pairs, rgs
 
 
@@ -2369,7 +2693,8 @@ def run_mesh_phase(data, rg, pairs, rgs, wrappers, k4_lib):
         f"iterations: {secs:.3f} s; stage seconds "
         f"{json.dumps({k: round(v, 3) for k, v in st['seconds'].items()})}; "
         f"sweeps {json.dumps(st['sweeps'])}; launches K0 planes "
-        f"{la['gather_plane_patches']}, K0 stack {la['gather_patches']}, K4 "
+        f"{la['gather_plane_patches']}, K13 {la['poisson_fill_planes']}, K12 "
+        f"{la['tvl1_patch_solve']}, K0 stack {la['gather_patches']}, K4 "
         f"patch {la['bicubic_sample_patches']}; fill {100 * fill:.3f}%; EPE vs "
         f"the m0 path's unsharded grown flow {to_rg:.4f} px (gate {GROW_GATE}), "
         f"vs known flow {syn.epe(flow, gf):.4f} px (unsharded "
@@ -2377,10 +2702,13 @@ def run_mesh_phase(data, rg, pairs, rgs, wrappers, k4_lib):
     if fill < 1.0 or not to_rg <= GROW_GATE:
         raise AssertionError(f"spatial_match_growing: fill {fill}, EPE to the "
                              f"unsharded flow {to_rg} (gate {GROW_GATE})")
-    for name in ("gather_plane_patches", "gather_patches",
-                 "bicubic_sample_patches"):
+    for name in ("gather_plane_patches", "poisson_fill_planes",
+                 "tvl1_patch_solve"):
         if la[name] <= 0:
             raise AssertionError(f"spatial_match_growing never launched {name}")
+    if la["gather_patches"] or la["bicubic_sample_patches"]:
+        raise AssertionError("spatial_match_growing (m0) launched K0's stack "
+                             "form or K4's patch form: K12 crops and samples")
 
     t0 = time.perf_counter()
     crops = mesh_crop_runs(frames, rgs, pairs, [go, pairs[1][2]], MESH_CROP,
@@ -2559,7 +2887,9 @@ def main():
 
 def run_all(jobs, tmp):
     from faldoi_tpu_torch import synthetic as syn
-    from faldoi_tpu_torch.core.functionals import make_solver_consts, nltv_patch_loop
+    from faldoi_tpu_torch.core.functionals import (
+        make_solver_consts, nltv_patch_loop, tvl1_patch_solve,
+    )
     from faldoi_tpu_torch.core.global_step import global_pd_loop
     from faldoi_tpu_torch.core.global_step_nltv import nltv_global_loop
     from faldoi_tpu_torch.core.occlusion import occ_global_loop, occ_patch_loop
@@ -2571,7 +2901,7 @@ def run_all(jobs, tmp):
         bicubic_sample, bicubic_sample_patches, bicubic_warp_planes,
     )
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
-    from faldoi_tpu_torch.ops.poisson import nearest_fill_image
+    from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_planes
     from faldoi_tpu_torch.core.bilateral import bilateral_filter_flow
 
     t_start = time.perf_counter()
@@ -2615,7 +2945,8 @@ def run_all(jobs, tmp):
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
                check_k4_patches(dev, rng), *check_lanes(dev, rng),
-               check_k5(dev, rng, a, b, gf)]
+               check_k5(dev, rng, a, b, gf), check_k13(dev, rng, len(pos_f)),
+               check_k12(dev, rng, a, b, len(pos_f))]
     scs = nltv_local_consts(a, b, i0, i1)
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],
@@ -2685,10 +3016,10 @@ def run_all(jobs, tmp):
                 bicubic_sample_patches, global_pd_loop, nltv_global_loop,
                 nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
                 occ_global_loop, nearest_fill_image, bilateral_filter_flow,
-                bicubic_sample)
+                tvl1_patch_solve, poisson_fill_planes, bicubic_sample)
     reset_launches(wrappers)
     st = {}
-    with fb_warps() as fb_m0:
+    with fb_warps() as fb_m0, sweep_calls() as calls_m0:
         rg, var = run_slice(i0, i1, go, ba, "cuda", st)
     launches_m0 = read_launches(wrappers)
     fill = float(np.isfinite(rg).all(-1).mean())
@@ -2700,8 +3031,10 @@ def run_all(jobs, tmp):
     log_global_ms("m0 main path", st)
     log(f"launches on the m0 main path: {json.dumps(launches_m0)}")
     chunks = sum(-(-len(pos) // 2048) for pos in (pos_f, pos_b))
-    log(f"of gather_patches' launches, {chunks} at p 3 (one a chunk of 2048 seeds, "
-        f"B {len(pos_f)} and {len(pos_b)}); the rest at p 11, one a non-empty sweep")
+    log(f"of K12's and K13's launches, {chunks} at p 3 (one a chunk of 2048 "
+        f"seeds, B {len(pos_f)} and {len(pos_b)}); the rest at p 11, one a "
+        "non-empty sweep")
+    check_tvl1_path("m0 main path", launches_m0, calls_m0)
     log(f"fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
         f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
     if fill < 1.0:
@@ -2711,6 +3044,15 @@ def run_all(jobs, tmp):
     if st["global_iters"] != ITERS_M0:
         raise AssertionError(f"global iterations {st['global_iters']}, expected "
                              f"{ITERS_M0}")
+    # the sweep layer: ms, host ops and kernel launches a sweep, over a
+    # window of the m0 path's first drain (cli/sweep_profile.py)
+    from faldoi_tpu_torch.cli.sweep_profile import profile_m0_sweeps
+
+    t0 = time.perf_counter()
+    sweep_prof = profile_m0_sweeps()
+    log(f"m0 sweeps {sweep_prof['warm'] + 1}-{sweep_prof['warm'] + sweep_prof['window']}"
+        f" timed, the next {sweep_prof['window']} under torch.profiler ("
+        f"{time.perf_counter() - t0:.1f} s): " + json.dumps(sweep_prof))
 
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 5a")
     # phase 5a: pairs mode, N = 1, 2 and 4 synthetic pairs grown together,
@@ -2792,8 +3134,9 @@ def run_all(jobs, tmp):
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # phase 7: frames to flow, faldoi_sift -vm 1 at full width, counting
     # launches
-    with fb_warps() as fb_sift:
+    with fb_warps() as fb_sift, sweep_calls() as calls_sift:
         launches_sift = run_sift_path(i0, i1, gf, wrappers)
+    check_tvl1_path("faldoi_sift path", launches_sift, calls_sift)
 
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 7b")
     # phase 7b: the mesh functions, the batched patch solver and zoom at

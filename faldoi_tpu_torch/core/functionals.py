@@ -17,6 +17,12 @@ box [0, ph) x [0, pw) whose origin in the image is (oy, ox):
   ``err <= tol^2``;
 * the energy is the patch mean of data + coupling + regulariser.
 
+The TV-L1 methods (0, 1) do all of that in one launch of kernel K12
+(``tvl1_patch_solve``, ``csrc/tvl1_patch.cu``: the crop, every warp's
+samples and PD loop, and the energy; its plain twin
+``_solve_tvl1_family_plain`` is the composition above); the other methods
+compose the crop and the warps from K0 and K4 as above.
+
 The weighted methods (1, 3) weight the data term by a Gaussian window
 centred on the patch's centre pixel: ``l_t`` becomes ``l_t * W`` per cell in
 the threshold, and the eval's data term is multiplied by ``W``
@@ -57,8 +63,8 @@ solver takes the chi canvases as the keyword ``chi`` and returns (u1, u2,
 chi, ener); the solvers of methods 0-7 take no chi and return (u1, u2,
 ener).
 
-The TV-L1 patch PD arithmetic, and that of the CSAD methods but the inert
-TV's loop, is plain PyTorch.
+The CSAD methods' patch PD arithmetic but the inert TV's loop is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -244,10 +250,11 @@ def _weight2d(w1d, rows, cols, oy, ox, cj, ci, wr):
     return w1d[ridx] * w1d[cidx]
 
 
-def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
-                       p: int, warps: int, max_iters: int, weighted: bool,
-                       lane=None):
-    """Solve B TV-L1 patches, weighted (method 1) or not (method 0).
+def _solve_tvl1_family_plain(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1,
+                             u2, p: int, warps: int, max_iters: int,
+                             weighted: bool, lane=None):
+    """Plain twin of K12: solve B TV-L1 patches, weighted (method 1) or not
+    (method 0).
 
     ci, cj, oy, ox, ph, pw: (B,) int tensors (centre, canvas origin, valid
     box); u1, u2: (B, P, P) init canvases (zero outside the box); ``lane``:
@@ -323,21 +330,96 @@ def _solve_tvl1_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     return u1, u2, ener
 
 
+def tvl1_patch_solve(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
+                     p: int, warps: int, max_iters: int, weighted: bool,
+                     lane=None):
+    """K12: solve B TV-L1 patches, weighted (method 1) or not (method 0),
+    in one launch: the source crop, each warp's samples and tol-gated PD
+    loop, and the energy.  The arguments and results are those of the twin
+    ``_solve_tvl1_family_plain``: ci, cj, oy, ox, ph, pw (B,) integers
+    (int64 read as they are), u1, u2 (B, P, P) float32, ``lane`` None or
+    the (B,) lane index into lane-stacked consts; returns (u1, u2, ener).
+    P * P <= 1024.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise).  ``launches`` counts launches."""
+    if u1.dim() != 3 or u1.shape[1] != u1.shape[2] or u1.shape[1] != p:
+        raise ValueError(f"u1 must be (B, {p}, {p}), got {tuple(u1.shape)}")
+    if u2.shape != u1.shape:
+        raise ValueError(f"u2 {tuple(u2.shape)} differs from u1 "
+                         f"{tuple(u1.shape)}")
+    kb.check_canvas_side(p, "tvl1_patch_solve")
+    if weighted and sc.w1d is None:
+        raise ValueError("the weighted solve needs SolverConsts.w1d (method 1 "
+                         "consts)")
+    if u1.device.type == "cpu":
+        return _solve_tvl1_family_plain(sc, ci, cj, oy, ox, ph, pw, u1, u2, p,
+                                        warps, max_iters, weighted, lane)
+    dev, b = u1.device, u1.shape[0]
+    stacked = lane is not None
+    if sc.i0pad.dim() != 2 + stacked or sc.i1_stack.dim() != 3 + stacked:
+        raise ValueError(f"i0pad {tuple(sc.i0pad.shape)} and i1_stack "
+                         f"{tuple(sc.i1_stack.shape)}: expected "
+                         + ("lane-stacked consts with a lane index" if stacked
+                            else "one lane's consts without a lane index"))
+    hp, wpp = sc.i0pad.shape[-2:]
+    c, h, w = sc.i1_stack.shape[-3:]
+    if c != 3 or (stacked and sc.i1_stack.shape[0] != sc.i0pad.shape[0]):
+        raise ValueError(f"i1_stack {tuple(sc.i1_stack.shape)}: expected "
+                         "(L, 3, h, w) beside i0pad's L")
+    if h < 4 or w < 4:
+        raise ValueError("bicubic sampling needs an image of at least 4x4")
+    if p > hp or p > wpp:
+        raise ValueError(f"patch {p} larger than the padded frame {hp}x{wpp}")
+    kb.require_cuda_tensor(u1, "u1", torch.float32, dev)
+    kb.require_cuda_tensor(u2, "u2", torch.float32, dev)
+    kb.require_cuda_tensor(sc.i0pad, "i0pad", torch.float32, dev)
+    kb.require_cuda_tensor(sc.i1_stack, "i1_stack", torch.float32, dev)
+    for name in ("lambda_", "theta", "tau", "tol"):
+        kb.require_cuda_tensor(getattr(sc, name), name, torch.float32, dev, ())
+    wr = p // 2
+    if weighted:
+        kb.require_cuda_tensor(sc.w1d, "w1d", torch.float32, dev)
+        if sc.w1d.dim() != 1 or sc.w1d.shape[0] < 2 * wr + 1:
+            raise ValueError(f"w1d {tuple(sc.w1d.shape)}: the window needs "
+                             f"{2 * wr + 1} taps at P {p}")
+    idx = [kb.int64_vector(t, name, b, dev) for name, t in
+           (("ci", ci), ("cj", cj), ("oy", oy), ("ox", ox), ("ph", ph),
+            ("pw", pw))]
+    ln = None if lane is None else kb.int64_vector(lane, "lane", b, dev)
+    u1o, u2o = torch.empty_like(u1), torch.empty_like(u2)
+    ener = torch.empty((b,), dtype=torch.float32, device=dev)
+    if b == 0:
+        return u1o, u2o, ener
+    code = kb.library().faldoi_tvl1_patch_solve(
+        sc.i0pad.data_ptr(), sc.i1_stack.data_ptr(),
+        *(t.data_ptr() for t in idx), None if ln is None else ln.data_ptr(),
+        u1.data_ptr(), u2.data_ptr(),
+        *(getattr(sc, k).data_ptr() for k in ("lambda_", "theta", "tau", "tol")),
+        sc.w1d.data_ptr() if weighted else None, u1o.data_ptr(),
+        u2o.data_ptr(), ener.data_ptr(), hp, wpp, h, w, b, p, wr, int(warps),
+        int(max_iters), kb.stream_ptr(dev))
+    kb.check(code, "tvl1_patch_solve")
+    tvl1_patch_solve.launches += 1
+    return u1o, u2o, ener
+
+
+tvl1_patch_solve.launches = 0   # K12 launches, raised after a launch
+
+
 def solve_tvl1(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
                warps: int, max_iters: int, lane=None):
-    """Solve B method-0 (TV-L1) patches; see ``_solve_tvl1_family``."""
-    return _solve_tvl1_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
-                              max_iters, weighted=False, lane=lane)
+    """Solve B method-0 (TV-L1) patches: K12 (``tvl1_patch_solve``)."""
+    return tvl1_patch_solve(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                            max_iters, weighted=False, lane=lane)
 
 
 def solve_tvl1_w(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2, p: int,
                  warps: int, max_iters: int, lane=None):
-    """Solve B method-1 (Gaussian-weighted TV-L1) patches; ``sc.w1d`` must
-    hold the window."""
-    if sc.w1d is None:
-        raise ValueError("solve_tvl1_w needs SolverConsts.w1d (method 1 consts)")
-    return _solve_tvl1_family(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
-                              max_iters, weighted=True, lane=lane)
+    """Solve B method-1 (Gaussian-weighted TV-L1) patches: K12; ``sc.w1d``
+    must hold the window."""
+    return tvl1_patch_solve(sc, ci, cj, oy, ox, ph, pw, u1, u2, p, warps,
+                            max_iters, weighted=True, lane=lane)
 
 
 @functools.lru_cache(maxsize=None)
@@ -436,8 +518,7 @@ def nltv_patch_loop(u1, u2, v1, v2, duals, i1wx, i1wy, grad, rho_c, wp, wt,
     if u1.dim() != 3 or u1.shape[1] != u1.shape[2]:
         raise ValueError(f"u1 must be (B, P, P), got {tuple(u1.shape)}")
     b, p = u1.shape[0], u1.shape[1]
-    if p * p > 1024:
-        raise ValueError(f"patch side {p}: the kernel takes P*P <= 1024")
+    kb.check_canvas_side(p, "nltv_patch_loop")
     if u1.device.type == "cpu":
         return nltv_patch_loop_plain(u1, u2, v1, v2, duals, i1wx, i1wy, grad,
                                      rho_c, wp, wt, l_t, ph, pw, theta, tau,
@@ -492,9 +573,9 @@ def _solve_nltv_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
                        p: int, warps: int, max_iters: int, weighted: bool,
                        lane=None):
     """Solve B NLTV-L1 patches, weighted (method 3) or not (method 2); the
-    arguments and results of ``_solve_tvl1_family``.  The duals start at
-    zero in every solve and carry across its warps; u_bar restarts from u at
-    each warp."""
+    arguments and results of ``_solve_tvl1_family_plain``.  The duals start
+    at zero in every solve and carry across its warps; u_bar restarts from u
+    at each warp."""
     if sc.wp_pad is None:
         raise ValueError("the NLTV solvers need SolverConsts.wp_pad (method 2 "
                          "or 3 consts)")
@@ -568,12 +649,12 @@ def _solve_csad_family(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
                        p: int, warps: int, max_iters: int, weighted: bool,
                        nltv_reg: bool, true_tv: bool = False, lane=None):
     """Solve B CSAD patches: TV-CSAD (method 4, weighted 5) or NLTV-CSAD (6,
-    weighted 7); the arguments and results of ``_solve_tvl1_family``.  Per
-    warp, K4 samples the warp, ``grad = hypot(|grad I1w|^2, 0.01)`` and the 48
-    breakpoint planes are built once, then the tol-gated masked unroll runs
-    K8's v-step, the regulariser's step and the primal step; with the inert
-    TV (methods 4, 5) that whole loop is one launch of the K8 loop
-    (``ops.csad.csad_patch_loop``).  Out-of-box
+    weighted 7); the arguments and results of ``_solve_tvl1_family_plain``.
+    Per warp, K4 samples the warp, ``grad = hypot(|grad I1w|^2, 0.01)`` and
+    the 48 breakpoint planes are built once, then the tol-gated masked
+    unroll runs K8's v-step, the regulariser's step and the primal step;
+    with the inert TV (methods 4, 5) that whole loop is one launch of the K8
+    loop (``ops.csad.csad_patch_loop``).  Out-of-box
     cells take +-inf or NaN in the v-step (no neighbour counts there) and
     carry them, as JAX does; every use masks them, and the eval zeroes them
     first.  ``true_tv`` (methods 4, 5): the per-component TV projection

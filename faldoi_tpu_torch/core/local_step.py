@@ -7,11 +7,13 @@ the ``bsz`` lowest-energy unfixed candidates are selected, those inside the
 delta band or under the queue-adaptive rank floor are fixed, their 11x11
 patches are cropped (K0's planes form, ``gather_plane_patches``: one launch,
 counted in ``gather_plane_patches.launches``, returning the five state
-canvases as contiguous (k, p, p) blocks), Poisson-filled, solved (the
-method's patch solver, with K4 warps) and the results are scattered: min-energy wins for the
-4-neighbour candidates and the donations to pixels accepted in the same
-sweep, the centre update when its energy improves, and max-energy wins for
-the persistent working flow over the whole patch.
+canvases as contiguous (k, p, p) blocks), Poisson-filled (K13,
+``poisson_fill_planes``: the u and v canvases in one launch), solved (the
+method's patch solver: K12 for methods 0 and 1, one launch a solve) and the
+results are scattered: min-energy wins for the 4-neighbour candidates and
+the donations to pixels accepted in the same sweep, the centre update when
+its energy improves, and max-energy wins for the persistent working flow
+over the whole patch.
 
 State layout: flat (h*w+1,) planes; the extra slot is the dump for masked
 writes, as in JAX.  Lanes: the growing lanes of one or more frame pairs
@@ -61,7 +63,7 @@ from faldoi_tpu_torch.core.functionals import (
     CSAD_METHODS, SolverConsts, solver_for,
 )
 from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
-from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_canvas
+from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_planes
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 INF = float("inf")
@@ -288,13 +290,6 @@ def _wflow_scatter(wu, wv, wchi, su, sv, schi, ener, oy, ox, inbox, h, w, p,
         pos.reshape(-1),
         **_chi_payload(wchi, None if schi is None else schi.reshape(-1)))
     return out[1], out[2], out[3] if schi is not None else wchi, out[0]
-
-
-def _fill_pair(u, v, ph, pw, exact):
-    """Poisson-fill the u and v canvases as one batch of 2B."""
-    f = poisson_fill_canvas(torch.cat([u, v]), torch.cat([ph, ph]),
-                            torch.cat([pw, pw]), exact=exact)
-    return f[:u.shape[0]], f[u.shape[0]:]
 
 
 def exact_fill(fill: str, method: int) -> bool:
@@ -620,9 +615,9 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     if dense:
         fill_u, fill_v = crops[-2], crops[-1]
     else:
-        fill_u, fill_v = _fill_pair(torch.where(fxp, ou, nan),
-                                    torch.where(fxp, ov, nan), ph, pw,
-                                    exact=exact)
+        fill_u, fill_v = poisson_fill_planes(
+            (torch.where(fxp, ou, nan), torch.where(fxp, ov, nan)), ph, pw,
+            exact=exact)
     alt_u = torch.where(fxp, ou, wu_p)
     alt_v = torch.where(fxp, ov, wv_p)
     if iteration == 0:
@@ -731,9 +726,10 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
                  & ((ox[:, None, None] + cols) == i[:, None, None]))
     nan = torch.full((), NAN, device=dev)
     zero = torch.zeros((), device=dev)
-    fu, fv = _fill_pair(torch.where(is_center, seed_u[:, None, None], nan),
-                        torch.where(is_center, seed_v[:, None, None], nan),
-                        ph, pw, exact=True)
+    fu, fv = poisson_fill_planes(
+        (torch.where(is_center, seed_u[:, None, None], nan),
+         torch.where(is_center, seed_v[:, None, None], nan)), ph, pw,
+        exact=True)
     u_init = torch.where(inbox, fu, zero)
     v_init = torch.where(inbox, fv, zero)
     su, sv, schi, ener = _solve(

@@ -259,8 +259,7 @@ def occ_patch_loop(st, wc, g, ph, pw, scal, max_iters: int):
     if st.dim() != 4 or st.shape[2] != st.shape[3]:
         raise ValueError(f"state must be (11, B, P, P), got {tuple(st.shape)}")
     nb, p = st.shape[1], st.shape[2]
-    if p * p > 1024:
-        raise ValueError(f"patch side {p}: the kernel takes P*P <= 1024")
+    kb.check_canvas_side(p, "occ_patch_loop")
     if st.device.type == "cpu":
         return occ_patch_loop_plain(st, wc, g, ph, pw, scal, max_iters)
     dev = st.device

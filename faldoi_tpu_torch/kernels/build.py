@@ -10,12 +10,13 @@ started together, then one link::
         -o <build>/libfaldoi_kernels_<hash>.so <tmp>/*.o
 
 The library goes into ``faldoi_tpu_torch/_build/`` (gitignored), named by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one loads at once.  It is loaded with ``ctypes``; every pointer and the
-stream go over as ``c_void_p``.  Each C entry point enqueues its kernels on
-the stream it is given and returns ``cudaGetLastError()``; ``check`` raises
-on anything but 0.  Each wrapper keeps its own launch count, a plain integer
-attribute ``launches`` that it raises by one after a launch returned 0.
+hash of the sources, the headers they share (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one loads at once.  It is
+loaded with ``ctypes``; every pointer and the stream go over as
+``c_void_p``.  Each C entry point enqueues its kernels on the stream it is
+given and returns ``cudaGetLastError()``; ``check`` raises on anything but
+0.  Each wrapper keeps its own launch count, a plain integer attribute
+``launches`` that it raises by one after a launch returned 0.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into one FMA, so each
 kernel rounds exactly as its plain PyTorch twin does (PyTorch runs every
@@ -91,6 +92,13 @@ _SIGNATURES = {
     # colour, spatial (25 floats on the host), keep, u1, u2, o1, o2, lanes,
     # h, w, iters, stream
     "faldoi_bilateral_filter": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x0, x1 (or null), o0, o1 (or null), ph, pw (int64), b, planes, p,
+    # sides (host array of ints), levels, timestep, niter, exact, stream
+    "faldoi_poisson_fill": (_P,) * 6 + (_I,) * 3 + (_P, _I, _F, _I, _I, _P),
+    # i0pad i1_stack ci cj oy ox ph pw lane (or null) u1 u2 lam theta tau tol
+    # w1d (or null) u1o u2o ener, hp, wp, h, w, b, p, wr, warps, max_iters,
+    # stream
+    "faldoi_tvl1_patch_solve": (_P,) * 19 + (_I,) * 9 + (_P,),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream
@@ -120,9 +128,13 @@ def _nvcc() -> str:
     return found
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfaldoi_kernels_{h.hexdigest()[:16]}.so"
@@ -193,6 +205,33 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+MAX_CANVAS_CELLS = 1024   # P * P of the largest canvas a patch kernel takes
+
+
+def check_canvas_side(p: int, name: str) -> None:
+    """Refuse a patch side whose P * P cells would not fit the one block
+    that each patch kernel (K7, K8's loop, K9's patch form, K12, K13) gives
+    a canvas."""
+    if p * p > MAX_CANVAS_CELLS:
+        raise ValueError(f"{name}: patch side {p}: the kernel takes P*P <= "
+                         f"{MAX_CANVAS_CELLS}")
+
+
+def int64_vector(t, name: str, b: int, device):
+    """A (B,) integer vector as the int64 a kernel reads (a copy only where
+    it holds another integer dtype), on ``device``; raise on anything
+    else."""
+    import torch
+
+    if t.dtype.is_floating_point or t.dtype.is_complex or t.dtype == torch.bool:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected an integer")
+    if tuple(t.shape) != (b,):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected ({b},)")
+    t = t.to(torch.int64).contiguous()
+    require_cuda_tensor(t, name, torch.int64, device)
+    return t
 
 
 def require_cuda_tensor(t, name: str, dtype, device=None, shape=None):

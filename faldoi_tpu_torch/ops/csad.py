@@ -204,8 +204,7 @@ def csad_patch_loop(u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t, masks, ncount,
     if u1.dim() != 3 or u1.shape[1] != u1.shape[2]:
         raise ValueError(f"u1 must be (B, P, P), got {tuple(u1.shape)}")
     nb, p = u1.shape[0], u1.shape[1]
-    if p * p > 1024:
-        raise ValueError(f"patch side {p}: the kernel takes P*P <= 1024")
+    kb.check_canvas_side(p, "csad_patch_loop")
     if u1.device.type == "cpu":
         return csad_patch_loop_plain(u1, u2, v1, v2, b, i1wx, i1wy, denom, l_t,
                                      masks, ncount, ph, pw, theta, tau, tol2,

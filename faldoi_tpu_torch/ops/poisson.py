@@ -11,9 +11,16 @@ It runs on B canvases at once: ``x`` is (B, P, P) with per-canvas valid boxes
 
 * ``exact=True``: raster-order Gauss-Seidel, computed exactly as anti-diagonal
   wavefronts (cell (r, c) reads the updated (r-1, c), (r, c-1) on diagonal
-  r+c-1 and the old (r+1, c), (r, c+1)); ``seed_batch`` uses it at p = 3;
-* ``exact=False``: red-black Gauss-Seidel, which the sweep uses
-  (``fill="patch_rb"``).
+  r+c-1 and the old (r+1, c), (r, c+1)); ``seed_batch`` uses it at p = 3,
+  and the sweep of methods 4-7 at p = 11;
+* ``exact=False``: red-black Gauss-Seidel, which the sweep of the other
+  methods uses.
+
+The canvas fill is kernel K13 (``csrc/poisson_fill.cu``): one launch fills
+every canvas of one or two planes that share their boxes
+(``poisson_fill_planes``: the u and v canvases of a sweep or of a seed
+insertion), the whole pyramid of a canvas in shared memory; its plain twin
+is ``poisson_fill_canvas_plain``.
 
 Also the whole-image fills of ``faldoi_tpu/ops/poisson.py``: the
 rectangular multigrid ``poisson_fill_image`` (plain torch, on no path), and
@@ -24,6 +31,7 @@ twin ``nearest_fill_image_plain``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -112,12 +120,13 @@ def _zoom_in2(x, p_parent):
     return up[:, :p_parent, :p_parent]
 
 
-def poisson_fill_canvas(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
-                        timestep: float = 0.4, niter: int = 3, scale: int = 7,
-                        exact: bool = True) -> torch.Tensor:
-    """Fill the NaNs of B (P, P) canvases whose valid regions are
-    [0, ph) x [0, pw).  ``x``: (B, P, P); ``ph``, ``pw``: (B,) ints.
-    Values outside the valid box come back as 0."""
+def poisson_fill_canvas_plain(x: torch.Tensor, ph: torch.Tensor,
+                              pw: torch.Tensor, timestep: float = 0.4,
+                              niter: int = 3, scale: int = 7,
+                              exact: bool = True) -> torch.Tensor:
+    """Plain twin of K13: fill the NaNs of B (P, P) canvases whose valid
+    regions are [0, ph) x [0, pw).  ``x``: (B, P, P); ``ph``, ``pw``: (B,)
+    ints.  Values outside the valid box come back as 0."""
     p = x.shape[-1]
     sizes = _level_sizes(p, scale)
     levels = [x]
@@ -140,6 +149,72 @@ def poisson_fill_canvas(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
         y = torch.where(torch.isfinite(y), y, zero)
         out = _relax(y, hole, phs[k], pws[k], timestep, niter, sizes[k], exact)
     return out
+
+
+def poisson_fill_planes(planes, ph: torch.Tensor, pw: torch.Tensor,
+                        timestep: float = 0.4, niter: int = 3, scale: int = 7,
+                        exact: bool = True):
+    """K13: ``poisson_fill_canvas`` of one or two planes of B (P, P) float32
+    canvases that share their (B,) boxes ``ph``, ``pw`` (the u and v
+    canvases of a sweep), in one launch.  Returns a tuple of filled planes,
+    each zero outside its boxes; the inputs are not changed.  P * P <= 1024.
+
+    CPU tensors go to the plain twin (the planes as one batch); CUDA tensors
+    launch the kernel (or raise).  ``launches`` counts launches."""
+    planes = tuple(planes)
+    if not 1 <= len(planes) <= 2:
+        raise ValueError(f"{len(planes)} planes: K13 takes one or two")
+    x = planes[0]
+    if x.dim() != 3 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"canvases must be (B, P, P), got {tuple(x.shape)}")
+    b, p = x.shape[0], x.shape[1]
+    kb.check_canvas_side(p, "poisson_fill_planes")
+    for t in planes[1:]:
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"plane {tuple(t.shape)} on {t.device}: expected "
+                             f"{tuple(x.shape)} on {x.device}")
+    n = len(planes)
+    if x.device.type == "cpu":
+        for name, t in (("ph", ph), ("pw", pw)):
+            if tuple(t.shape) != (b,):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"({b},)")
+        both = torch.cat(planes) if n > 1 else x
+        f = poisson_fill_canvas_plain(both, ph.repeat(n), pw.repeat(n),
+                                      timestep, niter, scale, exact)
+        return tuple(f.split(b)) if n > 1 else (f,)
+    dev = x.device
+    for k, t in enumerate(planes):
+        kb.require_cuda_tensor(t, f"plane {k}", torch.float32, dev)
+    boxes = [kb.int64_vector(t, name, b, dev) for name, t in
+             (("ph", ph), ("pw", pw))]
+    outs = tuple(torch.empty_like(t) for t in planes)
+    if b == 0:
+        return outs
+    sides = _level_sizes(p, scale)
+    c_sides = (ctypes.c_int * len(sides))(*sides)
+    code = kb.library().faldoi_poisson_fill(
+        x.data_ptr(), planes[-1].data_ptr() if n > 1 else None,
+        outs[0].data_ptr(), outs[-1].data_ptr() if n > 1 else None,
+        boxes[0].data_ptr(), boxes[1].data_ptr(), b, n, p, c_sides,
+        len(sides), float(timestep), int(niter), int(bool(exact)),
+        kb.stream_ptr(dev))
+    kb.check(code, "poisson_fill_planes")
+    poisson_fill_planes.launches += 1
+    return outs
+
+
+poisson_fill_planes.launches = 0   # K13 launches, raised after a launch
+
+
+def poisson_fill_canvas(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,
+                        timestep: float = 0.4, niter: int = 3, scale: int = 7,
+                        exact: bool = True) -> torch.Tensor:
+    """Fill the NaNs of B (P, P) canvases whose valid regions are
+    [0, ph) x [0, pw): K13 on one plane (``poisson_fill_planes``).  ``x``:
+    (B, P, P); ``ph``, ``pw``: (B,) ints.  Values outside the valid box come
+    back as 0."""
+    return poisson_fill_planes((x,), ph, pw, timestep, niter, scale, exact)[0]
 
 
 def poisson_fill_batch(x: torch.Tensor, ph: torch.Tensor, pw: torch.Tensor,

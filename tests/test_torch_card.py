@@ -2,7 +2,8 @@
 point, patch and flow forms, the K5 loop, the NLTV loops K6 and K7, the
 probes P1-P3, K8 in its whole-image and patch forms, the K8 loop and the
 occlusion PD loop K9 in its patch and whole-image forms, the jump-flood
-dense fill K10 and the bilateral filter K11, each in one launch) against
+dense fill K10 and the bilateral filter K11, each in one launch, the TV-L1
+patch solve K12 and the canvas Poisson fill K13) against
 their plain twins, on the card (K0's two forms and K4's patch form also
 with a lane index), and
 the weighted, the NLTV, the CSAD and the occlusion solvers and global steps,
@@ -25,9 +26,9 @@ and contract exactly where the twins do, so the usual difference is 0), K5
 with the twin loop's iteration count; P3 within relative 1e-5 (another
 summation order).  K6, K7, K8, the K8 loop, K9 and the NLTV, CSAD and
 occlusion solvers, the lane-batched sweep, pairs mode, K10, K11 and the
-growings under the ordering modes must equal their twins (and CPU runs) bit
-for bit: they sum in the twins' order, and K8 selects one of the entries the
-twin sorts."""
+growings under the ordering modes, K12 and K13 must equal their twins (and
+CPU runs) bit for bit: they sum in the twins' order, and K8 selects one of
+the entries the twin sorts."""
 
 import numpy as np
 import pytest
@@ -1257,9 +1258,11 @@ def test_sweep_lanes_on_card_matches_cpu(dev):
     """``sweep_lanes`` at L = 4 (two pairs' fwd and bwd lanes), four sweeps
     in iteration 0 and two in iteration 1 under a trust map, on the card
     against the CPU, bit for bit (the dump slots left out)."""
+    from faldoi_tpu_torch.core.functionals import tvl1_patch_solve
     from faldoi_tpu_torch.core.local_step import state_to_numpy, sweep_lanes
     from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
     from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
+    from faldoi_tpu_torch.ops.poisson import poisson_fill_planes
 
     h, w = 48, 64
     trust = torch.ones((4, h, w), dtype=torch.int32)
@@ -1270,16 +1273,18 @@ def test_sweep_lanes_on_card_matches_cpu(dev):
         sc, st = _four_lanes(d, h, w)
         sal = torch.ones((4, h * w + 1), device=d)
         counts = []
-        before = (gather_plane_patches.launches, bicubic_sample_patches.launches)
+        wrappers = (gather_plane_patches, poisson_fill_planes,
+                    tvl1_patch_solve, bicubic_sample_patches)
+        before = [f.launches for f in wrappers]
         for it, tr in [(0, torch.ones((4, h, w), device=d))] * 4 + [
                 (1, trust.to(d))] * 2:
             st, c = sweep_lanes(st, sc, tr, sal, it, h, w, 5, 256, 1, 4, 16)
             counts.append(c)
         if d != "cpu":
-            # one state crop a sweep for all four lanes; K4's patch form
-            # twice a solve (the warp and the eval)
-            assert gather_plane_patches.launches == before[0] + 6
-            assert bicubic_sample_patches.launches == before[1] + 12
+            # one state crop, one fill and one solve a sweep for all four
+            # lanes; the solve samples in K12, K4's patch form never
+            assert [f.launches - n for f, n in zip(wrappers, before)] == [
+                6, 6, 6, 0]
         out.append((counts, {k: v.reshape(4, -1)[:, :h * w]
                              for k, v in state_to_numpy(st).items()}))
     assert out[0][0] == out[1][0] and min(min(c) for c in out[0][0]) > 0
@@ -1786,15 +1791,17 @@ def test_spatial_match_growing_on_card_matches_cpu(dev, method, n_space,
                                                    shape):
     """The row-sharded local growing with its shards on the card equal to
     its run with CPU shards, bit for bit (NaN by mask), with the same
-    sweeps; K0's two forms and K4's patch form (and the K8 loop for method
-    4) launch on the card."""
+    sweeps; K0's planes form and K13 launch on the card, and K12 for method
+    0, K0's stack form, K4's patch form and the K8 loop for method 4."""
     from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.functionals import tvl1_patch_solve
     from faldoi_tpu_torch.core.preprocess import prepare_pair
     from faldoi_tpu_torch.ops.bicubic import bicubic_sample_patches
     from faldoi_tpu_torch.ops.csad import csad_patch_loop
     from faldoi_tpu_torch.ops.patch_gather import (
         gather_patches, gather_plane_patches,
     )
+    from faldoi_tpu_torch.ops.poisson import poisson_fill_planes
     from faldoi_tpu_torch.parallel import make_mesh, spatial_match_growing
 
     h, w = shape
@@ -1805,9 +1812,11 @@ def test_spatial_match_growing_on_card_matches_cpu(dev, method, n_space,
     prm = P.Parameters()
     prm.val_method = method
     prm.iterations_of = 1
-    wrappers = [gather_patches, gather_plane_patches, bicubic_sample_patches]
+    wrappers = [gather_plane_patches, poisson_fill_planes]
     if method == 4:
-        wrappers.append(csad_patch_loop)
+        wrappers += [gather_patches, bicubic_sample_patches, csad_patch_loop]
+    else:
+        wrappers.append(tvl1_patch_solve)
     res = []
     for d in ("cpu", dev):
         a, b = prepare_pair(i0, i1, device=d)
@@ -1825,3 +1834,223 @@ def test_spatial_match_growing_on_card_matches_cpu(dev, method, n_space,
         nan = x.isnan()
         assert torch.equal(nan, y.isnan())
         assert torch.equal(_bits(x[~nan]), _bits(y[~nan]))
+
+
+def _same_nan(a, b):
+    """Bit for bit, NaN compared by mask (a NaN's payload may differ)."""
+    a, b = a.cpu(), b.cpu()
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and torch.equal(_bits(a[~nan]), _bits(b[~nan])))
+
+
+def _fill_canvases(rng, b, p, kind="random"):
+    """u and v canvases of B patches with holes (NaN) and their boxes: the
+    first canvases full-box, all-hole, centre-only (the seed insertion's)
+    and without holes, then ragged boxes (clamped at an image edge)."""
+    u, v = (rng.uniform(-6, 6, (b, p, p)).astype(np.float32) for _ in range(2))
+    hole = rng.random((b, p, p)) < 0.7
+    ph = rng.integers(1, p + 1, b)
+    pw = rng.integers(1, p + 1, b)
+    ph[:4], pw[:4] = p, p
+    hole[1:3] = True
+    hole[2:3, p // 2, p // 2] = False
+    hole[3:4] = False
+    u[hole], v[hole] = np.nan, np.nan
+    u[5 % b, 0, 0] = np.inf                    # an infinite cell is a hole
+    return ([torch.as_tensor(x) for x in (u, v)],
+            [torch.as_tensor(x) for x in (ph, pw)])
+
+
+K13_CASES = [(11, 8192), (11, 1900), (11, 1), (3, 1703), (7, 61), (32, 5)]
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["red-black", "exact"])
+@pytest.mark.parametrize("p,b", K13_CASES)
+def test_k13_matches_twin_on_card(dev, p, b, exact):
+    """K13 (``poisson_fill_planes``) against its twin on the card and on
+    the CPU, bit for bit: u and v of B canvases as two planes of one launch
+    and one plane alone, the sweep's P 11 at B 8192, 1900 and 1, the seed
+    insertion's P 3 at B 1703, a side compiled for no size (7) and the
+    largest (32, one 1024-thread canvas a block)."""
+    from faldoi_tpu_torch.ops.poisson import (
+        poisson_fill_canvas, poisson_fill_canvas_plain, poisson_fill_planes,
+    )
+
+    rng = np.random.default_rng(300 + p + b)
+    (u, v), (ph, pw) = _fill_canvases(rng, b, p)
+    want = poisson_fill_canvas_plain(torch.cat([u, v]), torch.cat([ph, ph]),
+                                     torch.cat([pw, pw]), exact=exact)
+    ud, vd, phd, pwd = (t.to(dev) for t in (u, v, ph, pw))
+    card = poisson_fill_canvas_plain(torch.cat([ud, vd]), torch.cat([phd, phd]),
+                                     torch.cat([pwd, pwd]), exact=exact)
+    before = poisson_fill_planes.launches
+    got = poisson_fill_planes((ud, vd), phd, pwd, exact=exact)
+    assert poisson_fill_planes.launches == before + 1
+    assert _same_nan(torch.cat(got), card)
+    assert _same_nan(torch.cat(got), want)
+    assert bool(torch.isfinite(got[0]).all())
+    one = poisson_fill_canvas(vd, phd, pwd.to(torch.int32), exact=exact)
+    assert poisson_fill_planes.launches == before + 2
+    assert _same_nan(one, got[1])
+    assert torch.equal(ud.isnan(), u.to(dev).isnan())   # inputs unchanged
+
+
+def test_k13_refuses_what_it_does_not_take_on_card(dev):
+    from faldoi_tpu_torch.ops.poisson import poisson_fill_planes
+
+    rng = np.random.default_rng(310)
+    (u, v), (ph, pw) = _fill_canvases(rng, 16, 11)
+    u, v, ph, pw = (t.to(dev) for t in (u, v, ph, pw))
+    before = poisson_fill_planes.launches
+    with pytest.raises(TypeError):
+        poisson_fill_planes((u.double(), v.double()), ph, pw)
+    with pytest.raises(TypeError):
+        poisson_fill_planes((u, v), ph.float(), pw)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((u, v[:8]), ph, pw)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((u, v), ph[:8], pw)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((u, v, u), ph, pw)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((u[:, :, :10],), ph, pw)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((u, v.cpu()), ph, pw)
+    big = torch.zeros((2, 33, 33), device=dev)
+    box = torch.full((2,), 33, device=dev)
+    with pytest.raises(ValueError):
+        poisson_fill_planes((big,), box, box)
+    assert poisson_fill_planes.launches == before
+
+
+def _k12_consts(dev, lanes, method, seed=320, p=11):
+    """Solver consts of ``lanes`` synthetic pairs (each its own frames) on
+    the card for patches of side p, stacked with a lane axis when lanes >
+    1."""
+    from faldoi_tpu_torch.core.functionals import (
+        make_solver_consts, stack_solver_consts,
+    )
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+    from faldoi_tpu_torch.models import method_local_params
+
+    lam, theta, tau = method_local_params(method, 5)
+    scs = []
+    for k in range(lanes):
+        i0, i1, _, _ = syn.make_pair(96, 128, seed=seed + k)
+        a, b = prepare_pair(i0, i1, device=dev)
+        scs.append(make_solver_consts(a, b, lam, theta, tau, 0.01, p, method))
+    return scs[0] if lanes == 1 else stack_solver_consts(scs)
+
+
+def _k12_patches(sc, dev, p, b, lanes, seed):
+    """B patches of side p: centres at random pixels with the image's
+    corners and edges first (clamped boxes), inits around the synthetic
+    flow with noise, zero outside the box; a lane index when lanes > 1."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+
+    h, w = sc.i1.shape[-2:]
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(rng.integers(0, h * w, b))
+    corners = torch.as_tensor([0, w - 1, h * w - 1, (h - 1) * w, 2 * w + 1])
+    idx[:min(b, 5)] = corners[:min(b, 5)]
+    geo = patch_geometry(idx.to(dev), h, w, p // 2)
+    rows = torch.arange(p, device=dev)
+    inbox = ((rows[:, None] < geo[4][:, None, None])
+             & (rows[None, :] < geo[5][:, None, None]))
+    u1, u2 = (torch.where(inbox, torch.as_tensor(
+        rng.normal(m, 1.0, (b, p, p)).astype(np.float32), device=dev), 0.0)
+        for m in (2.6, -1.4))
+    lane = (None if lanes == 1 else
+            torch.as_tensor(rng.integers(0, lanes, b), device=dev))
+    return geo, u1.contiguous(), u2.contiguous(), lane
+
+
+K12_CASES = [(11, 8192), (11, 1900), (11, 297), (11, 1), (3, 1703)]
+
+
+@pytest.mark.parametrize("tol", ["0.01", "freeze"])
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("method", [0, 1])
+@pytest.mark.parametrize("p,b", K12_CASES)
+def test_k12_matches_twin_on_card(dev, p, b, method, lanes, tol):
+    """K12 (``tvl1_patch_solve``, through ``solve_tvl1`` / ``solve_tvl1_w``)
+    against its twin on the card and on the CPU, bit for bit: the solved
+    canvases and the energies, two warps of at most 4 PD iterations; P 11
+    at B 8192 / 1900 / 297 / 1 and P 3 (the seed insertion's) at B 1703,
+    methods 0 and 1, one lane and two lane-stacked pairs; "freeze": a tol
+    under which every canvas stops after one PD iteration of each warp."""
+    from faldoi_tpu_torch.core.functionals import (
+        _solve_tvl1_family_plain, solver_for, tvl1_patch_solve,
+    )
+
+    sc = _k12_consts(dev, lanes, method)
+    if tol == "freeze":
+        sc = sc._replace(tol=torch.full_like(sc.tol, 1e3))
+    geo, u1, u2, lane = _k12_patches(sc, dev, p, b, lanes, 330 + p + b)
+    args = (*geo, u1, u2, p, 2, 4)
+    want = _solve_tvl1_family_plain(sc, *args, method == 1, lane)
+    cpu_sc = type(sc)(*(None if f is None else f.cpu() for f in sc))
+    cpu = _solve_tvl1_family_plain(
+        cpu_sc, *(t.cpu() for t in args[:8]), *args[8:], method == 1,
+        None if lane is None else lane.cpu())
+    before = tvl1_patch_solve.launches
+    got = solver_for(method)(sc, *args, lane=lane)
+    assert tvl1_patch_solve.launches == before + 1
+    for x, y, z in zip(got, want, cpu):
+        assert _same_nan(x, y)
+        assert _same_nan(x, z)
+    if tol == "freeze":
+        # one PD iteration a warp: the same as max_iters 1
+        once = solver_for(method)(sc, *args[:-1], 1, lane=lane)
+        for x, y in zip(got, once):
+            assert _same_nan(x, y)
+
+
+@pytest.mark.parametrize("p,b", [(7, 61), (32, 3)])
+def test_k12_other_sides_match_twin_on_card(dev, p, b):
+    """K12 at sides compiled for no size: 7, and 32 (one 1024-thread canvas
+    a block), method 1, bit for bit against its twin on the card."""
+    from faldoi_tpu_torch.core.functionals import (
+        _solve_tvl1_family_plain, tvl1_patch_solve,
+    )
+
+    sc = _k12_consts(dev, 1, 1, p=p)
+    geo, u1, u2, _ = _k12_patches(sc, dev, p, b, 1, 340 + p)
+    args = (*geo, u1, u2, p, 1, 4, True)
+    got = tvl1_patch_solve(sc, *args)
+    want = _solve_tvl1_family_plain(sc, *args)
+    for x, y in zip(got, want):
+        assert _same_nan(x, y)
+
+
+def test_k12_refuses_what_it_does_not_take_on_card(dev):
+    from faldoi_tpu_torch.core.functionals import tvl1_patch_solve
+
+    sc = _k12_consts(dev, 1, 0)
+    geo, u1, u2, _ = _k12_patches(sc, dev, 11, 16, 1, 350)
+    before = tvl1_patch_solve.launches
+
+    def solve(*args, **kw):
+        return tvl1_patch_solve(sc if "sc" not in kw else kw.pop("sc"), *args,
+                                **kw)
+
+    with pytest.raises(TypeError):
+        solve(*geo, u1.double(), u2.double(), 11, 1, 4, False)
+    with pytest.raises(TypeError):
+        solve(*geo[:4], geo[4].float(), geo[5], u1, u2, 11, 1, 4, False)
+    with pytest.raises(ValueError):
+        solve(*geo, u1[:8], u2[:8], 11, 1, 4, False)
+    with pytest.raises(ValueError):
+        solve(*geo, u1, u2[:, :10, :10], 11, 1, 4, False)
+    with pytest.raises(ValueError):
+        solve(*geo[:5], geo[5][:8], u1, u2, 11, 1, 4, False)
+    with pytest.raises(ValueError):     # method 1 without its window
+        solve(*geo, u1, u2, 11, 1, 4, True)
+    with pytest.raises(ValueError):     # a lane index with one lane's consts
+        solve(*geo, u1, u2, 11, 1, 4, False,
+              lane=torch.zeros(16, dtype=torch.int64, device=dev))
+    big = torch.zeros((16, 33, 33), device=dev)
+    with pytest.raises(ValueError):
+        solve(*geo, big, big, 33, 1, 4, False)
+    assert tvl1_patch_solve.launches == before

@@ -105,12 +105,14 @@ bit for bit to its twin at 436x1024, 97x131 and 5x7, one and two lanes, with
 no finite cell, one, and the golden seed positions, and K11 at the same
 shapes; each is timed in a CUDA graph of 20 calls at the F2 path's shapes.
 K13 (the canvas Poisson fill) is held bit for bit to its twin at the
-sweep's u and v (two planes of one launch) at P 11 with B 8192, 1900 and 1,
-red-black and exact, and at the seed insertion's P 3; K12 (the TV-L1 patch
-solve) at the m0 sweep's two lanes (B 16384), P 11 with B 8192, 1900, 297
-and 1, methods 0 and 1, P 3 at the seed count, two warps, and a tol that
-stops every canvas after one PD step; each timed in a CUDA graph of 20
-calls beside its twin.  On the m0, pairs and ``faldoi_sift`` paths K12 must
+sweep's u and v (two planes of one launch) at P 11 with B 16384 (the
+lockstep sweep's), 8192, 1900, 577 and 1, red-black and exact, and at the
+seed insertion's P 3; K12 (the TV-L1 patch solve) at the m0 sweep's two
+lanes (B 16384), P 11 with B 8192, 1900, 297 and 1, methods 0 and 1, P 3
+at the seed count, two warps, and a tol that stops every canvas after one
+PD step; each timed in a CUDA graph of 20 calls beside its twin and, in
+turns, beside its former form (``cli/patch_variants.py``, built with the
+kernels).  On the m0, pairs and ``faldoi_sift`` paths K12 must
 launch once a patch solve and K13 once a fill, and K0's stack form and K4's
 patch form never; after the m0 path, ``cli/sweep_profile.py`` times a
 window of its sweeps and counts, under ``torch.profiler``, each sweep's
@@ -1737,11 +1739,14 @@ def k13_ops(x, ph, pw, exact, niter=3, scale=7):
     return ops
 
 
-def k13_row(dev, rng, b, p, exact, n_planes=2):
+def k13_row(dev, rng, b, p, exact, variants, n_planes=2):
     """K13 on one call's canvases: bit for bit against its twin on the card
     (the two planes as the twin's one batch); timed as a graph of 20 calls,
-    eagerly and beside the twin.  Returns the row."""
+    eagerly and beside the twin, and in turns with its former form
+    (``cli/patch_variants.py``; both held to the twin first).  Returns the
+    row."""
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.cli.patch_variants import time_k13
     from faldoi_tpu_torch.ops.poisson import (
         poisson_fill_canvas_plain, poisson_fill_planes,
     )
@@ -1763,29 +1768,36 @@ def k13_row(dev, rng, b, p, exact, n_planes=2):
     x = torch.cat(planes)
     nbytes = 2 * x.numel() * 4 + 2 * b * 8
     mode = "exact" if exact else "red-black"
+    turns = time_k13(variants, planes, ph, pw, exact)
     row = dict(shape=f"{n_planes} x P {p} B {b} {mode}", max_abs_err=0.0,
                ms=cuda_ms(lambda: poisson_fill_planes(planes, ph, pw,
                                                       exact=exact), graph=True),
+               ms_spread=turns["library"],
+               former_ms=float(np.mean(turns["former"])),
+               former_spread=turns["former"],
                eager_ms=cuda_ms(lambda: poisson_fill_planes(planes, ph, pw,
                                                             exact=exact)),
                plain_ms=cuda_ms(twin, reps=3, warmup=1),
                **bound(nbytes, k13_ops(x, ph.repeat(n_planes),
                                        pw.repeat(n_planes), exact)))
     log(f"K13 poisson_fill_planes {row['shape']}: bit-exact; kernel "
-        f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f})  twin "
+        f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}; in turns "
+        f"{turns['library']}, former form {turns['former']})  twin "
         f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
     return row
 
 
-def check_k13(dev, rng, n_seeds):
+def check_k13(dev, rng, n_seeds, variants):
     """K13 at the paths' shapes: the sweep's u and v (two planes) at P 11,
-    B 8192, 1900 and 1, red-black (methods 0-3, 8) and exact (4-7); the
-    seed insertion's at P 3, B the seed count, exact.  The record is the
-    first row's (the m0 sweep's)."""
-    rows = [k13_row(dev, rng, b, p, exact)
-            for p, b, exact in ((11, BSZ, False), (11, BSZ, True),
-                                (11, 1900, False), (11, 1900, True),
+    B 2 x 8192 (the lockstep sweep's), 8192, 1900, 577 (the m4 path's
+    median) and 1, red-black (methods 0-3, 8) and exact (4-7); the seed
+    insertion's at P 3, B the seed count, exact; each beside its former form.
+    The record is the first row's (the m0 sweep's)."""
+    rows = [k13_row(dev, rng, b, p, exact, variants)
+            for p, b, exact in ((11, 2 * BSZ, False), (11, BSZ, False),
+                                (11, BSZ, True), (11, 1900, False),
+                                (11, 1900, True), (11, 577, True),
                                 (11, 1, False), (11, 1, True),
                                 (3, n_seeds, True))]
     return dict(name="poisson_fill_planes", route="cuda",
@@ -1876,12 +1888,14 @@ def twin_pd_steps(args):
     return res, steps
 
 
-def k12_row(dev, rng, scs, b, p, method, lanes, warps=1, max_iters=4,
-            tol=None):
+def k12_row(dev, rng, scs, b, p, method, lanes, variants, warps=1,
+            max_iters=4, tol=None):
     """K12 on one call: bit for bit against its twin on the card (canvases
     and energies); timed as a graph of 20 calls, eagerly and beside the
-    twin.  Returns the row."""
+    twin, and in turns with its former form (``cli/patch_variants.py``; both
+    held to the twin first).  Returns the row."""
     from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    from faldoi_tpu_torch.cli.patch_variants import time_k12
     from faldoi_tpu_torch.core.functionals import (
         _solve_tvl1_family_plain, tvl1_patch_solve,
     )
@@ -1900,35 +1914,40 @@ def k12_row(dev, rng, scs, b, p, method, lanes, warps=1, max_iters=4,
                                  "from its twin")
     counts = {str(k): int(sum(int((n == k).sum()) for n in iters))
               for k in range(max_iters + 1)}
+    turns = time_k12(variants, args)
     row = dict(shape=f"P {p} B {b} m{method} L {lanes}, {warps} warp(s) x "
                f"<= {max_iters}" + (f", tol {tol:g}" if tol is not None else ""),
                max_abs_err=0.0,
                ms=cuda_ms(lambda: tvl1_patch_solve(*args), graph=True),
+               ms_spread=turns["library"],
+               former_ms=float(np.mean(turns["former"])),
+               former_spread=turns["former"],
                eager_ms=cuda_ms(lambda: tvl1_patch_solve(*args)),
                plain_ms=cuda_ms(lambda: _solve_tvl1_family_plain(*args), reps=3,
                                 warmup=1),
                iterations=counts,
                **k12_bound(sc, idx, u1, u2, lane, p, iters))
     log(f"K12 tvl1_patch_solve {row['shape']}: bit-exact (PD iterations "
-        f"{counts}); kernel {row['ms']:.4f} ms (eager {row['eager_ms']:.4f})  "
+        f"{counts}); kernel {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}; "
+        f"in turns {turns['library']}, former form {turns['former']})  "
         f"twin {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
     return row
 
 
-def check_k12(dev, rng, a, b, n_seeds):
+def check_k12(dev, rng, a, b, n_seeds, variants):
     """K12 at the paths' shapes, bit for bit against its twin: the m0 and
     pairs paths' lockstep sweep (two lanes, B up to 2 x 8192), one lane at P
     11 with B 8192, 1900, 297 and 1, methods 0 and 1 (the faldoi_sift
     path's), the seed insertion's P 3 at the seed count, two warps, and a
-    tol that stops every canvas after one PD step.  The record is the
-    first row's (the m0 sweep's)."""
+    tol that stops every canvas after one PD step; each beside its former
+    form.  The record is the first row's (the m0 sweep's)."""
     from faldoi_tpu_torch.core.functionals import make_solver_consts
     from faldoi_tpu_torch.models import method_local_params
 
     scs = {m: [make_solver_consts(x, y, *method_local_params(m, 5), 0.01, 11, m)
                for x, y in ((a, b), (b, a))] for m in (0, 1)}
-    rows = [k12_row(dev, rng, scs[m], nb, p, m, lanes, warps, 4, tol)
+    rows = [k12_row(dev, rng, scs[m], nb, p, m, lanes, variants, warps, 4, tol)
             for nb, p, m, lanes, warps, tol in (
                 (2 * BSZ, 11, 0, 2, 1, None), (BSZ, 11, 0, 1, 1, None),
                 (BSZ, 11, 1, 1, 1, None), (1900, 11, 0, 2, 1, None),
@@ -2914,22 +2933,26 @@ def run_all(jobs, tmp):
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # phase 2: build the kernels from the checkout's sources (in parallel),
-    # and beside them K10's and K11's former forms, which phase 3 times
+    # and beside them the former forms of K10, K11, K4's point form, K12
+    # and K13, which phase 3 times
     from concurrent.futures import ThreadPoolExecutor
 
-    from faldoi_tpu_torch.cli import k4_variants
+    from faldoi_tpu_torch.cli import k4_variants, patch_variants
     from faldoi_tpu_torch.cli.fill_variants import build_variants
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         former = pool.submit(build_variants)
         former_k4 = pool.submit(k4_variants.build_variants)
+        former_patch = pool.submit(patch_variants.build_variants)
         path = kb.build(verbose=True)
         kb.library()
         fill_lib = former.result()
         k4_lib = former_k4.result()
+        patch_lib, _ = former_patch.result()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)} "
-        "(and csrc/variants/fill_variants.cu, csrc/variants/k4_variants.cu)")
+        "(and csrc/variants/fill_variants.cu, csrc/variants/k4_variants.cu, "
+        "csrc/variants/patch_variants.cu)")
 
     # the synthetic pair and the golden seed positions; the CSAD crops'
     # CPU twins start in child processes at once and run beside the card
@@ -2945,8 +2968,9 @@ def run_all(jobs, tmp):
     a, b = prepare_pair(i0, i1, device="cuda")
     kernels = [*check_k0(dev, rng, len(pos_f)), *check_k4_warp(dev, rng),
                check_k4_patches(dev, rng), *check_lanes(dev, rng),
-               check_k5(dev, rng, a, b, gf), check_k13(dev, rng, len(pos_f)),
-               check_k12(dev, rng, a, b, len(pos_f))]
+               check_k5(dev, rng, a, b, gf),
+               check_k13(dev, rng, len(pos_f), patch_lib),
+               check_k12(dev, rng, a, b, len(pos_f), patch_lib)]
     scs = nltv_local_consts(a, b, i0, i1)
     planes_rec = [k for k in kernels if k["name"] == "gather_plane_patches"][0]
     planes_rec["shapes"] = planes_rec["shapes"] + check_k0_c24(dev, rng, scs[2],

@@ -330,31 +330,14 @@ def _solve_tvl1_family_plain(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1,
     return u1, u2, ener
 
 
-def tvl1_patch_solve(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
-                     p: int, warps: int, max_iters: int, weighted: bool,
-                     lane=None):
-    """K12: solve B TV-L1 patches, weighted (method 1) or not (method 0),
-    in one launch: the source crop, each warp's samples and tol-gated PD
-    loop, and the energy.  The arguments and results are those of the twin
-    ``_solve_tvl1_family_plain``: ci, cj, oy, ox, ph, pw (B,) integers
-    (int64 read as they are), u1, u2 (B, P, P) float32, ``lane`` None or
-    the (B,) lane index into lane-stacked consts; returns (u1, u2, ener).
-    P * P <= 1024.
-
-    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
-    raise).  ``launches`` counts launches."""
-    if u1.dim() != 3 or u1.shape[1] != u1.shape[2] or u1.shape[1] != p:
-        raise ValueError(f"u1 must be (B, {p}, {p}), got {tuple(u1.shape)}")
-    if u2.shape != u1.shape:
-        raise ValueError(f"u2 {tuple(u2.shape)} differs from u1 "
-                         f"{tuple(u1.shape)}")
-    kb.check_canvas_side(p, "tvl1_patch_solve")
-    if weighted and sc.w1d is None:
-        raise ValueError("the weighted solve needs SolverConsts.w1d (method 1 "
-                         "consts)")
-    if u1.device.type == "cpu":
-        return _solve_tvl1_family_plain(sc, ci, cj, oy, ox, ph, pw, u1, u2, p,
-                                        warps, max_iters, weighted, lane)
+def tvl1_patch_args(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
+                    p: int, warps: int, max_iters: int, weighted: bool,
+                    lane=None):
+    """K12's C arguments (all but the stream) for CUDA tensors, checked as
+    ``tvl1_patch_solve`` checks them: returns (args or None for B 0, the
+    allocated outputs (u1, u2, ener), the int64 copies to keep alive until
+    the launch is enqueued).  ``cli/patch_variants.py`` launches the former
+    form and the variants with the same arguments."""
     dev, b = u1.device, u1.shape[0]
     stacked = lane is not None
     if sc.i0pad.dim() != 2 + stacked or sc.i1_stack.dim() != 3 + stacked:
@@ -389,19 +372,53 @@ def tvl1_patch_solve(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
     ln = None if lane is None else kb.int64_vector(lane, "lane", b, dev)
     u1o, u2o = torch.empty_like(u1), torch.empty_like(u2)
     ener = torch.empty((b,), dtype=torch.float32, device=dev)
+    outs = (u1o, u2o, ener)
     if b == 0:
-        return u1o, u2o, ener
-    code = kb.library().faldoi_tvl1_patch_solve(
+        return None, outs, ()
+    args = (
         sc.i0pad.data_ptr(), sc.i1_stack.data_ptr(),
         *(t.data_ptr() for t in idx), None if ln is None else ln.data_ptr(),
         u1.data_ptr(), u2.data_ptr(),
         *(getattr(sc, k).data_ptr() for k in ("lambda_", "theta", "tau", "tol")),
         sc.w1d.data_ptr() if weighted else None, u1o.data_ptr(),
         u2o.data_ptr(), ener.data_ptr(), hp, wpp, h, w, b, p, wr, int(warps),
-        int(max_iters), kb.stream_ptr(dev))
+        int(max_iters))
+    return args, outs, (idx, ln)
+
+
+def tvl1_patch_solve(sc: SolverConsts, ci, cj, oy, ox, ph, pw, u1, u2,
+                     p: int, warps: int, max_iters: int, weighted: bool,
+                     lane=None):
+    """K12: solve B TV-L1 patches, weighted (method 1) or not (method 0),
+    in one launch: the source crop, each warp's samples and tol-gated PD
+    loop, and the energy.  The arguments and results are those of the twin
+    ``_solve_tvl1_family_plain``: ci, cj, oy, ox, ph, pw (B,) integers
+    (int64 read as they are), u1, u2 (B, P, P) float32, ``lane`` None or
+    the (B,) lane index into lane-stacked consts; returns (u1, u2, ener).
+    P * P <= 1024.
+
+    CPU tensors go to the plain twin; CUDA tensors launch the kernel (or
+    raise).  ``launches`` counts launches."""
+    if u1.dim() != 3 or u1.shape[1] != u1.shape[2] or u1.shape[1] != p:
+        raise ValueError(f"u1 must be (B, {p}, {p}), got {tuple(u1.shape)}")
+    if u2.shape != u1.shape:
+        raise ValueError(f"u2 {tuple(u2.shape)} differs from u1 "
+                         f"{tuple(u1.shape)}")
+    kb.check_canvas_side(p, "tvl1_patch_solve")
+    if weighted and sc.w1d is None:
+        raise ValueError("the weighted solve needs SolverConsts.w1d (method 1 "
+                         "consts)")
+    if u1.device.type == "cpu":
+        return _solve_tvl1_family_plain(sc, ci, cj, oy, ox, ph, pw, u1, u2, p,
+                                        warps, max_iters, weighted, lane)
+    args, outs, _keep = tvl1_patch_args(sc, ci, cj, oy, ox, ph, pw, u1, u2,
+                                        p, warps, max_iters, weighted, lane)
+    if args is None:
+        return outs
+    code = kb.library().faldoi_tvl1_patch_solve(*args, kb.stream_ptr(u1.device))
     kb.check(code, "tvl1_patch_solve")
     tvl1_patch_solve.launches += 1
-    return u1o, u2o, ener
+    return outs
 
 
 tvl1_patch_solve.launches = 0   # K12 launches, raised after a launch

@@ -151,6 +151,30 @@ def poisson_fill_canvas_plain(x: torch.Tensor, ph: torch.Tensor,
     return out
 
 
+def poisson_fill_args(planes, ph, pw, timestep, niter, scale, exact):
+    """K13's C arguments (all but the stream) for one or two CUDA planes of
+    the same (B, P, P) shape, checked as ``poisson_fill_planes`` checks
+    them: returns (args or None for B 0, the allocated outputs, what must
+    stay alive until the launch is enqueued).  ``cli/patch_variants.py``
+    launches the former form and the variants with the same arguments."""
+    x, n = planes[0], len(planes)
+    b, p, dev = x.shape[0], x.shape[1], x.device
+    for k, t in enumerate(planes):
+        kb.require_cuda_tensor(t, f"plane {k}", torch.float32, dev)
+    boxes = [kb.int64_vector(t, name, b, dev) for name, t in
+             (("ph", ph), ("pw", pw))]
+    outs = tuple(torch.empty_like(t) for t in planes)
+    if b == 0:
+        return None, outs, ()
+    sides = _level_sizes(p, scale)
+    c_sides = (ctypes.c_int * len(sides))(*sides)
+    args = (x.data_ptr(), planes[-1].data_ptr() if n > 1 else None,
+            outs[0].data_ptr(), outs[-1].data_ptr() if n > 1 else None,
+            boxes[0].data_ptr(), boxes[1].data_ptr(), b, n, p, c_sides,
+            len(sides), float(timestep), int(niter), int(bool(exact)))
+    return args, outs, (boxes, c_sides)
+
+
 def poisson_fill_planes(planes, ph: torch.Tensor, pw: torch.Tensor,
                         timestep: float = 0.4, niter: int = 3, scale: int = 7,
                         exact: bool = True):
@@ -183,22 +207,11 @@ def poisson_fill_planes(planes, ph: torch.Tensor, pw: torch.Tensor,
         f = poisson_fill_canvas_plain(both, ph.repeat(n), pw.repeat(n),
                                       timestep, niter, scale, exact)
         return tuple(f.split(b)) if n > 1 else (f,)
-    dev = x.device
-    for k, t in enumerate(planes):
-        kb.require_cuda_tensor(t, f"plane {k}", torch.float32, dev)
-    boxes = [kb.int64_vector(t, name, b, dev) for name, t in
-             (("ph", ph), ("pw", pw))]
-    outs = tuple(torch.empty_like(t) for t in planes)
-    if b == 0:
+    args, outs, _keep = poisson_fill_args(planes, ph, pw, timestep, niter,
+                                          scale, exact)
+    if args is None:
         return outs
-    sides = _level_sizes(p, scale)
-    c_sides = (ctypes.c_int * len(sides))(*sides)
-    code = kb.library().faldoi_poisson_fill(
-        x.data_ptr(), planes[-1].data_ptr() if n > 1 else None,
-        outs[0].data_ptr(), outs[-1].data_ptr() if n > 1 else None,
-        boxes[0].data_ptr(), boxes[1].data_ptr(), b, n, p, c_sides,
-        len(sides), float(timestep), int(niter), int(bool(exact)),
-        kb.stream_ptr(dev))
+    code = kb.library().faldoi_poisson_fill(*args, kb.stream_ptr(x.device))
     kb.check(code, "poisson_fill_planes")
     poisson_fill_planes.launches += 1
     return outs

@@ -1862,7 +1862,11 @@ def _fill_canvases(rng, b, p, kind="random"):
             [torch.as_tensor(x) for x in (ph, pw)])
 
 
-K13_CASES = [(11, 8192), (11, 1900), (11, 1), (3, 1703), (7, 61), (32, 5)]
+# the sweep's P 11, the seed insertion's P 3, B odd and B 1 (a warp's second
+# canvas missing), sides compiled for no size: 7, 16 (the largest with two
+# canvases a warp), 17 (one canvas a warp) and 32 (the largest)
+K13_CASES = [(11, 8192), (11, 1900), (11, 577), (11, 1901), (11, 1), (3, 1703),
+             (3, 1), (7, 61), (16, 33), (17, 3), (32, 5)]
 
 
 @pytest.mark.parametrize("exact", [False, True], ids=["red-black", "exact"])
@@ -1871,8 +1875,8 @@ def test_k13_matches_twin_on_card(dev, p, b, exact):
     """K13 (``poisson_fill_planes``) against its twin on the card and on
     the CPU, bit for bit: u and v of B canvases as two planes of one launch
     and one plane alone, the sweep's P 11 at B 8192, 1900 and 1, the seed
-    insertion's P 3 at B 1703, a side compiled for no size (7) and the
-    largest (32, one 1024-thread canvas a block)."""
+    insertion's P 3 at B 1703 and 1, B odd, and sides compiled for no size
+    (7, 16, 17 and the largest, 32)."""
     from faldoi_tpu_torch.ops.poisson import (
         poisson_fill_canvas, poisson_fill_canvas_plain, poisson_fill_planes,
     )
@@ -1894,6 +1898,30 @@ def test_k13_matches_twin_on_card(dev, p, b, exact):
     assert poisson_fill_planes.launches == before + 2
     assert _same_nan(one, got[1])
     assert torch.equal(ud.isnan(), u.to(dev).isnan())   # inputs unchanged
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["red-black", "exact"])
+@pytest.mark.parametrize("p,b", [(11, 33), (3, 7)])
+def test_k13_infinite_holes_one_plane_on_card(dev, p, b, exact):
+    """K13 on one plane of an odd B (two patches a warp, the last warp's
+    second canvas missing) with +inf and -inf holes beside NaN ones and
+    an all-NaN canvas, bit for bit against its twin on the card."""
+    from faldoi_tpu_torch.ops.poisson import (
+        poisson_fill_canvas, poisson_fill_canvas_plain,
+    )
+
+    rng = np.random.default_rng(320 + p + b)
+    (u, _), (ph, pw) = _fill_canvases(rng, b, p)
+    u[4, 0, 1] = float("-inf")
+    u[6, 1, 0] = float("inf")
+    u[6, 0, 0] = float("-inf")
+    u[b - 1] = float("nan")
+    ud, phd, pwd = u.to(dev), ph.to(dev), pw.to(dev)
+    want = poisson_fill_canvas_plain(ud, phd, pwd, exact=exact)
+    got = poisson_fill_canvas(ud, phd, pwd, exact=exact)
+    assert _same_nan(got, want)
+    assert _same_nan(got, poisson_fill_canvas_plain(u, ph, pw, exact=exact))
+    assert bool(torch.isfinite(got).all())
 
 
 def test_k13_refuses_what_it_does_not_take_on_card(dev):
@@ -2007,6 +2035,37 @@ def test_k12_matches_twin_on_card(dev, p, b, method, lanes, tol):
             assert _same_nan(x, y)
 
 
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("method", [0, 1])
+@pytest.mark.parametrize("p,b", [(11, 1900), (3, 1703)])
+def test_k12_mixed_freeze_on_card(dev, p, b, method, lanes):
+    """K12 with a tol at the median of the first PD step's err, two warps
+    of at most 4 steps: about half the canvases stop after one step while
+    their neighbours in the same block (or warp group) run on; bit for bit
+    against its twin on the card, and the split is checked."""
+    from faldoi_tpu_torch.core.functionals import (
+        _solve_tvl1_family_plain, solver_for, tvl1_patch_solve,
+    )
+
+    sc = _k12_consts(dev, lanes, method, p=p)
+    geo, u1, u2, lane = _k12_patches(sc, dev, p, b, lanes, 360 + p + b)
+    one = _solve_tvl1_family_plain(sc, *geo, u1, u2, p, 1, 1, method == 1, lane)
+    e1, e2 = one[0] - u1, one[1] - u2
+    err = (e1 * e1 + e2 * e2).amax(dim=(1, 2))   # zero outside the box
+    tol = float(err.median().sqrt())
+    sc = sc._replace(tol=torch.full_like(sc.tol, tol))
+    frozen = err <= sc.tol * sc.tol
+    pairs = frozen[0:b - 1:2] != frozen[1:b:2]
+    assert 0.25 * b < int(frozen.sum()) < 0.75 * b and bool(pairs.any())
+    args = (*geo, u1, u2, p, 2, 4)
+    want = _solve_tvl1_family_plain(sc, *args, method == 1, lane)
+    before = tvl1_patch_solve.launches
+    got = solver_for(method)(sc, *args, lane=lane)
+    assert tvl1_patch_solve.launches == before + 1
+    for x, y in zip(got, want):
+        assert _same_nan(x, y)
+
+
 @pytest.mark.parametrize("p,b", [(7, 61), (32, 3)])
 def test_k12_other_sides_match_twin_on_card(dev, p, b):
     """K12 at sides compiled for no size: 7, and 32 (one 1024-thread canvas
@@ -2022,6 +2081,61 @@ def test_k12_other_sides_match_twin_on_card(dev, p, b):
     want = _solve_tvl1_family_plain(sc, *args)
     for x, y in zip(got, want):
         assert _same_nan(x, y)
+
+
+@pytest.fixture(scope="module")
+def patch_variants_lib():
+    """The former forms of K12 and K13 and the redesign's variants
+    (``csrc/variants/patch_variants.cu``), built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from faldoi_tpu_torch.cli.patch_variants import build_variants
+
+    return build_variants()[0]
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["red-black", "exact"])
+@pytest.mark.parametrize("p,b,n", [(11, 577, 2), (11, 33, 1), (3, 1703, 2),
+                                   (7, 5, 2)])
+def test_k13_former_form_matches_library_on_card(dev, patch_variants_lib, p, b,
+                                                 n, exact):
+    """Every K13 form of ``cli/patch_variants.py`` (the former, the library's,
+    the row in registers, without the register bound) equals the library's
+    ``poisson_fill_planes`` bit for bit, one and two planes."""
+    from faldoi_tpu_torch.cli.patch_variants import K13_VARIANTS, k13_variant
+    from faldoi_tpu_torch.ops.poisson import poisson_fill_planes
+
+    rng = np.random.default_rng(370 + p + b)
+    planes, (ph, pw) = _fill_canvases(rng, b, p)
+    planes = tuple(t.to(dev) for t in planes[:n])
+    ph, pw = ph.to(dev), pw.to(dev)
+    want = poisson_fill_planes(planes, ph, pw, exact=exact)
+    for v, name in K13_VARIANTS.items():
+        got = k13_variant(patch_variants_lib, v, planes, ph, pw, exact)
+        assert all(_same_nan(x, y) for x, y in zip(got, want)), name
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("method", [0, 1])
+@pytest.mark.parametrize("p,b", [(11, 297), (3, 61)])
+def test_k12_former_form_matches_library_on_card(dev, patch_variants_lib, p, b,
+                                                 method, lanes):
+    """Every bit-equal K12 form of ``cli/patch_variants.py`` (the former, the
+    block, named-barrier and warp layouts at each launch bound) equals the
+    library's ``tvl1_patch_solve`` bit for bit, two warps of at most 4 PD
+    steps."""
+    from faldoi_tpu_torch.cli.patch_variants import FAST, K12_VARIANTS, k12_variant
+    from faldoi_tpu_torch.core.functionals import tvl1_patch_solve
+
+    sc = _k12_consts(dev, lanes, method, p=p)
+    geo, u1, u2, lane = _k12_patches(sc, dev, p, b, lanes, 380 + p + b)
+    args = (sc, *geo, u1, u2, p, 2, 4, method == 1, lane)
+    want = tvl1_patch_solve(*args)
+    for v, (name, *_, mode) in K12_VARIANTS.items():
+        if mode == FAST:   # approximate divisions and root: timing only
+            continue
+        got = k12_variant(patch_variants_lib, v, args)
+        assert all(_same_nan(x, y) for x, y in zip(got, want)), name
 
 
 def test_k12_refuses_what_it_does_not_take_on_card(dev):

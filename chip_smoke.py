@@ -30,9 +30,13 @@ just before it and read just after:
   ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside a warp);
 * the m6 (NLTV-CSAD) path the same way, ``local_faldoi -m 6`` then
   ``global_faldoi -m 6``: K0 crops the 24 weight planes, K16 runs the whole
-  PD loop of every patch solve batch and warp in one launch, K15 every
-  global warp (K8's whole-image form and one ``csrc/nltv.cu`` step an
-  iteration);
+  PD loop of every patch solve batch and warp in one launch, K15 the whole
+  PD loop of every global warp in one call, each under
+  ``torch.cuda.set_sync_debug_mode("error")``; both paths must give the
+  rg / var sha256 of ``PATH_DIGESTS``;
+* K8's path, the true-TV CSAD patch solve (``solve_tvcsad(true_tv=True)``,
+  B 297, P 11, 2 warps x 4 PD iterations: K8's patch form once a PD
+  iteration; K8's whole-image form runs on no path);
 * the m8 (TV-L1 with occlusions) path the same way on the four-frame
   sequence, ``local_faldoi -m 8`` then ``global_faldoi -m 8``: K9's patch
   form runs every patch solve batch and warp (its calls timed where they
@@ -108,9 +112,14 @@ forms and their times summed.  K14
 real warp (tol^2 0 to 10 iterations, also bit for bit with the
 per-iteration form it replaced; a tol^2 that stops it after 1-3; tol^2
 1e10), 40x56 and 5x7, and refuses 2x7; timed as a graph of 20 calls beside
-the per-iteration form and the twin, and at the path's 400 iterations.  K15
-(NLTV-CSAD's global loop) the same at 436x1024 (10 iterations), 40x56 and
-5x7, bit for bit with its twin and the per-iteration form.  K16
+the per-iteration form and the twin, in turns with the former form (counting
+every PD iteration, ``cli/k8_variants.py``, built with the kernels), and
+at the path's 400 iterations, in turns too.  K15 (NLTV-CSAD's global loop)
+the same at 436x1024 (10 iterations, and 1), 40x56 and 5x7, bit for bit
+with its twin and the per-iteration form, K8 launched never.  After the
+paths, the m4 path's 5 K14 calls and the m6 path's 5 K15 calls are
+replayed on their own arguments through the former forms and the library's,
+in turns, bit for bit between the two.  K16
 (NLTV-CSAD's patch loop) at P 11 with B 8192, 1900 (m7's per-cell l_t,
 given duals), 676, 297 and 1, P 3 at the seed count, under a tol^2 of 1e10
 and under a tol^2 at which canvases stop at different iterations, bit for
@@ -174,7 +183,8 @@ SEED = 0
 # keys of a kernel's record printed beside the required ones
 EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m6", "launches_m8",
          "launches_sift", "launches_pairs", "launches_f1", "launches_f2",
-         "launches_mesh",
+         "launches_mesh", "launches_k8tv", "path_former_s", "path_former_ms",
+         "turns_ms", "path_turns_ms",
          "launches_per_call",
          "launches_c24_m2", "shape", "eager_ms", "wrapper_ms", "per_iter_us",
          "point_ms", "point_glue_ms", "former_ms", "copy_ms", "flows",
@@ -199,9 +209,16 @@ M2_KERNELS = ("nltv_global_loop", "nltv_patch_loop", "gather_patches",
               "bicubic_sample_patches", "gather_patches_lanes",
               "bicubic_sample_patches_lanes")
 M4_KERNELS = ("csad_patch_loop", "tvcsad_global_loop")
-# the m6 path's: K8's whole-image form runs only in K15's loop since K14
-# and K16 select on their own
-M6_KERNELS = ("csad_vstep", "nltvcsad_global_loop", "nltvcsad_patch_loop")
+# the m6 path's (K14, K15, K16 and the K8 loop select on their own)
+M6_KERNELS = ("nltvcsad_global_loop", "nltvcsad_patch_loop")
+# K8's own path: its patch form runs only in the true-TV CSAD patch solve
+# (``solve_tvcsad(true_tv=True)``, on no default path), which phase 5b3
+# drives; its whole-image form on no path
+K8_KERNELS = ("csad_vstep",)
+# the sha256 of rg / var (``digest``) of the m4 and m6 paths: the ranked
+# loops must leave them as the counting ones made them
+PATH_DIGESTS = {4: ("efc02b36fa6e0bd3", "546cc586cd11ab5d"),
+                6: ("a06be662497bf16d", "cc198c3f174e451f")}
 M8_KERNELS = ("occ_patch_loop", "occ_global_loop")
 # the lane forms' records, whose main path is pairs mode (N = 4)
 PAIRS_KERNELS = ("gather_plane_patches_lanes",)
@@ -1434,50 +1451,6 @@ K15_PLANES = 2 * (4 + 48) + 24 + 5 + 48
 K16_OPS = K7_OPS - 16
 
 
-def csad_global_args(a, b, flow, method, i0=None, iters=GLOBAL_TIMED_ITERS,
-                     tol2=0.0):
-    """One warp's arguments of the CSAD global loops as ``tvcsad_global``
-    (method 4: K14) or ``nltvcsad_global`` (method 6: K15, with the global
-    weights of I0's colour planes ``i0``) builds them for its first warp:
-    the warp of (I1, I1x, I1y) at ``flow`` (K4's flow form), grad, the
-    breakpoints, zero duals, the method's global lambda, theta and tau.
-    K14's take ``tol2`` and ``iters``; K15's ``iters``."""
-    from faldoi_tpu_torch import params as P
-    from faldoi_tpu_torch.core.global_step_nltv import global_weights
-    from faldoi_tpu_torch.core.pd_common import hypot, sqrt_rn
-    from faldoi_tpu_torch.models import method_global_params
-    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
-    from faldoi_tpu_torch.ops.csad import csad_b, image_masks
-    from faldoi_tpu_torch.ops.stencils import centered_gradient
-
-    h, w = a.shape
-    lam, theta, tau = method_global_params(method, P.Parameters())
-    l_t = float(np.float32(lam) * np.float32(theta))
-    u1, u2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
-    i1x, i1y = centered_gradient(b)
-    i1w, gx, gy = bicubic_warp_stack(torch.stack([b, i1x, i1y]), u1, u2, True)
-    gx, gy = gx.contiguous(), gy.contiguous()
-    m, n = image_masks(h, w, a.device)
-    if method == 4:
-        grad = hypot(gx * gx + gy * gy, 0.01).contiguous()
-        xi = [torch.zeros_like(u1) for _ in range(4)]
-        return [u1, u2, u1.clone(), u2.clone(), *xi,
-                csad_b(a, i1w, gx, gy, u1, u2, grad, m), gx, gy, grad, l_t, m, n,
-                theta, tau, tol2, iters]
-    grad = (gx * gx + gy * gy).contiguous()
-    sq = sqrt_rn(torch.where(grad > P.GRAD_IS_ZERO, grad,
-                             torch.ones((), device=a.device))).contiguous()
-    wp, wt = global_weights(i0, a.device)
-    sc = [torch.zeros((24, h, w), device=a.device) for _ in range(2)]
-    return [u1, u2, u1.clone(), u2.clone(), *sc, wp, wt,
-            csad_b(a, i1w, gx, gy, u1, u2, sq, m), gx, gy, sq, grad, l_t, m, n,
-            theta, tau, iters]
-
-
-def copies(args):
-    return [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
-
-
 def first_rows(args, rows):
     """The arguments of a whole-image loop cut to their first ``rows`` rows
     (every plane and stack of planes), for the refusals: a frame that small
@@ -1528,6 +1501,8 @@ def k14_errs(args, k):
         ordered_err, tvcsad_global_loop_plain,
     )
 
+    from faldoi_tpu_torch.cli.k8_variants import copies
+
     a = copies(args)
     hw = torch.tensor(float(a[0].numel()), dtype=torch.float64, device=a[0].device)
     errs = []
@@ -1539,15 +1514,19 @@ def k14_errs(args, k):
     return errs
 
 
-def k14_row(shape, args, timed=False):
+def k14_row(shape, args, gv_lib=None):
     """K14 on one warp's arguments: bit for bit against its twin (u, u_bar,
     the duals and the count) and, where the loop runs to its cap, against
     the per-iteration form it replaced (which reads err on the host in
-    another summation order, so only the cap is common); ``timed``: a CUDA
-    graph of 20 calls beside the twin and the per-iteration form (eager), and
+    another summation order, so only the cap is common); ``gv_lib`` (the
+    former forms, ``cli/k8_variants.build_global_variants``) given: timed, a
+    CUDA graph of 20 calls beside the twin and the per-iteration form
+    (eager), in turns with the former form (counting every PD iteration), and
     the path's call (400 iterations) once under
-    ``torch.cuda.set_sync_debug_mode("error")``: a host read inside the
-    warp's loop raises.  Returns the row."""
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read inside the
+    warp's loop raises), then in turns with the former form's.  Returns the
+    row."""
+    from faldoi_tpu_torch.cli.k8_variants import copies, time_global
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.global_step_csad import (
         tvcsad_global_loop, tvcsad_global_loop_plain,
@@ -1570,10 +1549,13 @@ def k14_row(shape, args, timed=False):
     row = dict(shape=shape, max_abs_err=0.0, iterations=gn,
                **bound(K14_PLANES * hw * 4,
                        gn * (k8_ops(args[14]) + K14_OPS * hw)))
-    if timed:
+    if gv_lib is not None:
         work = copies(args)
+        turns = time_global(gv_lib, "K14", args, [0, "library"])
         row.update(ms=cuda_ms(lambda: tvcsad_global_loop(*work), graph=True),
                    eager_ms=cuda_ms(lambda: tvcsad_global_loop(*work), reps=5),
+                   former_ms=float(np.mean(turns["0"])),
+                   turns_ms=float(np.mean(turns["library"])),
                    plain_ms=cuda_ms(lambda: tvcsad_global_loop_plain(*copies(args)),
                                     reps=1, warmup=1),
                    per_iteration_ms=cuda_ms(
@@ -1592,40 +1574,42 @@ def k14_row(shape, args, timed=False):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        per = copies(args)
-        per[-1] = 400
-        t0 = time.perf_counter()
-        tvcsad_per_iteration(*per)
-        torch.cuda.synchronize()
+        path = args[:-1] + [400]
+        turns = time_global(gv_lib, "K14", path, [0, "library"], reps=2)
         row.update(path_call_ms=start.elapsed_time(end),
-                   path_per_iteration_ms=(time.perf_counter() - t0) * 1e3,
+                   path_former_ms=float(np.mean(turns["0"])),
+                   path_turns_ms=float(np.mean(turns["library"])),
                    path_iterations=int(count), host_reads_in_warp=0)
     log(f"K14 tvcsad_global_loop {shape}: bit-exact with its twin"
         + (" and the per-iteration form" if capped else "")
         + f" ({gn} PD iterations)"
         + (f"; kernels {row['ms']:.4f} ms a call (graph; eager "
-           f"{row['eager_ms']:.4f}) = {1e3 * row['ms'] / gn:.2f} us an iteration, "
-           f"per-iteration form {row['per_iteration_ms']:.3f} ms, twin "
-           f"{row['plain_ms']:.3f} ms; the path's call of 400 iterations "
-           f"{row['path_call_ms']:.3f} ms between events with no host read "
-           f"(sync debug mode error), the per-iteration form's "
-           f"{row['path_per_iteration_ms']:.1f} ms with 400" if timed else "")
+           f"{row['eager_ms']:.4f}) = {1e3 * row['ms'] / gn:.2f} us an iteration; "
+           f"in turns {row['turns_ms']:.4f} ms, the former form (counting every "
+           f"iteration) {row['former_ms']:.4f} ms; per-iteration form "
+           f"{row['per_iteration_ms']:.3f} ms, twin {row['plain_ms']:.3f} ms; the "
+           f"path's call of 400 iterations {row['path_call_ms']:.3f} ms between "
+           f"events with no host read (sync debug mode error), in turns "
+           f"{row['path_turns_ms']:.3f} ms, the former's {row['path_former_ms']:.3f}"
+           f" ms" if gv_lib is not None else "")
         + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
-def check_k14(dev, rng, a, b, gf):
+def check_k14(dev, rng, a, b, gf, gv_lib):
     """K14 bit for bit against its twin: at 436x1024 from a real warp state
-    (tol^2 0 to 10 iterations, timed; a tol^2 that stops it after 1-3), at a
-    40x56 crop and 5x7 (tol^2 0 to a cap of 6), and under a tol^2 of 1e10
-    (one iteration); the 3x3 refusal.  The record is the first row's."""
+    (tol^2 0 to 10 iterations, timed beside the former form; a tol^2 that
+    stops it after 1-3), at a 40x56 crop and 5x7 (tol^2 0 to a cap of 6),
+    and under a tol^2 of 1e10 (one iteration); the 3x3 refusal.  The record
+    is the first row's."""
+    from faldoi_tpu_torch.cli.k8_variants import csad_global_args
     from faldoi_tpu_torch.core.global_step_csad import tvcsad_global_loop
 
     flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
                            device=dev)
     full = csad_global_args(a, b, flow, 4)
     rows = [k14_row(f"{H}x{W}, tol^2 0, {GLOBAL_TIMED_ITERS} PD iterations", full,
-                    timed=True)]
+                    gv_lib)]
     errs = k14_errs(full, 3)
     k = next((j + 1 for j in range(1, 3) if errs[j] < min(errs[:j])), None)
     if k is not None:
@@ -1653,7 +1637,7 @@ def check_k14(dev, rng, a, b, gf):
     else:
         raise AssertionError("K14 took a 2x7 image")
     return dict(name="tvcsad_global_loop", route="cuda",
-                source="faldoi_tpu_torch/csrc/csad_loops.cu",
+                source="faldoi_tpu_torch/csrc/csad_global.cu",
                 replaces="faldoi_tpu/core/global_step_csad.py:106",
                 library_ms=None, shapes=rows,
                 **{k: v for k, v in rows[0].items() if k != "iterations"})
@@ -1687,18 +1671,26 @@ def nltvcsad_per_iteration(u1, u2, u1_, u2_, sc_p, sc_q, wp, wt, b, i1wx, i1wy,
         u2.copy_(nu2)
 
 
-def k15_row(shape, args, timed=False):
+def k15_row(shape, args, gv_lib=None):
     """K15 on one warp's arguments: bit for bit against its twin and the
-    per-iteration form it replaced (u, u_bar, the 48 duals); ``timed``: a
-    CUDA graph of 20 calls beside both (eager), and the path's call (400
-    iterations) between events.  Returns the row."""
+    per-iteration form it replaced (u, u_bar, the 48 duals), K8 launched
+    never; ``gv_lib`` given: timed, a CUDA graph of 20 calls beside both
+    (eager) and in turns with the former form (K8's whole-image form and the
+    former step an iteration), and the path's call (400 iterations) once
+    under ``torch.cuda.set_sync_debug_mode("error")``, then in turns with
+    the former form's.  Returns the row."""
+    from faldoi_tpu_torch.cli.k8_variants import copies, time_global
     from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
     from faldoi_tpu_torch.core.global_step_csad import (
         nltvcsad_global_loop, nltvcsad_global_loop_plain,
     )
+    from faldoi_tpu_torch.ops.csad import csad_vstep
 
     got, want, per = copies(args), copies(args), copies(args)
+    k8 = csad_vstep.launches
     nltvcsad_global_loop(*got)
+    if csad_vstep.launches != k8:
+        raise AssertionError(f"K15 {shape} launched K8")
     nltvcsad_global_loop_plain(*want)
     nltvcsad_per_iteration(*per)
     torch.cuda.synchronize()
@@ -1709,43 +1701,68 @@ def k15_row(shape, args, timed=False):
     row = dict(shape=shape, max_abs_err=0.0,
                **bound(K15_PLANES * hw * 4,
                        iters * (k8_ops(args[15]) + K15_OPS * hw)))
-    if timed:
+    if gv_lib is not None:
         work = copies(args)
+        turns = time_global(gv_lib, "K15", args, [0, "library"])
         row.update(ms=cuda_ms(lambda: nltvcsad_global_loop(*work), graph=True),
                    eager_ms=cuda_ms(lambda: nltvcsad_global_loop(*work), reps=3),
+                   former_ms=float(np.mean(turns["0"])),
+                   turns_ms=float(np.mean(turns["library"])),
                    per_iteration_ms=cuda_ms(
                        lambda: nltvcsad_per_iteration(*work), reps=3),
                    plain_ms=cuda_ms(lambda: nltvcsad_global_loop_plain(*work),
                                     reps=1, warmup=1))
         path = copies(args)
         path[-1] = 400
-        row["path_call_ms"] = cuda_ms(lambda: nltvcsad_global_loop(*path), reps=1,
-                                      warmup=1)
-        row["path_per_iteration_ms"] = cuda_ms(
-            lambda: nltvcsad_per_iteration(*path), reps=1, warmup=0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            nltvcsad_global_loop(*path)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        path = args[:-1] + [400]
+        turns = time_global(gv_lib, "K15", path, [0, "library"], reps=2)
+        row.update(path_call_ms=start.elapsed_time(end),
+                   path_former_ms=float(np.mean(turns["0"])),
+                   path_turns_ms=float(np.mean(turns["library"])),
+                   path_per_iteration_ms=cuda_ms(
+                       lambda: nltvcsad_per_iteration(*copies(path)), reps=1,
+                       warmup=0),
+                   host_reads_in_warp=0)
     log(f"K15 nltvcsad_global_loop {shape}: bit-exact with its twin and the "
-        f"per-iteration form"
+        f"per-iteration form, K8 launched 0 times"
         + (f"; kernels {row['ms']:.4f} ms a call (graph; eager "
            f"{row['eager_ms']:.4f}) = {1e3 * row['ms'] / iters:.2f} us an "
-           f"iteration, per-iteration form {row['per_iteration_ms']:.3f} ms, "
-           f"twin {row['plain_ms']:.3f} ms; the path's call of 400 iterations "
-           f"{row['path_call_ms']:.3f} ms, the per-iteration form's "
-           f"{row['path_per_iteration_ms']:.3f} ms" if timed else "")
+           f"iteration; in turns {row['turns_ms']:.4f} ms, the former form (K8 and "
+           f"the former step an iteration) {row['former_ms']:.4f} ms; "
+           f"per-iteration form {row['per_iteration_ms']:.3f} ms, twin "
+           f"{row['plain_ms']:.3f} ms; the path's call of 400 iterations "
+           f"{row['path_call_ms']:.3f} ms between events with no host read (sync "
+           f"debug mode error), in turns {row['path_turns_ms']:.3f} ms, the "
+           f"former's {row['path_former_ms']:.3f} ms, the per-iteration form's "
+           f"{row['path_per_iteration_ms']:.3f} ms" if gv_lib is not None else "")
         + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
-def check_k15(dev, rng, a, b, gf, i0):
+def check_k15(dev, rng, a, b, gf, i0, gv_lib):
     """K15 bit for bit against its twin and the per-iteration form: at
     436x1024 from a real first-warp state (the global weights of I0; 10
-    iterations, timed), at a 40x56 crop and 5x7; the 3x3 refusal.  The
-    record is the first row's."""
+    iterations, timed beside the former form; 1 iteration), at a 40x56 crop
+    and 5x7; the 3x3 refusal.  The record is the first row's."""
+    from faldoi_tpu_torch.cli.k8_variants import csad_global_args
     from faldoi_tpu_torch.core.global_step_csad import nltvcsad_global_loop
 
     flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
                            device=dev)
-    rows = [k15_row(f"{H}x{W}, {GLOBAL_TIMED_ITERS} PD iterations",
-                    csad_global_args(a, b, flow, 6, i0), timed=True)]
+    full = csad_global_args(a, b, flow, 6, i0)
+    rows = [k15_row(f"{H}x{W}, {GLOBAL_TIMED_ITERS} PD iterations", full, gv_lib),
+            k15_row(f"{H}x{W}, 1 PD iteration", full[:-1] + [1])]
     rows.append(k15_row("40x56, 10 PD iterations", csad_global_args(
         a[:40, :56].contiguous(), b[:40, :56].contiguous(),
         flow[:40, :56].contiguous(), 6, i0[:, :40, :56], iters=10)))
@@ -1761,7 +1778,7 @@ def check_k15(dev, rng, a, b, gf, i0):
     else:
         raise AssertionError("K15 took a 2x7 image")
     return dict(name="nltvcsad_global_loop", route="cuda",
-                source="faldoi_tpu_torch/csrc/nltv.cu",
+                source="faldoi_tpu_torch/csrc/csad_global.cu",
                 replaces="faldoi_tpu/core/global_step_csad.py:165",
                 library_ms=None, shapes=rows, **rows[0])
 
@@ -1952,38 +1969,78 @@ def check_k16(dev, rng, scs, n_seeds, k8v_lib):
                 shapes=rows)
 
 
-class k14_no_host_read:
-    """While active, runs each K14 call of the TV-CSAD global step
-    (``global_step_csad.tvcsad_global_loop``) under
-    ``torch.cuda.set_sync_debug_mode("error")``, so that a host read inside
-    a warp's loop raises, and counts the calls.  Launches are counted as
-    ever, by the wrapper it calls, handed on as ``k9_loop_times`` does."""
+class global_calls:
+    """While active, runs each K14 and K15 call of the CSAD global steps
+    (``global_step_csad.tvcsad_global_loop`` and ``nltvcsad_global_loop``)
+    under ``torch.cuda.set_sync_debug_mode("error")``, so that a host read
+    inside a warp's loop raises, and keeps a copy of each call's arguments
+    (``calls[name]``) for the replays after the paths.  Launches are counted
+    as ever, by the wrapper it calls, handed on as ``k9_loop_times``
+    does."""
+
+    NAMES = ("tvcsad_global_loop", "nltvcsad_global_loop")
 
     def __enter__(self):
+        from faldoi_tpu_torch.cli.k8_variants import copies
         from faldoi_tpu_torch.core import global_step_csad
 
-        self.inner, self.calls = global_step_csad.tvcsad_global_loop, 0
+        self.inner = {n: getattr(global_step_csad, n) for n in self.NAMES}
+        self.calls = {n: [] for n in self.NAMES}
 
-        def keep(*args, **kw):
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = self.inner(*args, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-            self.inner.launches += keep.launches
+        def wrap(name):
+            inner = self.inner[name]
+
+            def keep(*args, **kw):
+                self.calls[name].append(copies(args))
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = inner(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                inner.launches += keep.launches
+                keep.launches = 0
+                return out
+
             keep.launches = 0
-            self.calls += 1
-            return out
+            return keep
 
-        keep.launches = 0
-        global_step_csad.tvcsad_global_loop = keep
-        return self
+        for n in self.NAMES:
+            setattr(global_step_csad, n, wrap(n))
+        return self.calls
 
     def __exit__(self, *exc):
         from faldoi_tpu_torch.core import global_step_csad
 
-        global_step_csad.tvcsad_global_loop = self.inner
+        for n in self.NAMES:
+            setattr(global_step_csad, n, self.inner[n])
+
+
+def replay_global_calls(kernel, calls, gv_lib):
+    """The path's K14 (``kernel`` "K14") or K15 calls replayed on their own
+    arguments through the former form and the library's, in turns, each call
+    timed between CUDA events; the two forms must agree bit for bit (u,
+    u_bar, the duals; K14's count).  Returns the two sums in seconds."""
+    from faldoi_tpu_torch.cli.k8_variants import call_k14, call_k15, copies
+
+    call, keep = (call_k14, 8) if kernel == "K14" else (call_k15, 6)
+    sums = {"former": 0.0, "loop": 0.0}
+    for args in calls:
+        outs = {}
+        for name, form in (("former", 0), ("loop", "library")):
+            work = copies(args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            count = call(gv_lib, form, work)
+            end.record()
+            torch.cuda.synchronize()
+            sums[name] += start.elapsed_time(end) / 1e3
+            outs[name] = work[:keep] + ([count] if kernel == "K14" else [])
+        if not all(same_bits(x, y) for x, y in zip(outs["former"], outs["loop"])):
+            raise AssertionError(f"{kernel}: a path call's replay differs between "
+                                 "the former form and the library's")
+    return sums
 
 
 class k16_loop_calls:
@@ -2853,6 +2910,41 @@ class k9_loop_times:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
+# K8's path: the true-TV CSAD patch solve's batch, warps and PD cap
+K8TV_B, K8TV_WARPS, K8TV_ITERS = 297, 2, 4
+
+
+def run_true_tv_solve(dev, rng, sc, wrappers):
+    """K8's path: ``solve_tvcsad(true_tv=True)`` (the per-component TV
+    patch loop of JAX's ``FALDOI_CSAD_TRUE_TV=1``, on no default path; K8's
+    patch form once a PD iteration) on ``K8TV_B`` patches of P 11 of the
+    m4 consts ``sc``, with the launch counts set to 0 just before and read
+    just after; the flow must be finite in the boxes and K8 must have
+    launched once a PD iteration of each warp.  Returns the launches."""
+    from faldoi_tpu_torch.core.functionals import solve_tvcsad
+
+    oy, ox, ph, pw, u1, u2, ci, cj = solver_patches(dev, rng, K8TV_B, 11,
+                                                    centres=True)
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    v1, v2, _ = solve_tvcsad(sc, ci, cj, oy, ox, ph, pw, u1, u2, 11, K8TV_WARPS,
+                             K8TV_ITERS, true_tv=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    ar = torch.arange(11, device=dev)
+    inbox = (ar[None, :, None] < ph[:, None, None]) & (ar[None, None, :] < pw[:, None, None])
+    if not bool(torch.isfinite(v1[inbox]).all() & torch.isfinite(v2[inbox]).all()):
+        raise AssertionError("the true-TV CSAD solve gave non-finite flow in a box")
+    if launches["csad_vstep"] != K8TV_WARPS * K8TV_ITERS:
+        raise AssertionError(f"K8 launched {launches['csad_vstep']} times in the "
+                             f"true-TV solve, not {K8TV_WARPS * K8TV_ITERS}")
+    log(f"K8's path, solve_tvcsad(true_tv=True) B {K8TV_B} P 11, {K8TV_WARPS} warps "
+        f"x {K8TV_ITERS} PD iterations: {secs:.3f} s; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None,
                    flags=(), tag=None):
     """``local_faldoi -m <method>`` then ``global_faldoi -m <method>`` on the
@@ -2975,17 +3067,18 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None,
         for name in ("gather_plane_patches_c24", "gather_plane_patches",
                      "gather_patches", "bicubic_sample_patches",
                      "poisson_fill_planes", "nltvcsad_patch_loop",
-                     "nltvcsad_global_loop", "csad_vstep", "bicubic_warp_planes"):
+                     "nltvcsad_global_loop", "bicubic_warp_planes"):
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the m6 path")
-        # K15: one call a global warp, K8's whole-image form once a PD
-        # iteration of it; the patch solves run K16
-        if (launches["nltvcsad_global_loop"] != len(iters)
-                or launches["csad_vstep"] != sum(iters)):
+        # K15: one call a global warp; K8's own forms never (K15 and K16
+        # select on their own)
+        if launches["nltvcsad_global_loop"] != len(iters) or launches["csad_vstep"]:
             raise AssertionError(f"K15 launched {launches['nltvcsad_global_loop']}"
                                  f" times for {len(iters)} global warps, K8 "
-                                 f"{launches['csad_vstep']} for {sum(iters)} PD "
-                                 "iterations")
+                                 f"{launches['csad_vstep']}")
+    if method in PATH_DIGESTS and (digest(rg), digest(var)) != PATH_DIGESTS[method]:
+        raise AssertionError(f"{tag}: rg / var sha256 {digest(rg)} / {digest(var)}, "
+                             f"expected {PATH_DIGESTS[method]}")
     return launches, st, secs
 
 
@@ -3645,20 +3738,23 @@ def run_all(jobs, tmp):
     from faldoi_tpu_torch.cli.fill_variants import build_variants
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         former = pool.submit(build_variants)
         former_k4 = pool.submit(k4_variants.build_variants)
         former_patch = pool.submit(patch_variants.build_variants)
         former_k8 = pool.submit(k8_variants.build_variants, True)
+        former_global = pool.submit(k8_variants.build_global_variants)
         path = kb.build(verbose=True)
         kb.library()
         fill_lib = former.result()
         k4_lib = former_k4.result()
         patch_lib, _ = former_patch.result()
         k8v_lib, _ = former_k8.result()
+        gv_lib, _ = former_global.result()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, HERE)} "
         "(and csrc/variants/fill_variants.cu, csrc/variants/k4_variants.cu, "
-        "csrc/variants/patch_variants.cu, csrc/variants/k8_variants.cu)")
+        "csrc/variants/patch_variants.cu, csrc/variants/k8_variants.cu, "
+        "csrc/variants/csad_global_variants.cu)")
 
     # the synthetic pair and the golden seed positions; the CSAD crops'
     # CPU twins start in child processes at once and run beside the card
@@ -3689,7 +3785,8 @@ def run_all(jobs, tmp):
                                   i0_planes=i0) for m in (6, 7)}
     kernels += [check_k8(dev, rng, a, b, gf, sc45),
                 check_k8_loop(dev, rng, sc45, len(pos_f), k8v_lib),
-                check_k14(dev, rng, a, b, gf), check_k15(dev, rng, a, b, gf, i0),
+                check_k14(dev, rng, a, b, gf, gv_lib),
+                check_k15(dev, rng, a, b, gf, i0, gv_lib),
                 check_k16(dev, rng, sc67, len(pos_f), k8v_lib),
                 *check_k9(dev, len(pos_f)), check_k10(dev, rng, fill_lib),
                 check_k11(dev, rng, a, fill_lib)]
@@ -3800,8 +3897,9 @@ def run_all(jobs, tmp):
     # CLIs at full width, counting launches; the K8 loop's (B, P) are kept
     # on the m4 path
     launches_m2, _, _ = run_stage_path(2, i0, i1, go, ba, gf, wrappers)
-    with k8_loop_calls() as loop_calls, k14_no_host_read() as k14_calls:
+    with k8_loop_calls() as loop_calls, global_calls() as calls_m4:
         launches_m4, st_m4, _ = run_stage_path(4, i0, i1, go, ba, gf, wrappers)
+    k14_calls = calls_m4["tvcsad_global_loop"]
     loop_calls = [c for c in loop_calls if c[0] > 0]
     if launches_m4["csad_patch_loop"] != len(loop_calls):
         raise AssertionError(f"the K8 loop launched {launches_m4['csad_patch_loop']} "
@@ -3811,7 +3909,7 @@ def run_all(jobs, tmp):
     log(f"K8 on the m4 path: {len(loop_calls)} K8 loop calls, one a patch solve "
         f"batch a warp (B min {bs[0]}, median {bs[len(bs) // 2]}, max {bs[-1]}, "
         f"sum {sum(bs)}; {sum(p == 3 for _, p in loop_calls)} at P 3); K14 "
-        f"{launches_m4['tvcsad_global_loop']} launches ({k14_calls.calls} calls, "
+        f"{launches_m4['tvcsad_global_loop']} launches ({len(k14_calls)} calls, "
         f"one a global warp, each under sync debug mode \"error\": no host read "
         f"inside a warp; the PD iterations {st_m4['global_iters']} read once, "
         f"after the last warp); K8's own forms {launches_m4['csad_vstep']}")
@@ -3819,9 +3917,10 @@ def run_all(jobs, tmp):
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 5b2")
     # phase 5b2: the m6 (NLTV-CSAD) path through the stage CLIs at full
     # width, counting launches; K16's (B, P) are kept
-    with k16_loop_calls() as k16_calls:
+    with k16_loop_calls() as k16_calls, global_calls() as calls_m6:
         launches_m6, st_m6, secs_m6 = run_stage_path(6, i0, i1, go, ba, gf,
                                                      wrappers)
+    k15_calls = calls_m6["nltvcsad_global_loop"]
     k16_calls = [c for c in k16_calls if c[0] > 0]
     if launches_m6["nltvcsad_patch_loop"] != len(k16_calls):
         raise AssertionError(f"K16 launched {launches_m6['nltvcsad_patch_loop']} "
@@ -3835,8 +3934,15 @@ def run_all(jobs, tmp):
         f"{launches_m6['nltvcsad_patch_loop']} (one a patch solve batch a warp: "
         f"B min {bs6[0]}, median {bs6[len(bs6) // 2]}, max {bs6[-1]}, sum "
         f"{sum(bs6)}; {sum(p == 3 for _, p in k16_calls)} at P 3), K15 "
-        f"{launches_m6['nltvcsad_global_loop']}, K8 {launches_m6['csad_vstep']}; "
-        f"local {secs_m6['local']:.2f} s, global {secs_m6['global_']:.2f} s")
+        f"{launches_m6['nltvcsad_global_loop']} ({len(k15_calls)} calls, one a "
+        f"global warp, each under sync debug mode \"error\": no host read inside "
+        f"a warp), K8 {launches_m6['csad_vstep']}; local {secs_m6['local']:.2f} s, "
+        f"global {secs_m6['global_']:.2f} s")
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5b3")
+    # phase 5b3: K8's path, the true-TV CSAD patch solve (its patch form a
+    # PD iteration), counting launches
+    launches_k8tv = run_true_tv_solve(dev, rng, sc45[4], wrappers)
 
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 5c")
     # phase 5c: the m8 (TV-L1 with occlusions) path through the stage CLIs
@@ -3927,6 +4033,19 @@ def run_all(jobs, tmp):
     loop_rec.update(path_calls=len(loop_calls),
                     path_per_iteration_s=sums["per_iteration"],
                     path_former_s=sums["former"], path_loop_s=sums["loop"])
+    for kernel, name, calls in (("K14", "tvcsad_global_loop", k14_calls),
+                                ("K15", "nltvcsad_global_loop", k15_calls)):
+        t0 = time.perf_counter()
+        gsums = replay_global_calls(kernel, calls, gv_lib)
+        [k for k in kernels if k["name"] == name][0].update(
+            path_calls=len(calls), path_former_s=gsums["former"],
+            path_loop_s=gsums["loop"])
+        log(f"{kernel}'s work of the {'m4' if kernel == 'K14' else 'm6'} path, its "
+            f"{len(calls)} calls replayed on their own arguments, in turns, CUDA "
+            f"events around each, bit for bit between the forms: the former form "
+            f"{gsums['former']:.4f} s, the library's {gsums['loop']:.4f} s "
+            f"({time.perf_counter() - t0:.1f} s)")
+    del k14_calls, k15_calls
     t0 = time.perf_counter()
     n16, sums16 = replay_k16_path(dev, rng, sc67[6], k16_calls, k8v_lib)
     k16_rec = [k for k in kernels if k["name"] == "nltvcsad_patch_loop"][0]
@@ -3955,10 +4074,11 @@ def run_all(jobs, tmp):
     paths = dict(m0=launches_m0, m2=launches_m2, m4=launches_m4,
                  m6=launches_m6, m8=launches_m8, sift=launches_sift,
                  pairs=launches_pairs, f1=launches_f1, f2=launches_f2,
-                 mesh=launches_mesh)
+                 mesh=launches_mesh, k8tv=launches_k8tv)
     kernels = [dict(k, launches=(launches_m2 if k["name"] in M2_KERNELS else
                                  launches_m4 if k["name"] in M4_KERNELS else
                                  launches_m6 if k["name"] in M6_KERNELS else
+                                 launches_k8tv if k["name"] in K8_KERNELS else
                                  launches_m8 if k["name"] in M8_KERNELS else
                                  launches_pairs if k["name"] in PAIRS_KERNELS
                                  else launches_f2 if k["name"] in F2_KERNELS
@@ -3978,7 +4098,7 @@ def run_all(jobs, tmp):
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} never launched on its path")
         if (k["name"] not in (M2_KERNELS + M4_KERNELS + M6_KERNELS + M8_KERNELS
-                              + F2_KERNELS + MESH_KERNELS)
+                              + F2_KERNELS + MESH_KERNELS + K8_KERNELS)
                 and k.get("launches_m0", 1) <= 0):
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 

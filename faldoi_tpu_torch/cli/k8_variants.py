@@ -1,7 +1,8 @@
-"""K8's, the K8 loop's and K16's design variants against each other on one
-CUDA card.
+"""K8's, the K8 loop's, K16's, K14's and K15's design variants against each
+other on one CUDA card.
 
     python -m faldoi_tpu_torch.cli.k8_variants [--out FILE.json] [--quick]
+                                               [--global-only]
 
 Builds ``csrc/variants/k8_variants.cu`` with the library's nvcc flags and
 ``-Xptxas=-v`` into ``faldoi_tpu_torch/_build/``; it includes
@@ -33,13 +34,29 @@ library's kernels too.  It holds:
     iterations over 132 SMs x 4 schedulers x the card's highest SM clock;
     the set-up outside the loop is left out).
 
+(e) K14's and K15's forms (``csrc/variants/csad_global_variants.cu``,
+    built with ``-Xptxas=-v`` beside the first; it includes
+    ``csrc/csad_global.cu``): the former (counting every PD iteration; K15:
+    K8's whole-image form and the former step an iteration, as the former
+    wrapper ran it), the ranked b pixel-major or plane-major, a thread a
+    pixel or four lanes a pixel (K14), the counting path in line or out of
+    line, K15's v-step as a launch of its own, beside the library's
+    ``tvcsad_global_loop`` and ``nltvcsad_global_loop``, on one warp of the
+    synthetic pair at 436x1024, 10 and 400 PD iterations; their registers,
+    spills and warps an SM, and the static SASS count of an iteration's
+    kernels (the ranked path without the counting path, a form built for
+    the count) as an issue floor.
+
 Every form is held bit for bit to its twin (``csad_vstep_plain``,
-``csad_patch_loop_plain``, ``nltvcsad_patch_loop_plain``) and then timed, a
-CUDA graph of 20 calls each, twice in turns in this process (a, b, .., b,
-a).  ``--quick`` skips (a).  Prints the card's name and power limit, the
-ptxas report and one line a shape; ``--out`` also writes the rows as JSON.
-Needs a CUDA card.  ``chip_smoke.py`` calls ``build_variants``,
-``time_loop`` and ``time_nl`` for the former forms' times.
+``csad_patch_loop_plain``, ``nltvcsad_patch_loop_plain``,
+``tvcsad_global_loop_plain``, ``nltvcsad_global_loop_plain``) and then
+timed, a CUDA graph of 20 calls each (of 2 for the 400-iteration calls of
+(e)), twice in turns in this process (a, b, .., b, a).
+``--quick`` skips (a), ``--global-only`` runs (e) alone.  Prints the card's
+name and power limit, the ptxas report and one line a shape; ``--out`` also
+writes the rows as JSON.  Needs a CUDA card.  ``chip_smoke.py`` calls
+``build_variants``, ``time_loop``, ``time_nl``, ``build_global_variants``
+and ``time_global`` for the former forms' times.
 """
 
 from __future__ import annotations
@@ -87,6 +104,45 @@ NL_VARIANTS = {0: "former: counting every iteration", **RANKED,
 NO_FALLBACK, STUB, NO_FALLBACK_SMEM = 30, 31, 32
 SRC = kb.CSRC / "variants" / "k8_variants.cu"
 LIB = kb.BUILD_DIR / "libk8_variants.so"
+# faldoi_k14v's and faldoi_k15v's forms (csrc/variants/
+# csad_global_variants.cu); "library" is the library's wrapper
+K14_VARIANTS = {0: "former: four lanes a pixel counting every PD iteration",
+                1: "ranked pixel-major, a thread a pixel, 256 threads, "
+                   "counting out of line, no register cap",
+                2: "ranked plane-major, a thread a pixel, 256 threads, "
+                   "counting out of line, no register cap",
+                3: "ranked pixel-major, four lanes a pixel (lane 0 searches), "
+                   "counting in line",
+                4: "ranked plane-major, four lanes a pixel, counting in line",
+                5: "ranked pixel-major, a thread a pixel, counting in line",
+                6: "ranked pixel-major, a thread a pixel, 128 threads, "
+                   "counting out of line, no register cap",
+                7: "ranked pixel-major, a thread a pixel, 4 blocks an SM "
+                   "(64 registers), counting out of line",
+                8: "ranked plane-major, a thread a pixel, 4 blocks an SM, "
+                   "counting out of line",
+                9: "ranked pixel-major, a thread a pixel, 8 blocks an SM "
+                   "(32 registers), counting out of line",
+                10: "ranked plane-major, a thread a pixel, 8 blocks an SM, "
+                    "counting out of line",
+                11: "ranked pixel-major, a thread a pixel, 4 blocks an SM, "
+                    "counting in line",
+                12: "ranked plane-major, a thread a pixel, 4 blocks an SM, "
+                    "counting in line",
+                "library": "library"}
+K15_VARIANTS = {0: "former: K8's whole-image form and the former step an "
+                   "iteration",
+                1: "ranked pixel-major, v in the primal phase, counting out "
+                   "of line",
+                2: "ranked plane-major, v in the primal phase, counting out "
+                   "of line",
+                3: "ranked pixel-major, v in the primal phase, counting in "
+                   "line",
+                4: "ranked pixel-major, a v-step launch of its own (three "
+                   "launches an iteration)",
+                "library": "library"}
+GLOBAL_SRC = kb.CSRC / "variants" / "csad_global_variants.cu"
+GLOBAL_LIB = kb.BUILD_DIR / "libcsad_global_variants.so"
 
 
 def build_variants(former_only=False):
@@ -111,6 +167,230 @@ def build_variants(former_only=False):
     report = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
               if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     return lib, report
+
+
+def build_global_variants():
+    """nvcc K14's and K15's forms into a shared library; returns (library,
+    ptxas report lines)."""
+    kb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-Xptxas=-v", "-shared", "-I",
+           str(kb.CSRC), "-o", str(GLOBAL_LIB), str(GLOBAL_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(GLOBAL_LIB))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.faldoi_k14v.argtypes = [i] + [p] * 16 + [i, i, f, f, f, f, i, p]
+    lib.faldoi_k15v.argtypes = [i] + [p] * 15 + [i, i, f, f, f, i, p, p, p]
+    lib.faldoi_k15v_former_step.argtypes = [p] * 11 + [i, i, f, f, p]
+    report = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+              if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+              or "Function properties" in ln]
+    return lib, report
+
+
+def csad_global_args(a, b, flow, method, i0=None, iters=10, tol2=0.0):
+    """One warp's arguments of the CSAD global loops as ``tvcsad_global``
+    (method 4: K14) or ``nltvcsad_global`` (method 6: K15, with the global
+    weights of I0's colour planes ``i0``) builds them for its first warp
+    from the prepared frames ``a``, ``b`` (h, w) and ``flow`` (h, w, 2): the
+    warp of (I1, I1x, I1y) at the flow (K4's flow form), grad, the
+    breakpoints, zero duals, the method's global lambda, theta and tau.
+    K14's take ``tol2`` and ``iters``; K15's ``iters``."""
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core.global_step_nltv import global_weights
+    from faldoi_tpu_torch.core.pd_common import hypot, sqrt_rn
+    from faldoi_tpu_torch.models import method_global_params
+    from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
+    from faldoi_tpu_torch.ops.csad import csad_b, image_masks
+    from faldoi_tpu_torch.ops.stencils import centered_gradient
+
+    h, w = a.shape
+    lam, theta, tau = method_global_params(method, P.Parameters())
+    l_t = float(np.float32(lam) * np.float32(theta))
+    u1, u2 = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    i1x, i1y = centered_gradient(b)
+    i1w, gx, gy = bicubic_warp_stack(torch.stack([b, i1x, i1y]), u1, u2, True)
+    gx, gy = gx.contiguous(), gy.contiguous()
+    m, n = image_masks(h, w, a.device)
+    if method == 4:
+        grad = hypot(gx * gx + gy * gy, 0.01).contiguous()
+        xi = [torch.zeros_like(u1) for _ in range(4)]
+        return [u1, u2, u1.clone(), u2.clone(), *xi,
+                csad_b(a, i1w, gx, gy, u1, u2, grad, m), gx, gy, grad, l_t, m, n,
+                theta, tau, tol2, iters]
+    grad = (gx * gx + gy * gy).contiguous()
+    sq = sqrt_rn(torch.where(grad > P.GRAD_IS_ZERO, grad,
+                             torch.ones((), device=a.device))).contiguous()
+    wp, wt = global_weights(i0, a.device)
+    sc = [torch.zeros((24, h, w), device=a.device) for _ in range(2)]
+    return [u1, u2, u1.clone(), u2.clone(), *sc, wp, wt,
+            csad_b(a, i1w, gx, gy, u1, u2, sq, m), gx, gy, sq, grad, l_t, m, n,
+            theta, tau, iters]
+
+
+def call_k14(lib, variant, args):
+    """One call of K14 form ``variant`` on ``tvcsad_global_loop``'s
+    arguments, in place; returns the iteration count, a (1,) tensor."""
+    from faldoi_tpu_torch.core.global_step_csad import (
+        ERR_BLOCK_CELLS, ranked_scratch, tvcsad_global_loop,
+    )
+
+    if variant == "library":
+        return tvcsad_global_loop(*args)
+    u1 = args[0]
+    (h, w), dev = u1.shape, u1.device
+    part = torch.empty(-(-h * w // ERR_BLOCK_CELLS), dtype=torch.float64, device=dev)
+    state = torch.empty(3, dtype=torch.int32, device=dev)
+    rb, ok = ranked_scratch(h, w, dev)
+    f32 = lambda x: float(np.float32(x))   # noqa: E731
+    code = lib.faldoi_k14v(
+        variant, *(t.data_ptr() for t in args[:12]), part.data_ptr(),
+        state.data_ptr(), rb.data_ptr(), ok.data_ptr(), h, w, f32(args[12]),
+        f32(args[15]), f32(args[16]), f32(args[17]), int(args[18]),
+        kb.stream_ptr(dev))
+    kb.check(code, f"k14 variant {variant}")
+    return state[:1]
+
+
+def call_k15(lib, variant, args):
+    """One call of K15 form ``variant`` on ``nltvcsad_global_loop``'s
+    arguments, in place (form 0: K8's whole-image form and the former step
+    an iteration)."""
+    from faldoi_tpu_torch.core.global_step_csad import (
+        nltvcsad_global_loop, ranked_scratch,
+    )
+    from faldoi_tpu_torch.ops.csad import csad_vstep
+
+    if variant == "library":
+        return nltvcsad_global_loop(*args)
+    (u1, u2, u1_, u2_, sp, sq, wp, wt, b, gx, gy, den, grad, l_t, m, n, theta,
+     tau, iters) = args
+    (h, w), dev = u1.shape, u1.device
+    f32 = lambda x: float(np.float32(x))   # noqa: E731
+    stream = kb.stream_ptr(dev)
+    if variant == 0:
+        for _ in range(iters):
+            v1, v2 = csad_vstep(u1, u2, b, gx, gy, den, l_t, m, n)
+            code = lib.faldoi_k15v_former_step(
+                *(t.data_ptr() for t in (u1, u2, u1_, u2_, wt, v1, v2, grad, sp,
+                                         sq, wp)), h, w, f32(theta), f32(tau), stream)
+            kb.check(code, "k15 variant 0")
+        return None
+    rb, ok = ranked_scratch(h, w, dev)
+    v1, v2 = torch.empty_like(u1), torch.empty_like(u1)
+    code = lib.faldoi_k15v(
+        variant, *(t.data_ptr() for t in (u1, u2, u1_, u2_, wt, gx, gy, den, grad,
+                                          sp, sq, wp, b, rb, ok)),
+        h, w, f32(l_t), f32(theta), f32(tau), int(iters), v1.data_ptr(),
+        v2.data_ptr(), stream)
+    kb.check(code, f"k15 variant {variant}")
+    return None
+
+
+def copies(args):
+    return [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+
+
+def time_global(lib, kernel, args, variants, reps=20):
+    """K14's (``kernel`` "K14") or K15's forms on one warp's ``args``: each
+    held bit for bit to its twin on copies (u, u_bar, the duals; K14's
+    count too), then timed twice in turns on a copy of its own (a CUDA
+    graph of ``reps`` calls); returns {variant: [ms, ms]}."""
+    from faldoi_tpu_torch.cli.kernel_probe import cuda_ms
+    from faldoi_tpu_torch.core.global_step_csad import (
+        nltvcsad_global_loop_plain, tvcsad_global_loop_plain,
+    )
+
+    k14 = kernel == "K14"
+    call, keep = (call_k14, 8) if k14 else (call_k15, 6)
+    want = copies(args)
+    wn = (tvcsad_global_loop_plain if k14 else nltvcsad_global_loop_plain)(*want)
+    for v in variants:
+        got = copies(args)
+        gn = call(lib, v, got)
+        torch.cuda.synchronize()
+        if (k14 and int(gn) != int(wn)) or not all(
+                same_bits(x, y) for x, y in zip(got[:keep], want[:keep])):
+            raise AssertionError(f"{kernel} form {v} differs from its twin")
+    work = {v: copies(args) for v in variants}
+    out = {}
+    for v in list(variants) + list(variants)[::-1]:
+        fn = lambda v=v: call(lib, v, work[v])   # noqa: E731
+        out.setdefault(str(v), []).append(cuda_ms(fn, reps=reps, warmup=1,
+                                                  graph=True))
+    return out
+
+
+def global_rows(lib, report, card, clock_mhz, frames, dev):
+    """(e): K14's and K15's forms at 436x1024 on the first warp of the
+    synthetic pair (its known flow plus 0.5 px of noise), 10 and 400 PD
+    iterations; the ptxas rows of their kernels and the library's static
+    SASS issue floor of one PD iteration."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.cli.patch_variants import (
+        SCHEDULERS, ptxas_kernels, sass_functions, warps_an_sm,
+    )
+
+    a, b, i0 = frames
+    _, _, gf, _ = syn.make_pair(H, W, seed=0)
+    rng = np.random.default_rng(1)
+    flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
+                           device=dev)
+    rows = []
+    for kernel, method, forms in (("K14", 4, K14_VARIANTS), ("K15", 6, K15_VARIANTS)):
+        for iters in (10, 400):
+            args = csad_global_args(a, b, flow, method, i0, iters)
+            row = dict(shape=f"{kernel} {H}x{W}, {iters} PD iterations", card=card,
+                       **time_global(lib, kernel, args, list(forms),
+                                     20 if iters < 100 else 2))
+            print(f"{row['shape']}: bit-exact, ms " + "  ".join(
+                f"{forms[k]}: {min(row[str(k)]):.4f}-{max(row[str(k)]):.4f}"
+                for k in forms), flush=True)
+            rows.append(row)
+    regs = ptxas_kernels(report)
+    for name, k in regs.items():
+        if not any(x in name for x in ("tvcsad", "nltvcsad", "rank_image",
+                                       "image_counting", "nltv_dual")):
+            continue
+        threads = (1024 if "finish" in name else
+                   128 if ("primal4" in name or "rank_image" in name
+                           or ("former" in name and "20tvcsad_primal" in name))
+                   else 256)
+        row = dict(row="ptxas", name=name, card=card, **k,
+                   warps_an_sm=(warps_an_sm(k["registers"], threads, 0)
+                                if "registers" in k else None))
+        print("PTXAS " + json.dumps(row), flush=True)
+        rows.append(row)
+    # the issue floor of one PD iteration of the ranked forms: the static
+    # SASS count a warp of each kernel of an iteration (the primal phase of
+    # form 30, the ranked path without the counting path, SASS only),
+    # times the warps
+    funcs = sass_functions(GLOBAL_LIB)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = sms * SCHEDULERS * clock_mhz * 1e6 / 1e3   # warp instructions a ms
+    hw = H * W
+    tiles = -(-W // 32) * -(-H // 8) * 8
+    for kernel, parts in (
+            ("K14", (("tvcsad_dual_kernel", -(-hw // 256) * 8),
+                     ("tvcsad_primal_kernelILi256ELi4ENS_10PlaneMajorELi2E",
+                      -(-hw // 32)),
+                     ("tvcsad_finish_kernel", 32))),
+            ("K15", (("nltv_dual_kernel", tiles),
+                     ("nltvcsad_primal_kernelINS_10PlaneMajorELi2E", tiles)))):
+        count = {}
+        for part, warps in parts:
+            # the kernel itself, not its "$" internal subroutines
+            names = sorted(f for f in funcs if part in f and "$" not in f)
+            count[part] = (len(funcs[names[0]]) if names else None, warps)
+        ok = all(c is not None for c, _ in count.values())
+        row = dict(row="sass", kernel=kernel, card=card, clock_mhz=clock_mhz,
+                   instructions={k: c for k, (c, _) in count.items()},
+                   floor_ms_an_iteration=(sum(c * wp for c, wp in count.values())
+                                          / issue if ok else None))
+        print("SASS " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def global_args(dev, rng):
@@ -479,6 +759,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--quick", action="store_true",
                     help="skip K8's v-step variants (a)")
+    ap.add_argument("--global-only", action="store_true",
+                    help="K14's and K15's forms (e) alone")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k8_variants: needs a CUDA card", file=sys.stderr)
@@ -487,11 +769,15 @@ def main(argv=None) -> int:
     card = smi("name,power.limit")
     clock = float(smi("clocks.max.sm").split()[0])
     print(card, f"max SM clock {clock} MHz", flush=True)
-    lib, report = build_variants()
-    print("\n".join(report), flush=True)
+    glib, greport = build_global_variants()
+    print("\n".join(greport), flush=True)
     rng = np.random.default_rng(0)
     gargs, frames = global_args(dev, rng)
-    rows = []
+    rows = global_rows(glib, greport, card, clock, frames, dev)
+    if opts.global_only:
+        return _finish(opts, greport, rows)
+    lib, report = build_variants()
+    print("\n".join(report), flush=True)
     if not opts.quick:
         shapes = [(f"{H}x{W}", gargs)] + [
             (f"P 11 B {nb}", patch_args(dev, rng, frames, nb)[0])
@@ -519,10 +805,14 @@ def main(argv=None) -> int:
         if p == 11:
             rows[-1]["stub_ms"] = stub_ms(lambda: call_nl(lib, STUB, args))
     rows += sass_rows(LIB, report, card, clock)
+    return _finish(opts, greport + report, rows)
+
+
+def _finish(opts, report, rows):
     if opts.out:
         with open(opts.out, "w") as fh:
             json.dump(dict(ptxas=report, rows=rows), fh, indent=1)
-    print(json.dumps([r for r in rows if r.get("row") != "sass"]))
+    print(json.dumps([r for r in rows if r.get("row") not in ("sass", "ptxas")]))
     return 0
 
 

@@ -1,5 +1,5 @@
 """Global (whole-image) TV-CSAD and NLTV-CSAD refinement: kernels K14 and
-K15 for the PD loops, K8 for the v-step.
+K15, the PD loops with their own ranked v-step.
 
 Port of ``faldoi_tpu/core/global_step_csad.py`` (``tvcsad_PD``,
 global_faldoi.cpp:1449-1637; ``nltvcsad_PD``, :1642-1808).  Each of
@@ -12,7 +12,7 @@ carried across warps; u_bar restarts from u at each warp.
 * ``tvcsad_global`` (methods 4 and 5): ``grad = hypot(|grad I1w|^2, 0.01)``
   (:1519), TV duals projected per flow component (``tvcsad_getD``,
   :1428-1446), and a tolerance exit on the mean squared update.  A warp's
-  loop is kernel K14 (``tvcsad_global_loop``, ``csrc/csad_loops.cu``): one
+  loop is kernel K14 (``tvcsad_global_loop``, ``csrc/csad_global.cu``): one
   call enqueues it, the tol exit is taken on the card, and the host reads
   the warps' PD iterations once, after the last warp.  The mean squared
   update is a float64 sum in a fixed order (``ordered_err``), so the card
@@ -21,9 +21,13 @@ carried across warps; u_bar restarts from u at each warp.
   breakpoints normalised by ``sqrt(grad)`` where ``grad > GRAD_IS_ZERO``
   (and v = u elsewhere, :1735-1737), the 24 non-local duals of the NLTV
   global step, and a fixed ``max_iters`` iterations.  A warp's loop is
-  kernel K15 (``nltvcsad_global_loop``): K8's whole-image form and one
-  ``csrc/nltv.cu`` step (K6's dual phase, a primal phase on K8's v) an
-  iteration, enqueued with no host read.
+  kernel K15 (``nltvcsad_global_loop``): one call enqueues it, K6's dual
+  phase and a primal phase that selects v itself an iteration, with no
+  host read.
+
+Both loops rank each pixel's breakpoints once a warp and find the median
+by a merge search every PD iteration (``csrc/csad_global.cu``), bit for bit
+K8's selection (``csad_vstep_plain``, the twins' sort).
 """
 
 from __future__ import annotations
@@ -37,9 +41,7 @@ from faldoi_tpu_torch.core.global_step_nltv import (
 from faldoi_tpu_torch.core.pd_common import hypot, sqrt_rn
 from faldoi_tpu_torch.kernels import build as kb
 from faldoi_tpu_torch.ops.bicubic import bicubic_warp_stack
-from faldoi_tpu_torch.ops.csad import (
-    N_D, csad_b, csad_vstep, csad_vstep_plain, image_masks,
-)
+from faldoi_tpu_torch.ops.csad import N_D, csad_b, csad_vstep_plain, image_masks
 from faldoi_tpu_torch.ops.nonlocal_ops import (
     nonlocal_divergence, nonlocal_gradient_duals, ordered_sum,
 )
@@ -48,8 +50,8 @@ from faldoi_tpu_torch.ops.stencils import (
 )
 from faldoi_tpu_torch.params import GRAD_IS_ZERO, MAX_ITERATIONS_GLOBAL
 
-# K14's primal launch: four lanes a cell, 32 cells a block; its finish
-# launch sums the blocks' partials with this many threads
+# K14's primal launch sums the squared updates into a partial a run of 32
+# pixels; its finish launch sums the partials with this many threads
 ERR_BLOCK_CELLS = 32
 ERR_FINISH_THREADS = 1024
 
@@ -74,7 +76,7 @@ def _tree(x: torch.Tensor) -> torch.Tensor:
 
 def ordered_err(e: torch.Tensor) -> torch.Tensor:
     """The float64 sum of the float32 squared updates ``e`` (h, w) in K14's
-    order (``csrc/csad_loops.cu``): the cells in raster order in blocks of
+    order (``csrc/csad_global.cu``): the cells in raster order in blocks of
     32, each block's four runs of 8 by a tree and then in order; then the
     blocks' partials, partial i to thread i % 1024, each thread's in order,
     each warp's 32 threads by a tree, the 32 warps in order.  Returns a 0-d
@@ -127,6 +129,15 @@ def tvcsad_global_loop_plain(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, b,
     return torch.tensor([n], dtype=torch.int32, device=dev)
 
 
+def ranked_scratch(h: int, w: int, dev):
+    """The whole-image loops' scratch for a warp's ranked breakpoints: 48
+    floats a pixel (each pixel's inside b in rank order) and a byte a pixel
+    (``ok``: every inside b and l_t denom finite), written by the call's rank
+    launch (``csrc/csad_global.cu``)."""
+    return (torch.empty(h * w * N_D, dtype=torch.float32, device=dev),
+            torch.empty(h * w, dtype=torch.uint8, device=dev))
+
+
 def _check_plane_form(u1, name: str):
     """Refuse what the whole-image loops do not take: anything but an (h, w)
     plane, and on the card a side below 3 px (there ``image_masks``, as
@@ -152,9 +163,10 @@ def tvcsad_global_loop(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, b, i1wx,
     Returns the iteration count, a (1,) int32 tensor on u1's device.
 
     CPU tensors go to the plain twin; CUDA tensors enqueue the whole loop on
-    the card (an init launch, then three launches an iteration, each of
-    which returns at once after the tol exit) with no host read, or the
-    wrapper raises.  ``launches`` counts calls."""
+    the card (an init launch, a launch that ranks each pixel's breakpoints
+    once, then three launches an iteration, each of which returns at once
+    after the tol exit) with no host read, or the wrapper raises.
+    ``launches`` counts calls."""
     _check_plane_form(u1, "tvcsad_global_loop")
     args = (u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, b, i1wx, i1wy, grad)
     if u1.device.type == "cpu":
@@ -168,10 +180,11 @@ def tvcsad_global_loop(u1, u2, u1_, u2_, xi11, xi12, xi21, xi22, b, i1wx,
     part = torch.empty(-(-h * w // ERR_BLOCK_CELLS), dtype=torch.float64,
                        device=dev)
     state = torch.empty(3, dtype=torch.int32, device=dev)
+    rb, ok = ranked_scratch(h, w, dev)
     code = kb.library().faldoi_tvcsad_global_loop(
-        *(t.data_ptr() for t in args), part.data_ptr(), state.data_ptr(), h, w,
-        _f32(l_t), _f32(theta), _f32(tau), _f32(tol2), int(max_iters),
-        kb.stream_ptr(dev))
+        *(t.data_ptr() for t in args), part.data_ptr(), state.data_ptr(),
+        rb.data_ptr(), ok.data_ptr(), h, w, _f32(l_t), _f32(theta), _f32(tau),
+        _f32(tol2), int(max_iters), kb.stream_ptr(dev))
     kb.check(code, "tvcsad_global_loop")
     tvcsad_global_loop.launches += 1
     return state[:1]
@@ -252,11 +265,11 @@ def nltvcsad_global_loop(u1, u2, u1_, u2_, sc_p, sc_q, wp, wt, b, i1wx, i1wy,
     Precondition: wp is symmetric, as ``nltv_global_loop`` (K6) states; K6's
     dual phase reads its planes 0-11.
 
-    CPU tensors go to the plain twin; CUDA tensors enqueue the loop with no
-    host read, or the wrapper raises: each iteration K8's whole-image form
-    (``csad_vstep``, which counts its own launches) and one
-    ``faldoi_nltvcsad_global_step`` (K6's dual phase, then the primal phase
-    on K8's v).  ``launches`` counts calls."""
+    CPU tensors go to the plain twin; CUDA tensors enqueue the whole loop
+    with one library call and no host read, or the wrapper raises: a launch
+    that ranks each pixel's breakpoints once, then each iteration K6's dual
+    phase and a primal phase that selects v itself (``csrc/
+    csad_global.cu``).  ``launches`` counts calls."""
     _check_plane_form(u1, "nltvcsad_global_loop")
     if u1.device.type == "cpu":
         return nltvcsad_global_loop_plain(u1, u2, u1_, u2_, sc_p, sc_q, wp, wt,
@@ -270,14 +283,12 @@ def nltvcsad_global_loop(u1, u2, u1_, u2_, sc_p, sc_q, wp, wt, b, i1wx, i1wy,
     for name, t in (("sc_p", sc_p), ("sc_q", sc_q), ("wp", wp)):
         kb.require_cuda_tensor(t, name, torch.float32, dev, (NL_N_D, h, w))
     kb.require_cuda_tensor(b, "b", torch.float32, dev, (N_D, h, w))
-    lib, stream = kb.library(), kb.stream_ptr(dev)
-    for _ in range(max_iters):
-        v1, v2 = csad_vstep(u1, u2, b, i1wx, i1wy, sq, l_t, masks, ncount)
-        code = lib.faldoi_nltvcsad_global_step(
-            *(t.data_ptr() for t in (u1, u2, u1_, u2_, wt, v1, v2, grad, sc_p,
-                                     sc_q, wp)),
-            h, w, _f32(theta), _f32(tau), stream)
-        kb.check(code, "nltvcsad_global_loop")
+    rb, ok = ranked_scratch(h, w, dev)
+    code = kb.library().faldoi_nltvcsad_global_loop(
+        *(t.data_ptr() for t in (u1, u2, u1_, u2_, wt, i1wx, i1wy, sq, grad, sc_p,
+                                 sc_q, wp, b, rb, ok)),
+        h, w, _f32(l_t), _f32(theta), _f32(tau), int(max_iters), kb.stream_ptr(dev))
+    kb.check(code, "nltvcsad_global_loop")
     nltvcsad_global_loop.launches += 1
     return None
 

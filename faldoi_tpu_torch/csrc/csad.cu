@@ -48,9 +48,10 @@
 // at the m4 path's shapes; csrc/variants/k8_variants.cu keeps them, the
 // former insertion sort and the loop's variants.
 //
-// The loop kernels (the K8 loop here, K16 in csad_loops.cu) rank instead
-// (csad_select.cuh, RankedSmem).  Within a call b, n and l_t denom are
-// fixed and only dot moves, so:
+// The loop kernels (the K8 loop here, K16 in csad_loops.cu; K14 and K15,
+// the whole-image loops in csad_global.cu) rank instead (csad_select.cuh,
+// RankedSmem, image_select).  Within a call b, n and l_t denom are fixed
+// and only dot moves, so:
 //   once a call, the n inside b_j are ranked in descending order (the
 //     ascending order of order_key(-b_j), ties by j) by the counting above
 //     among the 48 entries alone;

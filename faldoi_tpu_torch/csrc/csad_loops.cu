@@ -1,55 +1,19 @@
-// K14 and K16: the PD loops of the CSAD family around K8's selection.
+// K16: the NLTV-CSAD patch loop around K8's selection.
 //
-// Both replace XLA-lowered loops of the JAX package:
-//   K14 (tvcsad_global_loop): the while_loop of faldoi_tpu/core/
-//      global_step_csad.py::_tvcsad_jit (global_step_csad.py:106-133), one
-//      warp of the TV-CSAD global step (methods 4 and 5), tol-gated;
-//   K16 (nltvcsad_patch_loop): the nltv_reg body of faldoi_tpu/core/
-//      functionals.py::_solve_csad_family (functionals.py:535-579) run by
-//      _bounded_pd_loop (:579), one warp of B NLTV-CSAD patch solves
-//      (methods 6 and 7) on P x P canvases.
-// (K15, NLTV-CSAD's global loop, is K8's whole-image form and K6's dual
-// phase with a primal phase of its own: csrc/nltv.cu.)
+// It replaces an XLA-lowered loop of the JAX package: the nltv_reg body of
+// faldoi_tpu/core/functionals.py::_solve_csad_family (functionals.py:
+// 535-579) run by _bounded_pd_loop (:579), one warp of B NLTV-CSAD patch
+// solves (methods 6 and 7) on P x P canvases.  (K14 and K15, the
+// whole-image CSAD loops, are csad_global.cu.)
 //
-// Both run the twins' operations in the twins' order (faldoi_tpu_torch/
-// core/global_step_csad.py::tvcsad_global_loop_plain, faldoi_tpu_torch/
-// core/functionals.py::nltvcsad_patch_loop_plain); with --fmad=false every
-// value rounds as there, and the v-step is K8's selection
-// (csad_select.cuh), which picks one of the entries the twin sorts.
+// It runs the twin's operations in the twin's order (faldoi_tpu_torch/core/
+// functionals.py::nltvcsad_patch_loop_plain); with --fmad=false every value
+// rounds as there, and the v-step is K8's selection (csad_select.cuh),
+// which picks one of the entries the twin sorts.
 //
-// K14, one PD iteration per pixel (tvcsad_PD, global_faldoi.cpp:1449-1637):
-//   v      = K8's v-step of u on the warp's 48 breakpoint planes b
-//   xi     = (xi + tau grad+(u_bar)) / max(1, hypot(xi_1, xi_2)), per flow
-//            component (tvcsad_getD, :1428-1446), hypot as pd_common.hypot
-//   nu     = u - tau (-div(xi) + (u - v) / theta),  u_bar = 2 nu - u
-//   err    = (the float64 sum of the float32 (nu1 - u1)^2 + (nu2 - u2)^2)
-//            / (h w), rounded to float32
-// and the loop runs while err > tol^2 (err starts at +inf; a NaN stops it)
-// and n < max_iters.  The neighbour reads are a ring of one pixel: the
-// forward gradient of u_bar (right, down) and the divergence of the new xi
-// (left, up); b is read at the pixel only.  One call enqueues the whole loop
-// and reads nothing back: an init launch, then three plain launches an
-// iteration, the launch boundaries being the barriers:
-//   dual    a thread a pixel: xi from u_bar;
-//   primal  four lanes a cell (K8's group): the selection, then lane 0 the
-//           divergence, the primal step and u, u_bar in place, and the
-//           squared update in float64; a block's 32 cells are summed in a
-//           fixed order (each warp's 8 cells by a shuffle tree, offsets 16,
-//           8, 4 over the cells at lanes 0, 4, ..., 28; then the 4 warps in
-//           order) into the block's partial;
-//   finish  one 1024-thread block: thread t sums partials t, t + 1024, ...
-//           in order, each warp by a shuffle tree (offsets 16, 8, 4, 2, 1),
-//           then thread 0 the 32 warps in order; it writes err, the count
-//           and the run flag.
-// Every launch returns at once when the flag is down, so the card stops at
-// the iteration the twin does, which sums in exactly this order
-// (global_step_csad.py::ordered_err).  The count stays on the device.
-// Bound (436x1024): an iteration reads the 48 b planes (85.7 MB) and ~16
-// other planes and writes 6: bytes ~0.04 ms, below K8's selection.
-//
-// K16: K8's loop (csrc/csad.cu, csad_loop_kernel: a canvas on whole warps
-// of a block, four lanes a cell, each lane twelve b values and the cell's
-// state in registers, b ranked once a call and the selection a merge-path
+// The design: K8's loop (csrc/csad.cu, csad_loop_kernel: a canvas on whole
+// warps of a block, four lanes a cell, each lane twelve b values and the
+// cell's state in registers, b ranked once a call and the selection a merge-path
 // search every PD iteration, RankedSmem) with K7's non-local regulariser
 // (csrc/nltv.cu) in place of the inert TV.  One iteration per canvas
 // cell:
@@ -85,165 +49,7 @@
 
 namespace {
 
-constexpr int kG = 4;                        // lanes a cell (K8's)
-constexpr int kPrimalThreads = 128;          // K14: 32 cells a block
-constexpr int kDualThreads = 256;
-constexpr int kFinishThreads = 1024;
 constexpr int kNlThreads = 1024;             // threads a K16 block at most
-
-// ---------------------------------------------------------------------------
-// K14
-
-struct TvArgs {
-  float* u1;       // (h, w) each, in place
-  float* u2;
-  float* u1b;
-  float* u2b;
-  float* xi11;
-  float* xi12;
-  float* xi21;
-  float* xi22;
-  const float* __restrict__ b;      // (48, h, w)
-  const float* __restrict__ i1wx;
-  const float* __restrict__ i1wy;
-  const float* __restrict__ grad;   // the v-step's denominator
-  double* part;    // a partial a primal block
-  int* state;      // the count, the run flag, err's bits
-  float lt;
-  float theta;
-  float tau;
-};
-
-// pd_common.hypot: max * sqrt(1 + (min / max)^2), +inf where either is
-// infinite, 0 where both are 0, NaN where either is NaN (and neither
-// infinite), the root correctly rounded
-__device__ __forceinline__ float hypot_rn(float x, float y) {
-  const float a = fabsf(x), b = fabsf(y);
-  if (isinf(a) || isinf(b)) return __int_as_float(kInfKey);
-  if (isnan(a) || isnan(b)) return a + b;
-  const float hi = a > b ? a : b, lo = a > b ? b : a;
-  if (hi == 0.0f) return hi;
-  const float q = lo / hi;
-  return hi * __fsqrt_rn(1.0f + q * q);
-}
-
-// clamp(min=1), keeping a NaN
-__device__ __forceinline__ float at_least_one(float x) {
-  return x < 1.0f ? 1.0f : x;
-}
-
-// Backward-difference divergence with Chambolle boundaries (mask.c:39-83),
-// the twins' stencils.divergence: w, h >= 3.
-__device__ __forceinline__ float div_at(const float* vx, const float* vy,
-                                        int r, int c, int h, int w) {
-  const long long i = (long long)r * w + c;
-  const float dx = c == 0 ? vx[i] : (c == w - 1 ? -vx[i - 1] : vx[i] - vx[i - 1]);
-  const float dy = r == 0 ? vy[i] : (r == h - 1 ? -vy[i - w] : vy[i] - vy[i - w]);
-  return dx + dy;
-}
-
-__global__ void tvcsad_init_kernel(int* state, float tol2, int max_iters) {
-  state[0] = 0;
-  state[1] = __int_as_float(kInfKey) > tol2 && max_iters > 0;
-  state[2] = kInfKey;
-}
-
-// xi from the forward gradient of u_bar, per flow component.
-__global__ void __launch_bounds__(kDualThreads)
-    tvcsad_dual_kernel(TvArgs a, int h, int w) {
-  if (a.state[1] == 0) return;
-  const long long i = (long long)blockIdx.x * kDualThreads + threadIdx.x;
-  if (i >= (long long)h * w) return;
-  const int r = (int)(i / w), c = (int)(i % w);
-  const float b1 = a.u1b[i], b2 = a.u2b[i];
-  const float u1x = c < w - 1 ? a.u1b[i + 1] - b1 : 0.0f;
-  const float u1y = r < h - 1 ? a.u1b[i + w] - b1 : 0.0f;
-  const float u2x = c < w - 1 ? a.u2b[i + 1] - b2 : 0.0f;
-  const float u2y = r < h - 1 ? a.u2b[i + w] - b2 : 0.0f;
-  const float x11 = a.xi11[i], x12 = a.xi12[i], x21 = a.xi21[i],
-              x22 = a.xi22[i];
-  const float n1 = at_least_one(hypot_rn(x11, x12));
-  const float n2 = at_least_one(hypot_rn(x21, x22));
-  a.xi11[i] = (x11 + a.tau * u1x) / n1;
-  a.xi12[i] = (x12 + a.tau * u1y) / n1;
-  a.xi21[i] = (x21 + a.tau * u2x) / n2;
-  a.xi22[i] = (x22 + a.tau * u2y) / n2;
-}
-
-// The v-step, the primal step and the block's partial of the squared
-// updates, four lanes a cell.
-__global__ void __launch_bounds__(kPrimalThreads)
-    tvcsad_primal_kernel(TvArgs a, int h, int w) {
-  constexpr int S = kNd / kG;
-  if (a.state[1] == 0) return;
-  const long long n = (long long)h * w;
-  const long long cell = ((long long)blockIdx.x * kPrimalThreads + threadIdx.x) / kG;
-  const int g = threadIdx.x % kG;
-  double e = 0.0;
-  if (cell < n) {   // whole groups
-    const int r = (int)(cell / w), c = (int)(cell % w);
-    const float u1 = a.u1[cell], u2 = a.u2[cell];
-    const float gx = a.i1wx[cell], gy = a.i1wy[cell], den = a.grad[cell];
-    const float dot = (gx * u1 + gy * u2) / den;
-    float bv[S], av[S];
-    int key[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) bv[s] = a.b[(g + kG * s) * n + cell];
-    const int nn = group_entries<kG>(av, key, bv, r, c, h, w, dot, g);
-    const float med = group_select<kG>(av, key, nn, a.lt * den, g,
-                                       group_mask<kG>());
-    if (g == 0) {
-      const float v1 = u1 - (gx * med) / den;
-      const float v2 = u2 - (gy * med) / den;
-      const float div1 = div_at(a.xi11, a.xi12, r, c, h, w);
-      const float div2 = div_at(a.xi21, a.xi22, r, c, h, w);
-      const float nu1 = u1 - a.tau * (-div1 + (u1 - v1) / a.theta);
-      const float nu2 = u2 - a.tau * (-div2 + (u2 - v2) / a.theta);
-      const float e1 = nu1 - u1, e2 = nu2 - u2;
-      e = (double)(e1 * e1 + e2 * e2);
-      a.u1b[cell] = 2.0f * nu1 - u1;
-      a.u2b[cell] = 2.0f * nu2 - u2;
-      a.u1[cell] = nu1;
-      a.u2[cell] = nu2;
-    }
-  }
-  // the warp's 8 cells (lanes 0, 4, ..., 28) by a tree; 0 past the image
-  e = e + __shfl_down_sync(0xffffffffu, e, 16);
-  e = e + __shfl_down_sync(0xffffffffu, e, 8);
-  e = e + __shfl_down_sync(0xffffffffu, e, 4);
-  __shared__ double ws[kPrimalThreads / 32];
-  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = e;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = ws[0];
-#pragma unroll
-    for (int k = 1; k < kPrimalThreads / 32; ++k) s = s + ws[k];
-    a.part[blockIdx.x] = s;
-  }
-}
-
-// err from the partials in a fixed order; the count and the run flag.
-__global__ void __launch_bounds__(kFinishThreads)
-    tvcsad_finish_kernel(const double* part, int nparts, int* state, double hw,
-                         float tol2, int max_iters) {
-  if (state[1] == 0) return;
-  double s = 0.0;
-  for (int i = threadIdx.x; i < nparts; i += kFinishThreads) s = s + part[i];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s = s + __shfl_down_sync(0xffffffffu, s, off);
-  __shared__ double ws[kFinishThreads / 32];
-  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  double t = ws[0];
-  for (int k = 1; k < kFinishThreads / 32; ++k) t = t + ws[k];
-  const float err = __double2float_rn(t / hw);
-  const int it = state[0] + 1;
-  state[0] = it;
-  state[2] = __float_as_int(err);
-  state[1] = err > tol2 && it < max_iters;
-}
 
 // ---------------------------------------------------------------------------
 // K16
@@ -480,37 +286,6 @@ cudaError_t launch_nl_any(const NlArgs& a, int nbc, int p, int lt_cells,
 }
 
 }  // namespace
-
-// K14: u1 u2 u1b u2b xi11 xi12 xi21 xi22 (h, w) in place, b (48, h, w),
-// i1wx i1wy grad (h, w); part: ceil(h w / 32) doubles of scratch; state: 3
-// ints (the count, the run flag, err's bits), the count read by the
-// caller.  h, w >= 3.  The whole loop enqueued on the stream.
-extern "C" int faldoi_tvcsad_global_loop(
-    float* u1, float* u2, float* u1b, float* u2b, float* xi11, float* xi12,
-    float* xi21, float* xi22, const float* b, const float* i1wx,
-    const float* i1wy, const float* grad, double* part, int* state, int h,
-    int w, float lt, float theta, float tau, float tol2, int max_iters,
-    void* stream) {
-  if (h < 3 || w < 3) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long n = (long long)h * w;
-  const unsigned primal = (unsigned)((n * kG + kPrimalThreads - 1) / kPrimalThreads);
-  const unsigned dual = (unsigned)((n + kDualThreads - 1) / kDualThreads);
-  TvArgs a{u1, u2, u1b, u2b, xi11, xi12, xi21, xi22, b, i1wx, i1wy, grad,
-           part, state, lt, theta, tau};
-  tvcsad_init_kernel<<<1, 1, 0, st>>>(state, tol2, max_iters);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int it = 0; it < max_iters; ++it) {
-    tvcsad_dual_kernel<<<dual, kDualThreads, 0, st>>>(a, h, w);
-    tvcsad_primal_kernel<<<primal, kPrimalThreads, 0, st>>>(a, h, w);
-    tvcsad_finish_kernel<<<1, kFinishThreads, 0, st>>>(
-        part, (int)primal, state, (double)n, tol2, max_iters);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
 
 // K16: ins = u1 u2 v1 v2 b i1wx i1wy denom wp wt lt scal ph pw duals_in,
 // outs = u1 u2 v1 v2 iters duals_out (duals_in/out may be null); nbc

@@ -1,8 +1,9 @@
-// The CSAD selection shared by K8 and its loops (csad.cu) and by the CSAD
-// PD loops K14 and K16 (csad_loops.cu): the median-of-breakpoints prox of
-// one cell by a group of G lanes, counting positions, nothing sorted.  The
-// rule and its bit-equality with the twins' sort are set out at the top of
-// csad.cu.
+// The CSAD selection shared by K8 and its loops (csad.cu), the CSAD patch
+// loop K16 (csad_loops.cu) and the whole-image CSAD loops K14 and K15
+// (csad_global.cu): the median-of-breakpoints prox of one cell by a group
+// of G lanes, counting positions, nothing sorted, and the ranked forms of
+// the loops.  The rule and its bit-equality with the twins' sort are set
+// out at the top of csad.cu.
 
 #pragma once
 
@@ -224,18 +225,18 @@ __device__ __forceinline__ float merge_b(int i, int m, int sg, float ltg) {
   return i >= 1 ? (float)(sg * (m - 2 * i)) * ltg : __int_as_float(kInfKey);
 }
 
-// One iteration's selection from the ranked b in shared memory (sb[i *
-// pp], i < n: the cell's column of a [48][pp] array): a merge-path binary
-// search of six probes by the group's first lane (the others wait) for
-// i*, the number of A entries among the first m = n + 2 of A u B (A first
-// on equal keys), the first i in [lo, hi) with A[i] > B[n + 1 - i]; the
-// entry at position n + 1, the later of A[i* - 1] and B[n + 1 - i*], is
-// returned on every lane of the group.  For finite dot, ltg and b (the
-// caller checks them; see csad.cu).
-template <int G>
-__device__ __forceinline__ float ranked_select_smem(const float* sb, int pp, int n,
-                                                    float dot, float ltg, int g,
-                                                    unsigned gmask) {
+// One iteration's selection from the cell's ranked b, a column sb[i * pp],
+// i < n, in shared memory (a [48][pp] array) or device memory (the
+// whole-image loops' buffer): a merge-path binary search of six probes by
+// the group's first lane (the others wait) for i*, the number of A entries
+// among the first m = n + 2 of A u B (A first on equal keys), the first i
+// in [lo, hi) with A[i] > B[n + 1 - i]; the entry at position n + 1, the
+// later of A[i* - 1] and B[n + 1 - i*], is returned on every lane of the
+// group.  For finite dot, ltg and b (the caller checks them; see csad.cu).
+template <int G, typename I>
+__device__ __forceinline__ float ranked_select_col(const float* sb, I pp, int n,
+                                                   float dot, float ltg, int g,
+                                                   unsigned gmask) {
   const float inf = __int_as_float(kInfKey);
   const int m = n + 2;
   const int sg = ltg > 0.0f ? 1 : -1;
@@ -275,7 +276,7 @@ __device__ __forceinline__ float counting_select(const float (&bv)[kNd / G],
 // The selections as the loop kernels call them: setup once a call
 // (State: what it found), select every PD iteration.  RankedSmem, the form
 // at P 11 and 3: the ranks from rank_entries, the ranked b in shared
-// memory, a column of 48 floats a cell (sb, pp apart), ranked_select_smem
+// memory, a column of 48 floats a cell (sb, pp apart), ranked_select_col
 // every iteration, the counting path where dot, ltg or an inside b is not
 // finite.  Counting, the form of the loops' runtime path (any other P <=
 // 32, which no solver takes, and where a canvas's ranked b could fill the
@@ -309,7 +310,7 @@ struct RankedSmem {
                                                  unsigned gmask, const float* sb,
                                                  int pp) {
     if (st.ok && isfinite(dot))
-      return ranked_select_smem<G>(sb, pp, st.n, dot, ltg, g, gmask);
+      return ranked_select_col<G>(sb, pp, st.n, dot, ltg, g, gmask);
     return counting_select<G>(bv, dot, ltg, r, c, ph, pw, g, gmask);
   }
 };
@@ -329,5 +330,107 @@ struct Counting {
     return counting_select<G>(bv, dot, ltg, r, c, ph, pw, g, gmask);
   }
 };
+
+// ---------------------------------------------------------------------------
+// The ranked selection of the whole-image loops (K14 and K15,
+// csad_global.cu), whose b, n and l_t denom also stay fixed over a warp's
+// PD loop while dot moves.  Once a warp, csad_rank_image_kernel ranks each
+// pixel's inside b (rank_entries, four lanes a pixel) and writes them in
+// rank order to a column of 48 floats a pixel in device memory, and ok, a
+// byte a pixel: every inside b and l_t denom finite.  Every PD iteration
+// image_select takes the merge-path search over the column
+// (ranked_select_col) where ok is set and dot finite, else the counting
+// path on the pixel's 48 b planes, in line or out of line (its arrays then
+// do not raise the register count of a kernel with a register cap).  Only the
+// ranks i < n of a column are written and read.  A layout puts rank i of
+// pixel `cell`'s column at col(cell) + i * stride.
+
+struct PlaneMajor {   // (48, h, w)
+  __host__ __device__ static long long col(long long cell, long long) { return cell; }
+  __host__ __device__ static long long stride(long long hw) { return hw; }
+};
+
+constexpr int kRankThreads = 128;   // 32 pixels a block
+
+// run: null, or a flag whose 0 skips the launch (K14's run flag)
+template <class L>
+__global__ void __launch_bounds__(kRankThreads)
+    csad_rank_image_kernel(const float* __restrict__ b,
+                           const float* __restrict__ denom, float lt,
+                           float* __restrict__ rb, unsigned char* __restrict__ ok,
+                           const int* __restrict__ run, int h, int w) {
+  constexpr int G = 4, S = kNd / G;
+  if (run != nullptr && run[0] == 0) return;
+  const long long hw = (long long)h * w;
+  const long long cell = ((long long)blockIdx.x * kRankThreads + threadIdx.x) / G;
+  const int g = threadIdx.x % G;
+  if (cell >= hw) return;   // the whole group
+  const int r = (int)(cell / w), c = (int)(cell % w);
+  float bv[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) bv[s] = b[(g + G * s) * hw + cell];
+  unsigned rk[(S + 3) / 4];
+  const bool fin = rank_entries<G>(rk, bv, r, c, h, w, g, group_mask<G>());
+  const int n = window_count(r, c, h, w);
+  float* col = rb + L::col(cell, hw);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int i = rank_of(rk, s);
+    if (i < n) col[i * L::stride(hw)] = bv[s];
+  }
+  if (g == 0) ok[cell] = fin && isfinite(lt * denom[cell]);
+}
+
+template <class L>
+cudaError_t launch_rank_image(const float* b, const float* denom, float lt, float* rb,
+                              unsigned char* ok, const int* run, int h, int w,
+                              cudaStream_t st) {
+  const long long threads = (long long)h * w * 4;
+  csad_rank_image_kernel<L><<<(unsigned)((threads + kRankThreads - 1) / kRankThreads),
+                              kRankThreads, 0, st>>>(b, denom, lt, rb, ok, run, h, w);
+  return cudaGetLastError();
+}
+
+// The counting path of pixel `cell` from its 48 b planes (b: (48, h, w)).
+template <int G>
+__device__ __forceinline__ float image_counting(const float* b, long long hw,
+                                               long long cell, float dot, float ltg,
+                                               int r, int c, int h, int w, int g,
+                                               unsigned gmask) {
+  float bv[kNd / G];
+#pragma unroll
+  for (int s = 0; s < kNd / G; ++s) bv[s] = b[(g + G * s) * hw + cell];
+  return counting_select<G>(bv, dot, ltg, r, c, h, w, g, gmask);
+}
+
+template <int G>
+__device__ __noinline__ float image_counting_ool(const float* b, long long hw,
+                                                 long long cell, float dot,
+                                                 float ltg, int r, int c, int h,
+                                                 int w, int g, unsigned gmask) {
+  return image_counting<G>(b, hw, cell, dot, ltg, r, c, h, w, g, gmask);
+}
+
+// Where image_select's counting path goes: in line, out of line, or
+// nowhere (kNoFallback, for SASS counts of the ranked path alone: not
+// exact where a pixel would need it).
+constexpr int kInLine = 0, kOutOfLine = 1, kNoFallback = 2;
+
+// One PD iteration's selection of pixel `cell` at (r, c) by its group of G
+// lanes: med on every lane of the group.
+template <int G, class L, int FB>
+__device__ __forceinline__ float image_select(const float* rb, const unsigned char* ok,
+                                             const float* b, long long hw,
+                                             long long cell, int r, int c, int h,
+                                             int w, float dot, float ltg, int g,
+                                             unsigned gmask) {
+  if (FB == kNoFallback || (ok[cell] && isfinite(dot)))
+    return ranked_select_col<G>(rb + L::col(cell, hw), L::stride(hw),
+                                window_count(r, c, h, w), dot, ltg, g, gmask);
+  if constexpr (FB == kOutOfLine)
+    return image_counting_ool<G>(b, hw, cell, dot, ltg, r, c, h, w, g, gmask);
+  else
+    return image_counting<G>(b, hw, cell, dot, ltg, r, c, h, w, g, gmask);
+}
 
 }  // namespace

@@ -1,4 +1,4 @@
-// K6, K7 and K15's step: the NLTV primal-dual loops, global and per patch.
+// K6 and K7: the NLTV primal-dual loops, global and per patch.
 //
 // Both replace XLA-lowered loops of the JAX package:
 //   K6 (nltv_global_loop): the fori_loop body of faldoi_tpu/core/
@@ -6,12 +6,9 @@
 //      warp of the global NLTV step, a fixed max_iters iterations;
 //   K7 (nltv_patch_loop): the tol-gated PD loop of faldoi_tpu/core/
 //      functionals.py::_solve_nltv_family (functionals.py:448-469), one
-//      warp of B patch solves on P x P canvases;
-//   K15 (nltvcsad_global_loop, with K8's whole-image form): one iteration
-//      of the fori_loop of faldoi_tpu/core/global_step_csad.py::
-//      _nltvcsad_jit (global_step_csad.py:165-182), K6's dual phase and a
-//      primal phase that reads the v K8 wrote (v = u where grad <=
-//      GRAD_IS_ZERO) in place of the threshold.
+//      warp of B patch solves on P x P canvases.
+// K6's dual phase and divergence (nltv_global.cuh) also serve K15, the
+// NLTV-CSAD global loop (csad_global.cu).
 //
 // Neighbour j of a cell (the 24 offsets of a 5x5 window without its centre,
 // dy outer and dx inner) is (dy, dx); its reciprocal is 23 - j, at (-dy,
@@ -89,17 +86,11 @@
 // dependent IEEE divisions of the dual steps (two a step) and the barriers,
 // so the design puts more warps in flight rather than moving fewer bytes.
 
-#include "nltv_common.cuh"
+#include "nltv_global.cuh"
 
 namespace {
 
-constexpr float kGradIsZero = 1e-8f;
 constexpr int kNd = kNl;
-constexpr int kHalf = kNd / 2;
-constexpr int kTileW = 32;    // K6, both phases: a 32x8 tile a block
-constexpr int kTileH = 8;
-constexpr int kDualLoads = 4; // offsets whose loads go out together
-constexpr int kK6Blocks = 4;  // blocks an SM: 64 registers a thread
 constexpr int kPatchThreads = 256;  // threads a K7 block, for 2 P^2 <= 256
 
 
@@ -118,99 +109,6 @@ __device__ __forceinline__ void threshold(float a, float b, float rc, float gx,
 // ---------------------------------------------------------------------------
 // K6
 
-struct GlobalPlanes {
-  float* u1;
-  float* u2;
-  float* u1b;
-  float* u2b;
-  const float* __restrict__ wt;
-  const float* __restrict__ i1wx;
-  const float* __restrict__ i1wy;
-  const float* __restrict__ grad;
-  const float* __restrict__ rho_c;
-  float* sp;   // (24, h, w)
-  float* sq;
-  const float* __restrict__ wp;   // (24, h, w), symmetric: planes 0-11 read
-};
-
-// The dual phase of one iteration, a thread a pixel.
-__global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
-    nltv_dual_kernel(GlobalPlanes p, int h, int w, float tau) {
-  const int r = blockIdx.y * kTileH + threadIdx.y;
-  const int c = blockIdx.x * kTileW + threadIdx.x;
-  if (r >= h || c >= w) return;
-  const float* __restrict__ u1b = p.u1b;
-  const float* __restrict__ u2b = p.u2b;
-  const float* __restrict__ wp = p.wp;
-  float* __restrict__ sp = p.sp;
-  float* __restrict__ sq = p.sq;
-  const long long hw = (long long)h * w;
-  const long long i = (long long)r * w + c;
-  const float b1 = __ldg(u1b + i), b2 = __ldg(u2b + i);
-  const float wt = __ldg(p.wt + i);
-#pragma unroll
-  for (int j0 = 0; j0 < kNd; j0 += kDualLoads) {
-    float s1[kDualLoads], s2[kDualLoads], wj[kDualLoads], n1[kDualLoads],
-        n2[kDualLoads];
-#pragma unroll
-    for (int q = 0; q < kDualLoads; ++q) {
-      const int j = j0 + q;
-      const int rr = r + nl_dy(j), cc = c + nl_dx(j);
-      const bool in = rr >= 0 && rr < h && cc >= 0 && cc < w;
-      const long long o = (long long)rr * w + cc;
-      n1[q] = in ? __ldg(u1b + o) : 0.0f;
-      n2[q] = in ? __ldg(u2b + o) : 0.0f;
-      // w_j(x), or for j >= 12 its mirror w_{23-j}(x + d_j)
-      wj[q] = j < kHalf ? __ldg(wp + j * hw + i)
-                        : (in ? __ldg(wp + (kNd - 1 - j) * hw + o) : 0.0f);
-      s1[q] = __ldcs(sp + j * hw + i);
-      s2[q] = __ldcs(sq + j * hw + i);
-    }
-#pragma unroll
-    for (int q = 0; q < kDualLoads; ++q) {
-      const int j = j0 + q;
-      __stcs(sp + j * hw + i, dual_step(s1[q], wj[q], b1, n1[q], wt, tau));
-      __stcs(sq + j * hw + i, dual_step(s2[q], wj[q], b2, n2[q], wt, tau));
-    }
-  }
-}
-
-// The divergence of both components at (r, c) by reciprocal pairs, summed
-// over j in order from zero (before the division by wt).
-__device__ __forceinline__ void pair_divergence(const GlobalPlanes& p, int r,
-                                                int c, int h, int w,
-                                                float* d1o, float* d2o) {
-  const float* __restrict__ sp = p.sp;
-  const float* __restrict__ sq = p.sq;
-  const float* __restrict__ wp = p.wp;
-  const long long hw = (long long)h * w;
-  const long long i = (long long)r * w + c;
-  float d1 = 0.0f, d2 = 0.0f;
-  float m1[kHalf], m2[kHalf];   // terms 23 - j, folded after term 11
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) {
-    const int m = kNd - 1 - j;
-    const int rp = r + nl_dy(j), cp = c + nl_dx(j);
-    const int rn = r - nl_dy(j), cn = c - nl_dx(j);
-    const bool ip = rp >= 0 && rp < h && cp >= 0 && cp < w;
-    const bool in = rn >= 0 && rn < h && cn >= 0 && cn < w;
-    const long long op = (long long)rp * w + cp, on = (long long)rn * w + cn;
-    const float wj = __ldg(wp + j * hw + i);                  // w_j(x)
-    const float wm = in ? __ldg(wp + j * hw + on) : 0.0f;     // w_{23-j}(x)
-    d1 = d1 + wj * (__ldg(sp + j * hw + i) - (ip ? __ldg(sp + m * hw + op) : 0.0f));
-    d2 = d2 + wj * (__ldg(sq + j * hw + i) - (ip ? __ldg(sq + m * hw + op) : 0.0f));
-    m1[j] = wm * (__ldg(sp + m * hw + i) - (in ? __ldg(sp + j * hw + on) : 0.0f));
-    m2[j] = wm * (__ldg(sq + m * hw + i) - (in ? __ldg(sq + j * hw + on) : 0.0f));
-  }
-#pragma unroll
-  for (int j = kHalf - 1; j >= 0; --j) {
-    d1 = d1 + m1[j];
-    d2 = d2 + m2[j];
-  }
-  *d1o = d1;
-  *d2o = d2;
-}
-
 // The primal phase of one iteration, a thread a pixel: the divergence by
 // reciprocal pairs, then the threshold and the primal step.
 __global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
@@ -225,33 +123,6 @@ __global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
   const float a = p.u1[i], b = p.u2[i];
   float v1, v2;
   threshold(a, b, p.rho_c[i], p.i1wx[i], p.i1wy[i], p.grad[i], l_t, &v1, &v2);
-  const float wt = p.wt[i];
-  d1 = d1 / wt;
-  d2 = d2 / wt;
-  const float nu1 = a - tau * (d1 + (a - v1) / theta);
-  const float nu2 = b - tau * (d2 + (b - v2) / theta);
-  p.u1b[i] = 2.0f * nu1 - a;
-  p.u2b[i] = 2.0f * nu2 - b;
-  p.u1[i] = nu1;
-  p.u2[i] = nu2;
-}
-
-// K15's primal phase: K6's with the v that K8 wrote (v = u where grad <=
-// GRAD_IS_ZERO, global_faldoi.cpp:1735-1737) in place of the threshold.
-__global__ void __launch_bounds__(kTileW * kTileH, kK6Blocks)
-    nltvcsad_primal_kernel(GlobalPlanes p, const float* __restrict__ v1p,
-                           const float* __restrict__ v2p, int h, int w,
-                           float theta, float tau) {
-  const int r = blockIdx.y * kTileH + threadIdx.y;
-  const int c = blockIdx.x * kTileW + threadIdx.x;
-  if (r >= h || c >= w) return;
-  const long long i = (long long)r * w + c;
-  float d1, d2;
-  pair_divergence(p, r, c, h, w, &d1, &d2);
-  const float a = p.u1[i], b = p.u2[i];
-  const bool gok = p.grad[i] > kGradIsZero;
-  const float v1 = gok ? v1p[i] : a;
-  const float v2 = gok ? v2p[i] : b;
   const float wt = p.wt[i];
   d1 = d1 / wt;
   d2 = d2 / wt;
@@ -493,24 +364,6 @@ extern "C" int faldoi_nltv_global_loop(
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
-}
-
-// K15, one PD iteration of NLTV-CSAD's global loop after K8's v-step: u1 u2
-// u1b u2b wt v1 v2 grad (h, w) and sp sq wp (24, h, w), all float32 on one
-// device, wp symmetric (planes 0-11 are read); K6's dual phase, then the
-// primal phase on v, two launches on the stream.
-extern "C" int faldoi_nltvcsad_global_step(
-    float* u1, float* u2, float* u1b, float* u2b, const float* wt,
-    const float* v1, const float* v2, const float* grad, float* sp, float* sq,
-    const float* wp, int h, int w, float theta, float tau, void* stream) {
-  if (h <= 0 || w <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 block(kTileW, kTileH);
-  const dim3 tiles((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  GlobalPlanes p{u1, u2, u1b, u2b, wt, nullptr, nullptr, grad, nullptr, sp, sq, wp};
-  nltv_dual_kernel<<<tiles, block, 0, st>>>(p, h, w, tau);
-  nltvcsad_primal_kernel<<<tiles, block, 0, st>>>(p, v1, v2, h, w, theta, tau);
-  return (int)cudaGetLastError();
 }
 
 // K7: ins = u1 u2 v1 v2 i1wx i1wy grad rho_c wp wt lt scal ph pw duals_in,

@@ -732,7 +732,7 @@ struct ZeroRule : Base {
     if (st.ok && isfinite(dot)) {
       float x;
       if constexpr (SMEM)
-        x = ranked_select_smem<G>(sb, pp, st.n, dot, ltg, g, gmask);
+        x = ranked_select_col<G>(sb, pp, st.n, dot, ltg, g, gmask);
       else
         x = ranked_select<G>(st.rk, bv, st.n, dot, ltg, g, gmask);
       if (x != 0.0f) return x;
@@ -799,7 +799,7 @@ struct NoFallbackSmem : RankedSmem<G> {
                                                  int ph, int pw, int g,
                                                  unsigned gmask, const float* sb,
                                                  int pp) {
-    return ranked_select_smem<G>(sb, pp, st.n, dot, ltg, g, gmask);
+    return ranked_select_col<G>(sb, pp, st.n, dot, ltg, g, gmask);
   }
 };
 

@@ -79,11 +79,12 @@ _SIGNATURES = {
     # u1 u2 v1 v2 b i1wx i1wy denom lt scal ph pw, u1o u2o v1o v2o iters, b,
     # p, lt_cells, max_iters, stream
     "faldoi_csad_patch_loop": (_P,) * 17 + (_I,) * 4 + (_P,),
-    # u1 u2 u1b u2b xi11 xi12 xi21 xi22 b i1wx i1wy grad part state, h, w,
-    # l_t, theta, tau, tol2, max_iters, stream
-    "faldoi_tvcsad_global_loop": (_P,) * 14 + (_I, _I, _F, _F, _F, _F, _I, _P),
-    # u1 u2 u1b u2b wt v1 v2 grad sc_p sc_q wp, h, w, theta, tau, stream
-    "faldoi_nltvcsad_global_step": (_P,) * 11 + (_I, _I, _F, _F, _P),
+    # u1 u2 u1b u2b xi11 xi12 xi21 xi22 b i1wx i1wy grad part state rb ok,
+    # h, w, l_t, theta, tau, tol2, max_iters, stream
+    "faldoi_tvcsad_global_loop": (_P,) * 16 + (_I, _I, _F, _F, _F, _F, _I, _P),
+    # u1 u2 u1b u2b wt i1wx i1wy den grad sc_p sc_q wp b rb ok, h, w, l_t,
+    # theta, tau, max_iters, stream
+    "faldoi_nltvcsad_global_loop": (_P,) * 15 + (_I, _I, _F, _F, _F, _I, _P),
     # u1 u2 v1 v2 b i1wx i1wy denom wp wt lt scal ph pw duals_in, u1o u2o v1o
     # v2o iters duals_out, b, p, lt_cells, max_iters, stream
     "faldoi_nltvcsad_patch_loop": (_P,) * 21 + (_I,) * 4 + (_P,),

@@ -95,6 +95,9 @@ def csad_vstep_plain(u1, u2, b, i1wx, i1wy, denom, l_t, masks, ncount):
     return u1 - i1wx * med / denom, u2 - i1wy * med / denom
 
 
+INF_KEY = 0x7f800000
+
+
 def order_key(x):
     """int32 keys of float32 ``x`` whose signed order is ``torch.sort``'s:
     -0 equal to +0, every NaN equal and after +inf (``csad_select.cuh``)."""
@@ -102,6 +105,38 @@ def order_key(x):
     k = torch.where(i < 0, i ^ 0x7fffffff, i)
     k = torch.where(x == 0, torch.zeros_like(k), k)
     return torch.where(torch.isnan(x), torch.full_like(k, 0x7fffffff), k)
+
+
+def _ranked(b, masks):
+    """Each cell's b in descending order (ascending ``order_key(-b)``, ties
+    by j, the masked ones last): the rank axis first."""
+    key = torch.where(masks, order_key(-b),
+                      torch.full_like(b, 0, dtype=torch.int32) + INF_KEY)
+    return b.gather(0, torch.sort(key, dim=0, stable=True).indices)
+
+
+def _merge_search(a_at, n, ltg, dot):
+    """The merge-path search of six probes for the entry at position n + 1
+    of A u B, A[i] = ``a_at(i)`` (the b of rank i, recomputed as -(b - dot),
+    +inf from n on), each probe recomputed as the twin computes it."""
+    inf = torch.full((), float("inf"), dtype=ltg.dtype)
+    sg = torch.where(ltg > 0, 1, -1)
+    m = n + 2
+
+    def b_at(i):        # B[n + 1 - i] in B's stable order
+        return torch.where(i >= 1, (sg * (m - 2 * i)).to(ltg.dtype) * ltg, inf)
+
+    lo = (m - (N_D + 1)).clamp(min=0)
+    size = torch.minimum(m, torch.full_like(m, N_D)) - lo
+    for _ in range(6):   # the first i in [lo, hi) with A[i] > B[n + 1 - i]
+        half = size // 2
+        mid = lo + half
+        q = a_at(mid) <= b_at(mid)
+        go = size > 0
+        lo = torch.where(go & q, mid + 1, lo)
+        size = torch.where(go, torch.where(q, size - half - 1, half), size)
+    a, bb = a_at(lo - 1), b_at(lo)
+    return torch.where(lo == 0, bb, torch.where(lo == m, a, torch.where(a > bb, a, bb)))
 
 
 def csad_ranked_select_plain(b, masks, ncount, l_t, denom, dots,
@@ -117,44 +152,78 @@ def csad_ranked_select_plain(b, masks, ncount, l_t, denom, dots,
     value is a zero.  Returns [(med, fallback)] a dot:
     med as the rule gives it, fallback the bool cells that took the sort.
     For the tests only."""
-    inf_key = 0x7f800000
     n = ncount.to(torch.int64)
-    key = torch.where(masks, order_key(-b), torch.full_like(b, 0, dtype=torch.int32)
-                      + inf_key)
-    ranked = b.gather(0, torch.sort(key, dim=0, stable=True).indices)
+    ranked = _ranked(b, masks)
     ltg = l_t * denom
     inf = torch.full((), float("inf"), dtype=b.dtype)
     bfin = (torch.isfinite(b) | ~masks).all(dim=0) & torch.isfinite(ltg)
-    sg = torch.where(ltg > 0, 1, -1)
-    m = n + 2
-
-    def a_at(i, dot):   # A[i]: the b of rank i, +inf from n on
-        v = -(ranked.gather(0, i.clamp(0, N_D - 1)[None])[0] - dot)
-        return torch.where(i < n, v, inf)
-
-    def b_at(i):        # B[n + 1 - i] in B's stable order
-        return torch.where(i >= 1, (sg * (m - 2 * i)).to(b.dtype) * ltg, inf)
-
     out = []
     for dot in dots:
-        lo = (m - (N_D + 1)).clamp(min=0)
-        size = torch.minimum(m, torch.full_like(m, N_D)) - lo
-        for _ in range(6):   # the first i in [lo, hi) with A[i] > B[n + 1 - i]
-            half = size // 2
-            mid = lo + half
-            q = a_at(mid, dot) <= b_at(mid)
-            go = size > 0
-            lo = torch.where(go & q, mid + 1, lo)
-            size = torch.where(go, torch.where(q, size - half - 1, half), size)
-        a, bb = a_at(lo - 1, dot), b_at(lo)
-        med = torch.where(lo == 0, bb, torch.where(lo == m, a,
-                                                   torch.where(a > bb, a, bb)))
+        def a_at(i, dot=dot):   # A[i]: the b of rank i, +inf from n on
+            v = -(ranked.gather(0, i.clamp(0, N_D - 1)[None])[0] - dot)
+            return torch.where(i < n, v, inf)
+
+        med = _merge_search(a_at, n, torch.as_tensor(ltg, dtype=b.dtype)
+                            .expand(n.shape), dot)
         fb = ~(bfin & torch.isfinite(dot))
         if zero_fallback:
             fb = fb | (med == 0)
         want = _sorted_med(b, masks, ncount, dot, ltg)
         out.append((torch.where(fb, want, med), fb))
     return out
+
+
+# the whole-image loops' layouts of the ranked b (``csrc/csad_select.cuh``):
+# pixel `cell`'s rank i at col(cell) + i * stride in a flat buffer
+IMAGE_LAYOUTS = {"pixel": (lambda cell, hw: cell * N_D, lambda hw: 1),
+                 "plane": (lambda cell, hw: cell, lambda hw: hw)}
+
+
+def csad_rank_image_plain(b, masks, l_t, denom, layout="pixel"):
+    """Plain model of the whole-image loops' rank launch (K14, K15,
+    ``csrc/csad_global.cu``): each pixel's inside b (b (48, h, w)) in
+    descending order, ties by j, at rank i of its column in a flat buffer of
+    48 floats a pixel laid out as ``layout`` ("pixel": (h w, 48); "plane":
+    (48, h, w)), NaN past the pixel's n (the kernel leaves those unwritten);
+    and ``ok`` (h, w) bool: every inside b and l_t denom finite.  For the
+    tests only."""
+    n = masks.sum(dim=0)
+    ranked = torch.where(torch.arange(N_D).view(-1, 1, 1) < n, _ranked(b, masks),
+                         torch.full((), float("nan")))
+    col, stride = IMAGE_LAYOUTS[layout]
+    hw = ranked[0].numel()
+    cells = torch.arange(hw)
+    idx = col(cells, hw)[None] + torch.arange(N_D)[:, None] * stride(hw)
+    rb = torch.empty(hw * N_D, dtype=b.dtype)
+    rb[idx.reshape(-1)] = ranked.reshape(N_D, hw).reshape(-1)
+    ok = (torch.isfinite(b) | ~masks).all(dim=0) & torch.isfinite(l_t * denom)
+    return rb, ok
+
+
+def csad_ranked_image_select_plain(rb, ok, b, masks, ncount, l_t, denom, dot,
+                                   layout="pixel"):
+    """Plain model of one PD iteration's selection in the whole-image loops
+    (``csrc/csad_select.cuh``, ``image_select``): where ``ok`` and dot are
+    finite, the merge-path search over the pixel's column of ``rb`` (from
+    ``csad_rank_image_plain``, read at the kernel's flat indices), else the
+    twin's sort (the kernels' counting path).  Returns (med, fallback).  For
+    the tests only."""
+    n = ncount.to(torch.int64).reshape(-1)
+    hw = n.numel()
+    col, stride = IMAGE_LAYOUTS[layout]
+    base = col(torch.arange(hw), hw)
+    ltg = (l_t * denom).reshape(-1)
+    inf = torch.full((), float("inf"), dtype=rb.dtype)
+    d = dot.reshape(-1)
+
+    def a_at(i):   # read only for i in [0, n), as the kernel reads
+        at = base + i.clamp(0, N_D - 1) * stride(hw)
+        return torch.where((i >= 0) & (i < n), -(rb[at] - d), inf)
+
+    med = _merge_search(a_at, n, ltg, d).view(dot.shape)
+    fb = ~(ok & torch.isfinite(dot))
+    want = _sorted_med(b, masks, ncount, dot, l_t * denom)
+    return torch.where(fb, want, med), fb
 
 
 def _sorted_med(b, masks, ncount, dot, ltg):

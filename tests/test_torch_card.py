@@ -1018,21 +1018,46 @@ def _k14_errs(args, k):
     return errs
 
 
-@pytest.mark.parametrize("h,w,stop", [(436, 1024, "cap"), (40, 56, "cap"),
+def _real_warp_args(dev, method, iters, crop=None):
+    """K14's (method 4) or K15's (method 6) arguments for the first warp of
+    the synthetic pair at 436x1024 (its known flow plus 0.5 px of noise), as
+    ``tvcsad_global`` / ``nltvcsad_global`` build them, or cut from it to
+    ``crop`` (h, w) before the warp."""
+    from faldoi_tpu_torch import synthetic as syn
+    from faldoi_tpu_torch.cli.k8_variants import csad_global_args
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    i0, i1, gf, _ = syn.make_pair(436, 1024, seed=0)
+    a, b = prepare_pair(i0, i1, device=dev)
+    rng = np.random.default_rng(7)
+    flow = torch.as_tensor((gf + rng.normal(0, 0.5, gf.shape)).astype(np.float32),
+                           device=dev)
+    h, w = crop or (436, 1024)
+    return csad_global_args(a[:h, :w].contiguous(), b[:h, :w].contiguous(),
+                            flow[:h, :w].contiguous(), method, i0[:, :h, :w],
+                            iters)
+
+
+@pytest.mark.parametrize("h,w,stop", [(436, 1024, "cap"), (436, 1024, "real"),
+                                      (40, 56, "real"), (40, 56, "cap"),
                                       (40, 56, "tol"), (40, 56, "one"),
                                       (5, 7, "cap"), (3, 3, "cap")])
 def test_k14_matches_twin_on_card(dev, h, w, stop):
-    """K14 (TV-CSAD's global loop, one call a warp) against its twin on the
-    card, bit for bit: u, u_bar, the four duals and the iteration count;
-    "cap": tol^2 0, the loop runs to its cap of 6; "tol": a tol^2 between
-    the first mean squared update that falls below every earlier one and
-    the least of those stops it there (after 2-5); "one": tol^2 1e10 after
-    1."""
+    """K14 (TV-CSAD's global loop, one call a warp: b ranked once, a merge
+    search every PD iteration) against its twin on the card, bit for bit:
+    u, u_bar, the four duals and the iteration count; "cap": tol^2 0, the
+    loop runs to its cap of 6; "real": the same on the first warp of the
+    synthetic pair; "tol": a tol^2 between the first mean squared update
+    that falls below every earlier one and the least of those stops it
+    there (after 2-5); "one": tol^2 1e10 after 1."""
     from faldoi_tpu_torch.core.global_step_csad import (
         tvcsad_global_loop, tvcsad_global_loop_plain,
     )
 
-    args = _k14_args(dev, h, w, 240 + h + w, 0.0, 6)
+    if stop == "real":
+        args = _real_warp_args(dev, 4, 6, (h, w))
+    else:
+        args = _k14_args(dev, h, w, 240 + h + w, 0.0, 6)
     want_n = 6
     if stop == "tol":
         # the first iteration whose err falls below every earlier one
@@ -1105,27 +1130,116 @@ def _k15_args(dev, h, w, seed, max_iters):
             float(np.float32(40.0) * np.float32(0.3)), m, n, 0.3, 0.1, max_iters]
 
 
-@pytest.mark.parametrize("h,w,iters", [(436, 1024, 3), (40, 56, 10), (5, 7, 5),
-                                       (3, 3, 4)])
-def test_k15_matches_twin_on_card(dev, h, w, iters):
-    """K15 (NLTV-CSAD's global loop: K8 and one step of ``csrc/nltv.cu`` an
-    iteration) against its twin on the card, bit for bit: u, u_bar and the
-    48 duals; K8 launched once an iteration, K15 once a call."""
+@pytest.mark.parametrize("h,w,iters,real", [
+    (436, 1024, 3, False), (436, 1024, 10, True), (436, 1024, 1, True),
+    (40, 56, 10, False), (40, 56, 400, True), (40, 56, 1, False), (5, 7, 5, False),
+    (3, 3, 4, False)])
+def test_k15_matches_twin_on_card(dev, h, w, iters, real):
+    """K15 (NLTV-CSAD's global loop: one library call a warp, b ranked once,
+    K6's dual phase and a primal phase that selects v itself an iteration)
+    against its twin on the card, bit for bit: u, u_bar and the 48 duals;
+    K15 launched once a call, K8 never (the former K15 launched K8's
+    whole-image form once an iteration); "real": the first warp of the
+    synthetic pair's global weights and breakpoints."""
     from faldoi_tpu_torch.core.global_step_csad import (
         nltvcsad_global_loop, nltvcsad_global_loop_plain,
     )
     from faldoi_tpu_torch.ops.csad import csad_vstep
 
-    args = _k15_args(dev, h, w, 260 + h + w, iters)
+    if real:
+        args = _real_warp_args(dev, 6, iters, (h, w))
+    else:
+        args = _k15_args(dev, h, w, 260 + h + w, iters)
     got = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
     want = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
     before, k8 = nltvcsad_global_loop.launches, csad_vstep.launches
     nltvcsad_global_loop(*got)
     assert nltvcsad_global_loop.launches == before + 1
-    assert csad_vstep.launches == k8 + iters
+    assert csad_vstep.launches == k8
     nltvcsad_global_loop_plain(*want)
     for x, y in zip(got[:6], want[:6]):
         assert _same_bits(x, y)
+
+
+def _inject(dev, args, b_at, u_at, seed):
+    """Make the whole-image loops' arguments adversarial, in place: b (at
+    ``b_at``) drawn from a pool of ties and zeros of both signs with +-inf
+    and NaN at inside neighbours of pixels on the image edge (those pixels
+    take the counting path every PD iteration); u1 made +-inf or NaN at a few
+    pixels (their dot is not finite in the first iteration)."""
+    from faldoi_tpu_torch.ops.csad import image_masks
+
+    b = args[b_at]
+    _, h, w = b.shape
+    rng = np.random.default_rng(seed)
+    m, _ = image_masks(h, w, dev)
+    pool = np.float32([-0.5, -0.25, -0.0, 0.0, 0.25, 0.5])
+    b.copy_(torch.where(m, torch.as_tensor(pool[rng.integers(0, len(pool), b.shape)],
+                                           device=dev), torch.zeros((), device=dev)))
+    edge = [(0, 0), (0, w - 1), (h - 1, w // 2), (h // 2, 0)]
+    for (y, x), v in zip(edge, (np.inf, -np.inf, np.nan, np.inf)):
+        j = int(torch.nonzero(m[:, y, x])[0])   # an inside neighbour
+        b[j, y, x] = float(v)
+    u1 = args[u_at]
+    for (y, x), v in zip(((h // 2, w // 2), (1, 1)), (np.nan, np.inf)):
+        u1[y, x] = float(v)
+
+
+@pytest.mark.parametrize("h,w", [(40, 56), (5, 7), (3, 3)])
+def test_k14_k15_adversarial_cells_on_card(dev, h, w):
+    """K14 and K15 on breakpoints that tie within A and with B and hold
+    zeros of both signs, +-inf and NaN (pixels on the image edge take the
+    counting path every iteration), and on a NaN and an inf dot: bit for
+    bit with their twins (K14's count too)."""
+    from faldoi_tpu_torch.core.global_step_csad import (
+        nltvcsad_global_loop, nltvcsad_global_loop_plain, tvcsad_global_loop,
+        tvcsad_global_loop_plain,
+    )
+
+    for k14, args in ((True, _k14_args(dev, h, w, 600 + h, 0.0, 4)),
+                      (False, _k15_args(dev, h, w, 610 + h, 4))):
+        _inject(dev, args, 8, 0, 620 + h)
+        got = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+        want = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+        if k14:
+            assert int(tvcsad_global_loop(*got)) == int(tvcsad_global_loop_plain(*want))
+        else:
+            nltvcsad_global_loop(*got)
+            nltvcsad_global_loop_plain(*want)
+        for x, y in zip(got[:8 if k14 else 6], want[:8 if k14 else 6]):
+            assert _same_bits(x, y)
+
+
+@pytest.fixture(scope="module")
+def global_variants_lib():
+    """K14's and K15's former and ranked forms
+    (``csrc/variants/csad_global_variants.cu``), built once for the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from faldoi_tpu_torch.cli.k8_variants import build_global_variants
+
+    return build_global_variants()[0]
+
+
+@pytest.mark.parametrize("kernel,h,w", [("K14", 40, 56), ("K14", 5, 7),
+                                        ("K15", 40, 56), ("K15", 3, 3)])
+def test_k14_k15_former_forms_match_library_on_card(dev, global_variants_lib,
+                                                    kernel, h, w):
+    """Every K14 and K15 form of ``cli/k8_variants.py`` (the former,
+    counting every iteration; the ranked layouts and lanes) equals its twin
+    and the library's bit for bit."""
+    from faldoi_tpu_torch.cli.k8_variants import (
+        K14_VARIANTS, K15_VARIANTS, time_global,
+    )
+
+    if kernel == "K14":
+        args = _k14_args(dev, h, w, 630 + h, 0.0, 4)
+    else:
+        args = _k15_args(dev, h, w, 640 + h, 4)
+    forms = K14_VARIANTS if kernel == "K14" else K15_VARIANTS
+    times = time_global(global_variants_lib, kernel, args, list(forms))
+    assert set(times) == {str(v) for v in forms}
 
 
 def _k16_args(dev, p, b, seed, weighted, duals=False, tol2=None):

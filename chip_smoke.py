@@ -181,7 +181,7 @@ BSZ = 8192
 CROP = (96, 128)             # the CPU-vs-card crop
 SEED = 0
 # keys of a kernel's record printed beside the required ones
-EXTRA = ("launches_m0", "launches_m2", "launches_m4", "launches_m6", "launches_m8",
+EXTRA = ("library", "launches_m0", "launches_m2", "launches_m4", "launches_m6", "launches_m8",
          "launches_sift", "launches_pairs", "launches_f1", "launches_f2",
          "launches_mesh", "launches_k8tv", "path_former_s", "path_former_ms",
          "turns_ms", "path_turns_ms",
@@ -215,10 +215,29 @@ M6_KERNELS = ("nltvcsad_global_loop", "nltvcsad_patch_loop")
 # (``solve_tvcsad(true_tv=True)``, on no default path), which phase 5b3
 # drives; its whole-image form on no path
 K8_KERNELS = ("csad_vstep",)
-# the sha256 of rg / var (``digest``) of the m4 and m6 paths: the ranked
-# loops must leave them as the counting ones made them
-PATH_DIGESTS = {4: ("efc02b36fa6e0bd3", "546cc586cd11ab5d"),
-                6: ("a06be662497bf16d", "cc198c3f174e451f")}
+# the sha256 of rg / var (``digest``) of the full-width paths, by tag: the
+# m0 path, the single-pair runs of pairs 1-3 of pairs mode (pair 0 is m0;
+# every pairs-mode pair must equal its single-pair run), faldoi_sift, F1,
+# F2 and the m2, m4, m6 and m8 paths.  The fixed-shape sweep of methods 0
+# and 1 and the hand kernels K2 and K3 must leave them as the parent tree
+# made them (on an NVIDIA H100 80GB HBM3; m4 and m6 since the ranked
+# loops).  Every run prints the digests it saw as one JSON line
+# ({"digests": ...}), so a parent tree's run gives its digests
+PATH_DIGESTS = {
+    "m0": ("905be1b5a70f6bff", "fe4b146495eac0e1"),
+    "pair1": ("622ff0eabba34562", "9658e45f5c9e8658"),
+    "pair2": ("8164871499e235b9", "e1ec9a8436ee02e6"),
+    "pair3": ("48788e250420c04f", "5f47b7e634a527b6"),
+    "sift": ("54500d14a6e9d0ae", "a66a4ed6ebaf1ee7"),
+    "F1": ("3b4b36caab291e85", "17cc54622f500558"),
+    "F2": ("12c97d920b5267ff", "165abd19eb024ef0"),
+    "m2": ("4abd1afcbc74b673", "247eb787519628e7"),
+    "m4": ("efc02b36fa6e0bd3", "546cc586cd11ab5d"),
+    "m6": ("a06be662497bf16d", "cc198c3f174e451f"),
+    "m8": ("eaa622a79fb7cbb3", "fc1eb636fbf46d8d"),
+}
+# rg / var sha256 of the paths this run drove, by tag
+DIGESTS_SEEN = {}
 M8_KERNELS = ("occ_patch_loop", "occ_global_loop")
 # the lane forms' records, whose main path is pairs mode (N = 4)
 PAIRS_KERNELS = ("gather_plane_patches_lanes",)
@@ -337,6 +356,17 @@ def digest(a) -> str:
     import hashlib
 
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def check_digest(tag, rg, var):
+    """The path ``tag``'s rg / var sha256 must be ``PATH_DIGESTS[tag]``;
+    each one seen is kept in ``DIGESTS_SEEN``."""
+    got = (digest(rg), digest(var))
+    DIGESTS_SEEN[tag] = got
+    if got != PATH_DIGESTS[tag]:
+        raise AssertionError(f"{tag}: rg / var sha256 {got[0]} / {got[1]}, "
+                             f"expected {PATH_DIGESTS[tag]}")
+    log(f"{tag}: rg / var sha256 {got[0]} / {got[1]}, as asserted")
 
 
 def same_bits(a, b):
@@ -2697,6 +2727,249 @@ def check_k12(dev, rng, a, b, n_seeds, variants):
                 **rec, shapes=rows)
 
 
+def k2_planes(dev, rng, nl, relax=False):
+    """K2's inputs at a sweep's shapes: ``nl`` lanes of (h*w + 1) cand_e /
+    fixed / ene planes at the path's size: energies drawn with ties (three
+    decimals), a third of the pixels with no candidate (+inf), 40% fixed."""
+    n = H * W
+    cand = np.round(rng.gamma(2.0, 0.05, (nl, n + 1)), 3).astype(np.float32)
+    cand[rng.random((nl, n + 1)) < 0.33] = np.inf
+    fixed = rng.random((nl, n + 1)) < 0.4
+    ene = np.where(fixed, cand * 1.5, np.inf).astype(np.float32)
+    return [torch.as_tensor(x).to(dev) for x in (cand, fixed, ene)]
+
+
+def k2_rows(dev, rng, nl, relax=False, bsz=BSZ):
+    """K2's select and accept at ``nl`` lanes of the path's size and ``bsz``,
+    bit for bit against their twins on the card, timed (graphs of 20 calls)
+    beside the twins and, for select, beside one stable ``torch.sort`` of
+    the lanes' keys.  Returns (select row, accept row)."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.select import (
+        accept, accept_plain, keys_plain, select, select_plain,
+    )
+
+    n = H * W
+    cand, fixed, ene = k2_planes(dev, rng, nl, relax)
+    got = select(cand, fixed, ene, n, bsz, relax)
+    want = select_plain(cand, fixed, ene, n, bsz, relax)
+    torch.cuda.synchronize()
+    if not (same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2])):
+        raise AssertionError(f"K2 select, {nl} lanes: differs from its twin")
+    keys = keys_plain(cand, fixed, ene, n, relax)
+    cap = min(bsz, n)
+    shape = f"{nl} x {H}x{W}, bsz {bsz}" + (", relax" if relax else "")
+    sel = dict(shape=shape, max_abs_err=0.0,
+               ms=cuda_ms(lambda: select(cand, fixed, ene, n, bsz, relax),
+                          graph=True),
+               eager_ms=cuda_ms(lambda: select(cand, fixed, ene, n, bsz, relax)),
+               plain_ms=cuda_ms(lambda: select_plain(cand, fixed, ene, n, bsz,
+                                                     relax), reps=3, warmup=1),
+               library_ms=cuda_ms(lambda: torch.sort(keys, dim=1, stable=True),
+                                  reps=5, warmup=1),
+               **bound(nl * n * (9 if relax else 5) + nl * cap * 12 + nl * 8))
+    args = (got[0], got[2], float(np.float32(0.05)), 0.5, 4096, 64, 0, 1 << 30)
+    ga, wa = accept(*args), accept_plain(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(ga._fields, ga, wa):
+        if not torch.equal(x.reshape(y.shape), y):
+            raise AssertionError(f"K2 accept, {nl} lanes: {name} differs from "
+                                 "its twin")
+    acc = dict(shape=f"{nl} x cap {cap}, {int(ga.total)} accepted",
+               max_abs_err=0.0, ms=cuda_ms(lambda: accept(*args), graph=True),
+               eager_ms=cuda_ms(lambda: accept(*args)),
+               plain_ms=cuda_ms(lambda: accept_plain(*args), reps=3, warmup=1),
+               **bound(nl * cap * 13 + nl * cap * 1 + nl * 40 + 8))
+    for name, r in (("select", sel), ("accept", acc)):
+        log(f"K2 {name} {r['shape']}: bit-exact; kernel {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f})  twin {r['plain_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f"  torch.sort(stable=True) of the keys {r['library_ms']:.4f} ms"
+               if "library_ms" in r else ""))
+    return sel, acc
+
+
+def check_k2(dev, rng):
+    """K2 at the paths' shapes: the lockstep drains' two lanes (m0, F1,
+    faldoi_sift), the final drain's one, pairs N 4's eight; relax (F1's
+    later drains) at two; and two lanes at bsz 1, where the rank has one
+    entry a lane (the radix passes alone).  Records: select and accept, the
+    first row's numbers (the m0 lockstep sweep's)."""
+    rows = [k2_rows(dev, rng, nl, relax, bsz) for nl, relax, bsz in
+            ((2, False, BSZ), (1, False, BSZ), (8, False, BSZ),
+             (2, True, BSZ), (2, False, 1))]
+    return [dict(name="select", route="cuda",
+                 source="faldoi_tpu_torch/csrc/select.cu",
+                 replaces="faldoi_tpu/core/local_step.py:302-405",
+                 library="torch.sort(stable=True) of the (L', h*w) keys",
+                 **rows[0][0], shapes=[r[0] for r in rows]),
+            dict(name="accept", route="cuda",
+                 source="faldoi_tpu_torch/csrc/select.cu",
+                 replaces="faldoi_tpu/core/local_step.py:302-405",
+                 library_ms=None, **rows[0][1], shapes=[r[1] for r in rows])]
+
+
+def k3_generic_row(dev, rng, nl, k):
+    """K3's generic form at the lockstep sweep's candidate scatter: 4K
+    neighbour updates of K patches into nl lanes' (h*w + 1) planes, half of
+    them ok, energies with ties; bit for bit against its twin, timed beside
+    it and beside ``scatter_reduce`` of the key plane alone."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.ops.scatter import (
+        scatter_min_payload, scatter_min_payload_plain,
+    )
+
+    n = H * W
+    size = nl * (n + 1)
+    lane = torch.as_tensor(rng.integers(0, nl, k))
+    pix = torch.as_tensor(rng.integers(0, n, k))
+    off = torch.tensor([W, -W, 1, -1])
+    q = ((lane * (n + 1))[None] + (pix[None] + off[:, None]).clamp(0, n - 1)).reshape(-1)
+    m = q.shape[0]
+    e = torch.as_tensor(np.round(rng.gamma(2.0, 0.05, m), 3).astype(np.float32))
+    u, v = (torch.as_tensor(rng.standard_normal(m).astype(np.float32))
+            for _ in range(2))
+    ok = torch.as_tensor(rng.random(m) < 0.5)
+    dump = (lane * (n + 1) + n).repeat(4)
+    tgt = [torch.as_tensor(np.where(rng.random(size) < 0.5, np.inf,
+                                    rng.gamma(2.0, 0.05, size)).astype(np.float32))]
+    tgt += [torch.as_tensor(rng.standard_normal(size).astype(np.float32))
+            for _ in range(2)]
+    args = [t.to(dev) for t in (*tgt, q, e, u, v, ok, dump)]
+    got = scatter_min_payload(*args)
+    want = scatter_min_payload_plain(*args)
+    off_dump = torch.ones(size, dtype=torch.bool, device=dev)
+    off_dump[n::n + 1] = False
+    torch.cuda.synchronize()
+    if not all(same_bits(x[off_dump], y[off_dump]) for x, y in zip(got, want)):
+        raise AssertionError("K3 generic form differs from its twin")
+    qs = torch.where(args[7], args[3], args[8])
+    e_m = torch.where(args[7], args[4], torch.full_like(args[4], float("inf")))
+    return dict(shape=f"min, {m} updates ({nl} lanes, K {k}) into {nl} x "
+                      f"({H}x{W}+1)", max_abs_err=0.0,
+                ms=cuda_ms(lambda: scatter_min_payload(*args), graph=True),
+                eager_ms=cuda_ms(lambda: scatter_min_payload(*args)),
+                plain_ms=cuda_ms(lambda: scatter_min_payload_plain(*args),
+                                 reps=3, warmup=1),
+                library_ms=cuda_ms(lambda: args[0].scatter_reduce(
+                    0, qs, e_m, "amin", include_self=True), graph=True),
+                **bound(size * 12 * 2 + m * 29))
+
+
+def k3_wflow_row(dev, rng, nl, k, p=11):
+    """K3's working-flow form at a sweep's K patches of side p (boxes at
+    random pixels, 90% of the patches accepted) into nl lanes' planes; bit
+    for bit against its twin, timed beside it and beside ``scatter_reduce``
+    of the key plane alone over the K*p*p cells."""
+    from faldoi_tpu_torch.cli.kernel_probe import bound, cuda_ms
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.scatter import wflow_scatter, wflow_scatter_plain
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    n = H * W
+    size = nl * (n + 1)
+    pix = torch.as_tensor(rng.integers(0, n, k), device=dev)
+    _, _, oy, ox, ph, pw = patch_geometry(pix, H, W, p // 2)
+    rows, cols = canvas_ids(p, dev)
+    inbox = ((rows < ph[:, None, None]) & (cols < pw[:, None, None])
+             & torch.as_tensor(rng.random(k) < 0.9, device=dev)[:, None, None])
+    ener = torch.as_tensor(np.round(rng.gamma(2.0, 0.05, k), 3).astype(np.float32),
+                           device=dev)
+    su, sv = (torch.as_tensor(rng.standard_normal((k, p, p)).astype(np.float32),
+                              device=dev) for _ in range(2))
+    wu, wv = (torch.as_tensor(rng.standard_normal(size).astype(np.float32),
+                              device=dev) for _ in range(2))
+    base = (torch.as_tensor(rng.integers(0, nl, k), device=dev) * (n + 1)
+            if nl > 1 else None)
+    args = (wu, wv, wu, su, sv, None, ener, oy, ox, inbox, H, W, p, base)
+    got = wflow_scatter(*args)
+    want = wflow_scatter_plain(*args)
+    off_dump = torch.ones(size, dtype=torch.bool, device=dev)
+    off_dump[n::n + 1] = False
+    torch.cuda.synchronize()
+    if not all(same_bits(x[off_dump], y[off_dump]) for x, y in zip(got, want)):
+        raise AssertionError("K3 working-flow form differs from its twin")
+    gy = oy[:, None, None] + rows
+    gx = ox[:, None, None] + cols
+    flat_q = torch.where(inbox, gy * W + gx, n)
+    if base is not None:
+        flat_q = base[:, None, None] + flat_q
+    flat_q = flat_q.reshape(-1)
+    key = torch.where(inbox, ener[:, None, None], float("-inf")).reshape(-1)
+    key_buf = torch.full((size,), float("-inf"), device=dev)
+    cells = k * p * p
+    return dict(shape=f"max, K {k} patches of P {p} ({cells} cells) into {nl} x "
+                      f"({H}x{W}+1)", max_abs_err=0.0,
+                ms=cuda_ms(lambda: wflow_scatter(*args), graph=True),
+                eager_ms=cuda_ms(lambda: wflow_scatter(*args)),
+                plain_ms=cuda_ms(lambda: wflow_scatter_plain(*args), reps=3,
+                                 warmup=1),
+                library_ms=cuda_ms(lambda: key_buf.scatter_reduce(
+                    0, flat_q, key, "amax", include_self=True), graph=True),
+                **bound(size * 8 + cells * 9 + k * 28 + size * 12))
+
+
+def check_k3(dev, rng):
+    """K3 at the paths' shapes: the generic form at the lockstep sweep's
+    neighbour candidates (4 x 16384 updates, two lanes), one lane's 4 x
+    8192 and pairs N 4's 4 x 65536; the working-flow form at the lockstep
+    sweep's K 16384, one lane's 8192, the seed insertion's P 3 at K 2048,
+    and pairs N 4's K 65536.  Records: the generic and the working-flow
+    forms, the first rows' numbers."""
+    gen = [k3_generic_row(dev, rng, nl, k) for nl, k in
+           ((2, 2 * BSZ), (1, BSZ), (8, 8 * BSZ))]
+    wfl = [k3_wflow_row(dev, rng, nl, k, p) for nl, k, p in
+           ((2, 2 * BSZ, 11), (1, BSZ, 11), (1, 2048, 3), (8, 8 * BSZ, 11))]
+    for r in gen + wfl:
+        log(f"K3 {r['shape']}: bit-exact off the dump slots; kernel "
+            f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f})  twin "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  scatter_reduce of the key plane alone "
+            f"{r['library_ms']:.4f} ms")
+    label = "scatter_reduce of the key plane alone (no payload)"
+    return [dict(name="scatter_payload", route="cuda",
+                 source="faldoi_tpu_torch/csrc/scatter.cu",
+                 replaces="faldoi_tpu/core/local_step.py:174", library=label,
+                 **gen[0], shapes=gen),
+            dict(name="wflow_scatter", route="cuda",
+                 source="faldoi_tpu_torch/csrc/scatter.cu",
+                 replaces="faldoi_tpu/core/local_step.py:192", library=label,
+                 **wfl[0], shapes=wfl)]
+
+
+def check_drain_reads(path, st, reads):
+    """The static drains of a methods-0/1 path (``reads``: its stats'
+    "drain_reads", in the order they ran) against its stats: each ran a multiple of
+    ``SYNC_SWEEPS`` sweeps, at most SYNC_SWEEPS - 1 past its longest lane,
+    and read the card at most ceil(sweeps / SYNC_SWEEPS) + 1 times.  Logs
+    them with the ms a sweep of each drain."""
+    from faldoi_tpu_torch.core.local_step import SYNC_SWEEPS
+
+    longest = []
+    for s in st["sweeps"]:
+        if not longest or longest[-1][0] != s["it"]:
+            longest.append([s["it"], s["sweeps"]])
+        else:
+            longest[-1][1] = max(longest[-1][1], s["sweeps"])
+    if len(reads) != len(longest):
+        raise AssertionError(f"{path}: {len(reads)} static drains for "
+                             f"{len(longest)} drains in the stats")
+    secs = [v for k, v in st["seconds"].items() if k.startswith("drain")]
+    rows = []
+    for (it, most), (ran, nreads), s in zip(longest, reads, secs):
+        if not (most <= ran < most + SYNC_SWEEPS and ran == nreads * SYNC_SWEEPS
+                and nreads <= -(-most // SYNC_SWEEPS) + 1):
+            raise AssertionError(f"{path} drain it {it}: {ran} sweeps run, "
+                                 f"{nreads} host reads for a longest lane of "
+                                 f"{most} sweeps (SYNC_SWEEPS {SYNC_SWEEPS})")
+        rows.append(dict(it=it, sweeps=most, ran=ran, host_reads=nreads,
+                         ms_a_sweep=round(1e3 * s / ran, 3)))
+    log(f"{path}: static drains, host reads every {SYNC_SWEEPS} sweeps: "
+        + json.dumps(rows))
+    return rows
+
+
 def replay_k8_path(dev, rng, sc, calls, k8v_lib):
     """K8's patch-form work of the m4 path, measured: the loop calls the
     path made (``calls``: (B, P) each) replayed on synthetic canvases of the
@@ -3076,9 +3349,7 @@ def run_stage_path(method, i0, i1, go, ba, gf, wrappers, later=None,
             raise AssertionError(f"K15 launched {launches['nltvcsad_global_loop']}"
                                  f" times for {len(iters)} global warps, K8 "
                                  f"{launches['csad_vstep']}")
-    if method in PATH_DIGESTS and (digest(rg), digest(var)) != PATH_DIGESTS[method]:
-        raise AssertionError(f"{tag}: rg / var sha256 {digest(rg)} / {digest(var)}, "
-                             f"expected {PATH_DIGESTS[method]}")
+    check_digest(tag, rg, var)
     return launches, st, secs
 
 
@@ -3116,6 +3387,7 @@ def run_f2_path(i0, i1, go, ba, gf, wrappers):
     log(f"F2 fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} "
         f"px  var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic); "
         f"sha256 rg {digest(rg)}, var {digest(var)}")
+    check_digest("F2", rg, var)
     if fill < 1.0:
         raise AssertionError(f"F2 growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
@@ -3166,6 +3438,8 @@ def run_sift_path(i0, i1, gf, wrappers):
     log(f"faldoi_sift stage seconds: {json.dumps(stages)}")
     log(f"faldoi_sift growing seconds: {json.dumps(grow)}")
     log(f"faldoi_sift sweeps per drain: {json.dumps(st['sweeps'])}")
+    log(f"faldoi_sift static drains (sweeps run, host reads): "
+        f"{st['drain_reads']}")
     log(f"faldoi_sift global PD iterations per warp: {st['global_iters']}")
     log_global_ms("faldoi_sift", st)
     log("faldoi_sift global stage, host seconds: " + json.dumps(
@@ -3174,6 +3448,7 @@ def run_sift_path(i0, i1, gf, wrappers):
     log(f"faldoi_sift fill {100 * fill:.3f}%  rg EPE vs known flow "
         f"{syn.epe(rg, gf):.4f} px  var EPE vs known flow "
         f"{syn.epe(var, gf):.4f} px (synthetic)")
+    check_digest("sift", rg, var)
     if fill < 1.0:
         raise AssertionError(f"faldoi_sift growing filled {100 * fill:.3f}% < 100%")
     if not np.isfinite(var).all():
@@ -3247,8 +3522,10 @@ def run_pairs_phase(data, var0, wrappers):
     pairs = pairs_data(data, max(PAIRS_N))
     singles = [var0]
     t0 = time.perf_counter()
-    for p in pairs[1:]:
-        singles.append(run_slice(*p[:4], "cuda", {})[1])
+    for k, p in enumerate(pairs[1:], 1):
+        rg, var = run_slice(*p[:4], "cuda", {})
+        check_digest(f"pair{k}", rg, var)
+        singles.append(var)
     log(f"pairs: single-pair runs of pairs 1-{len(pairs) - 1} (the m0 path's "
         f"calls) {time.perf_counter() - t0:.2f} s")
     launches = None
@@ -3718,6 +3995,9 @@ def run_all(jobs, tmp):
     )
     from faldoi_tpu_torch.ops.patch_gather import gather_patches, gather_plane_patches
     from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_planes
+    from faldoi_tpu_torch.ops.scatter import scatter_payload, wflow_scatter
+    from faldoi_tpu_torch.ops.select import accept, select
+    from faldoi_tpu_torch.core import local_step
     from faldoi_tpu_torch.core.bilateral import bilateral_filter_flow
 
     t_start = time.perf_counter()
@@ -3800,6 +4080,11 @@ def run_all(jobs, tmp):
     for r in probe_recs:
         log(kp.describe(r))
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 3c")
+    # phase 3c: the sweep's selection (K2) and payload scatters (K3)
+    # against their twins at the paths' shapes, timed
+    kernels += [*check_k2(dev, rng), *check_k3(dev, rng)]
+
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # phase 4: crops through the CPU twins (the child processes) and
     # through the card, m0, m2, m4, m6 and m8 with the warm requeue, m1, m3,
@@ -3848,12 +4133,15 @@ def run_all(jobs, tmp):
                 nltv_patch_loop, csad_vstep, csad_patch_loop, occ_patch_loop,
                 occ_global_loop, nearest_fill_image, bilateral_filter_flow,
                 tvl1_patch_solve, poisson_fill_planes, tvcsad_global_loop,
-                nltvcsad_global_loop, nltvcsad_patch_loop, bicubic_sample)
+                nltvcsad_global_loop, nltvcsad_patch_loop, select, accept,
+                scatter_payload, wflow_scatter, bicubic_sample)
     reset_launches(wrappers)
     st = {}
     with fb_warps() as fb_m0, sweep_calls() as calls_m0:
         rg, var = run_slice(i0, i1, go, ba, "cuda", st)
     launches_m0 = read_launches(wrappers)
+    check_digest("m0", rg, var)
+    check_drain_reads("m0 main path", st, st["drain_reads"])
     fill = float(np.isfinite(rg).all(-1).mean())
     secs = {k: round(v, 3) for k, v in st["seconds"].items()}
     log(f"full {H}x{W} SYNTHETIC main path (m0), bsz {BSZ}: seconds "
@@ -3865,7 +4153,7 @@ def run_all(jobs, tmp):
     chunks = sum(-(-len(pos) // 2048) for pos in (pos_f, pos_b))
     log(f"of K12's and K13's launches, {chunks} at p 3 (one a chunk of 2048 "
         f"seeds, B {len(pos_f)} and {len(pos_b)}); the rest at p 11, one a "
-        "non-empty sweep")
+        "sweep (the static drains solve every sweep's whole batch)")
     check_tvl1_path("m0 main path", launches_m0, calls_m0)
     log(f"fill {100 * fill:.3f}%  rg EPE vs known flow {syn.epe(rg, gf):.4f} px  "
         f"var EPE vs known flow {syn.epe(var, gf):.4f} px (synthetic)")
@@ -4103,6 +4391,7 @@ def run_all(jobs, tmp):
             raise AssertionError(f"kernel {k['name']} never launched on the m0 path")
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"digests": DIGESTS_SEEN}))
     print(json.dumps({"kernels": [
         {k: d[k] for k in KEYS + EXTRA if k in d} for d in kernels]}))
     print(json.dumps({"ok": True, "device": {

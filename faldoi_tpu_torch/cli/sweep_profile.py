@@ -5,13 +5,20 @@
 On one CUDA card: the m0 main path's growing (``match_growing`` of the
 synthetic 436x1024 pair 0 at bsz 8192, its fwd and bwd lanes in lockstep,
 seeded at the golden DeepMatching positions, as ``chip_smoke.py`` runs it)
-is stopped after ``WARM`` + 2 ``WINDOW`` sweeps of its first drain.  After
-the ``WARM`` sweeps, one window of sweeps is timed on the host clock with a
+is stopped after ``WARM`` + 2 ``WINDOW`` sweeps of its first drain (the
+fixed-shape sweeps, ``local_step.sweep_static``).  After the ``WARM``
+sweeps, one window of sweeps is timed on the host clock with a
 ``torch.cuda.synchronize()`` after each sweep (ms a sweep), and the next
 window runs under ``torch.profiler`` (CPU and CUDA activities): the host's
 top-level ``aten::`` ops, the kernel launches it issued (``cudaLaunch*``
 calls), the kernels the card ran and the card's busy share (the union of
-the kernels' intervals over the window's wall time), a sweep each.
+the kernels' intervals over the window's wall time), a sweep each.  The
+window is left without a synchronize between its sweeps, as the drain runs
+them.
+
+``time_sync_sweeps`` runs the whole m0 growing once for each of a list of
+host-read intervals (``local_step.SYNC_SWEEPS``) and returns its drains'
+seconds, the sweeps they ran and the growing's sha256.
 
 Prints the figures as one JSON line; ``--out`` gets them with the card's
 name and power limit.  Without a CUDA card it exits non-zero.
@@ -110,7 +117,7 @@ def profile_m0_sweeps() -> dict:
     a, b = prepare_pair(i0, i1, device="cuda")
     prm = P.Parameters()
     prm.val_method = 0
-    sweep = local_step.sweep_lanes
+    sweep = local_step.sweep_static
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     warm, window = WARM, WINDOW
     rec = dict(n=0, timed=[], accepted=[], profiled_s=0.0)
@@ -126,19 +133,21 @@ def profile_m0_sweeps() -> dict:
             torch.cuda.synchronize()
             prof.start()
             rec["t_prof"] = time.perf_counter()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sweep(*args, **kw)
-        torch.cuda.synchronize()
         if n < warm + window:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = sweep(*args, **kw)
+        if n < warm + window:
+            torch.cuda.synchronize()
             rec["timed"].append((time.perf_counter() - t0) * 1e3)
-        rec["accepted"].append(int(sum(out[1])))
+            rec["accepted"].append(int(out[1].sum()))
         if n == warm + 2 * window - 1:
+            torch.cuda.synchronize()
             rec["profiled_s"] = time.perf_counter() - rec["t_prof"]
             prof.stop()
         return out
 
-    local_step.sweep_lanes = patched
+    local_step.sweep_static = patched
     try:
         match_growing(go, ba, a, b, prm, bsz=BSZ, warm_band=10, i0_planes=i0,
                       i1_planes=i1)
@@ -147,12 +156,57 @@ def profile_m0_sweeps() -> dict:
     except _Stop:
         pass
     finally:
-        local_step.sweep_lanes = sweep
+        local_step.sweep_static = sweep
     timed = rec["timed"]
     return dict(warm=warm, window=window, ms_per_sweep=sum(timed) / len(timed),
                 ms_per_sweep_min=min(timed), ms_per_sweep_max=max(timed),
                 accepted_per_sweep=sum(rec["accepted"]) / len(rec["accepted"]),
                 **_count(prof, window, rec["profiled_s"]))
+
+
+def time_sync_sweeps(intervals, rounds: int = 1) -> list:
+    """The m0 path's growing once for each host-read interval of
+    ``intervals`` (``local_step.SYNC_SWEEPS``, each a divisor of ``CHUNK``),
+    in turns for ``rounds`` rounds (the order reversed every other round):
+    per run the seconds of each drain (``match_growing``'s stats), the sweeps
+    each drain ran and its host reads (stats["drain_reads"]), and the sha256
+    of the grown flow (the interval must not move it)."""
+    import hashlib
+
+    import torch
+
+    from faldoi_tpu_torch import params as P
+    from faldoi_tpu_torch.core import local_step
+    from faldoi_tpu_torch.core.match_growing import match_growing
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    i0, i1, go, ba = _m0_pair()
+    a, b = prepare_pair(i0, i1, device="cuda")
+    prm = P.Parameters()
+    prm.val_method = 0
+    keep = local_step.SYNC_SWEEPS
+    out = []
+    order = [(rnd, s) for rnd in range(rounds)
+             for s in (intervals if rnd % 2 == 0 else intervals[::-1])]
+    try:
+        for rnd, s in order:
+            if local_step.CHUNK % s:
+                raise ValueError(f"{s} does not divide CHUNK {local_step.CHUNK}")
+            local_step.SYNC_SWEEPS = s
+            st = {}
+            flow, _, _ = match_growing(go, ba, a, b, prm, bsz=BSZ, warm_band=10,
+                                       i0_planes=i0, i1_planes=i1, stats=st)
+            torch.cuda.synchronize()
+            drains = {k: round(v, 4) for k, v in st["seconds"].items()
+                      if k.startswith("drain")}
+            out.append(dict(
+                sync_sweeps=s, round=rnd, drain_s=drains,
+                drains_total_s=round(sum(drains.values()), 4),
+                ran_reads=st["drain_reads"],
+                sha256=hashlib.sha256(flow.cpu().numpy().tobytes()).hexdigest()[:16]))
+    finally:
+        local_step.SYNC_SWEEPS = keep
+    return out
 
 
 def _card_line() -> str:

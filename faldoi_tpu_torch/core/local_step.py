@@ -28,16 +28,20 @@ is ``out_chi`` at fixed pixels and the working chi elsewhere (0 where it is
 not finite, and outside the box), and chi rides as a payload on every
 scatter.  For methods 0-7 no sweep reads or writes them.
 
-Ties, which JAX leaves to the backend: candidate selection breaks equal
-energies by the lower flat index (``lax.top_k``'s rule; a stable sort here),
-and a payload scatter whose winners tie on the key keeps the LAST update in
-JAX's flattening order (what XLA's sequential CPU scatter does), on every
-device.
+The selection is K2 (``ops/select.py``) and the payload scatters K3
+(``ops/scatter.py``).  Ties, which JAX leaves to the backend: candidate
+selection orders the keys as ``lax.top_k`` does on the CPU (their IEEE
+total order, equal keys by the lower flat index), and a payload scatter
+whose winners tie on the key keeps the LAST update in JAX's flattening
+order (what XLA's sequential CPU scatter does), on every device.
 
-Selection is exact: the port solves only the ``n_acc`` accepted
-candidates, in the order of the sorted batch (a prefix of it unless
-block-local bands are on).  JAX solves all ``bsz`` and masks the rest; the
-masked ones write nothing, so the results are the same.
+Selection is exact.  JAX solves all ``bsz`` candidates of a sweep and
+masks the rest; the drains of methods 0 and 1 under the patch fills do the
+same (``sweep_static``: a fixed batch, nothing read back a sweep), while
+``sweep_lanes`` solves only the accepted candidates, in the order of the
+selected batch (a prefix of it unless block-local bands are on), sized by
+one host read.  The masked candidates write nothing, so the results are
+the same.
 
 The throttles of the acceptance are ``sweep_lanes``' arguments, with JAX's
 ``match_growing`` defaults: the delta band ``e_min + max(delta, delta_rel *
@@ -64,6 +68,13 @@ from faldoi_tpu_torch.core.functionals import (
 )
 from faldoi_tpu_torch.ops.patch_gather import gather_plane_patches
 from faldoi_tpu_torch.ops.poisson import nearest_fill_image, poisson_fill_planes
+# scatter_max_payload is the sweep's public scatter beside the min one
+from faldoi_tpu_torch.ops.scatter import (  # noqa: F401
+    scatter_max_payload, scatter_min_payload, wflow_scatter,
+)
+from faldoi_tpu_torch.ops.select import (
+    RELAX_MARGIN, accept, band_floor_plain, keys_plain, select,
+)
 from faldoi_tpu_torch.ops.stencils import canvas_ids
 
 INF = float("inf")
@@ -73,14 +84,11 @@ FILLS = ("patch", "patch_exact", "patch_rb", "dense")
 # the bands of the exact window-min acceptance (``exactmin``): "0" none, "1"
 # the global delta band, "2" the band or the rank floor
 EXACTMIN_BANDS = ("0", "1", "2")
-# the sort-key bias of a relax-mode re-claim (a fixed pixel's candidate):
-# it ranks after every frontier candidate (JAX's RECLAIM_BIAS)
-RECLAIM_BIAS = 1.0e6
-# relax mode: a claim must beat the energy times this, less 1e-6 (JAX's
-# relax_margin, float32)
-RELAX_MARGIN = float(np.float32(0.95))
 # 4-neighbour order of insert_candidates (and of JAX's concatenation)
 NEIGHBOURS = ((0, 1), (0, -1), (1, 0), (-1, 0))
+# the methods whose drains sweep with a fixed batch and no host read a
+# sweep (``sweep_static``, ``drain_lanes``): K12's TV-L1 solves
+STATIC_METHODS = (P.M_TVL1, P.M_TVL1_W)
 
 
 class GrowState(NamedTuple):
@@ -148,68 +156,6 @@ def patch_geometry(idx, h, w, wr, ymin=0, ymax=None):
     return i, j, oy, ox, ph, pw
 
 
-def _last_winner(qs, winner, pos, size):
-    """Among the winners that target one slot keep the one with the largest
-    ``pos`` (JAX's flattening order: XLA's sequential scatter keeps the last
-    write)."""
-    key = torch.where(winner, pos, torch.full_like(pos, -1))
-    best = torch.full((size,), -1, dtype=pos.dtype, device=pos.device)
-    best = best.scatter_reduce(0, qs, key, "amax", include_self=True)
-    return winner & (best[qs] == pos)
-
-
-def _positions(q, pos):
-    return torch.arange(q.shape[0], device=q.device) if pos is None else pos
-
-
-def _dumps(q, dump):
-    """The dump slot of every update: ``dump`` itself where it is a tensor
-    (one slot an update: each lane's own), else ``dump`` everywhere."""
-    return dump if isinstance(dump, torch.Tensor) else torch.full_like(q, dump)
-
-
-def _put_payloads(qw, tgts, vals):
-    return tuple(t.index_put((qw,), x) for t, x in zip(tgts, vals))
-
-
-def scatter_min_payload(tgt_e, tgt_u, tgt_v, q, e, u, v, ok, dump, pos=None,
-                        tgt_c=None, c=None):
-    """Scatter (e, u, v) to q where ok, keeping per slot the minimum e
-    (``_scatter_min_payload``).  ``dump``: the slot masked updates go to, an
-    int or one slot an update.  ``pos`` orders tied winners (default: the
-    update order).  With ``tgt_c`` and ``c`` (method 8's chi) the winner's c
-    goes to tgt_c as well, and the result has it fourth."""
-    dumps = _dumps(q, dump)
-    qs = torch.where(ok, q, dumps)
-    e_m = torch.where(ok, e, torch.full_like(e, INF))
-    tgt_e = tgt_e.scatter_reduce(0, qs, e_m, "amin", include_self=True)
-    winner = ok & (e_m <= tgt_e[qs])
-    sel = _last_winner(qs, winner, _positions(q, pos), tgt_e.shape[0])
-    qw = torch.where(sel, q, dumps)
-    tgts, vals = (tgt_u, tgt_v), (u, v)
-    if tgt_c is not None:
-        tgts, vals = tgts + (tgt_c,), vals + (c,)
-    return (tgt_e,) + _put_payloads(qw, tgts, vals)
-
-
-def scatter_max_payload(key_buf, tgt_u, tgt_v, q, key, u, v, ok, dump,
-                        pos=None, tgt_c=None, c=None):
-    """Scatter (u, v) to q where ok, keeping the payload of the maximum key
-    (``_scatter_max_payload`` in its exact form); ``dump``, ``tgt_c``, ``c``
-    as in ``scatter_min_payload``."""
-    dumps = _dumps(q, dump)
-    qs = torch.where(ok, q, dumps)
-    k_m = torch.where(ok, key, torch.full_like(key, -INF))
-    key_buf = key_buf.scatter_reduce(0, qs, k_m, "amax", include_self=True)
-    winner = ok & (k_m >= key_buf[qs])
-    sel = _last_winner(qs, winner, _positions(q, pos), key_buf.shape[0])
-    qw = torch.where(sel, q, dumps)
-    tgts, vals = (tgt_u, tgt_v), (u, v)
-    if tgt_c is not None:
-        tgts, vals = tgts + (tgt_c,), vals + (c,)
-    return (key_buf,) + _put_payloads(qw, tgts, vals)
-
-
 def _chi_payload(tgt_c, c):
     """The chi payload's keyword arguments of a scatter (none where c is
     None: methods 0-7)."""
@@ -260,36 +206,6 @@ def _neighbour_candidates(su, sv, ener, i, j, oy, ox, sal, h, w, p, schi=None,
     return (q, torch.cat(inbs), ener.repeat(len(NEIGHBOURS)) * sal[q],
             torch.cat(nus), torch.cat(nvs),
             torch.cat(ncs) if schi is not None else None)
-
-
-def _wflow_scatter(wu, wv, wchi, su, sv, schi, ener, oy, ox, inbox, h, w, p,
-                   base=None):
-    """Max-energy-wins working-flow scatter over every in-box patch cell
-    into the flat planes ``wu``, ``wv`` (one lane's (h*w+1,), or L lanes'
-    flattened, with ``base`` each patch's lane times h*w + 1); the working
-    chi rides along where ``schi`` is given.  Returns (wu, wv, wchi, the
-    scatter's key plane: each slot's winning energy, -inf where no cell
-    landed)."""
-    n = h * w
-    k = su.shape[0]
-    rows, cols = canvas_ids(p, su.device)
-    gy = oy[:, None, None] + rows
-    gx = ox[:, None, None] + cols
-    flat_q = torch.where(inbox, gy * w + gx, torch.full_like(gy, n))
-    dump = n
-    if base is not None:
-        flat_q = base[:, None, None] + flat_q
-        dump = (base + n)[:, None, None].expand(k, p, p).reshape(-1)
-    key = ener[:, None, None].expand(k, p, p)
-    bidx = torch.arange(k, device=su.device)[:, None, None]
-    pos = (rows * p + cols) * k + bidx          # JAX order: cell-major
-    key_buf = torch.full(wu.shape, -INF, dtype=torch.float32, device=su.device)
-    out = scatter_max_payload(
-        key_buf, wu, wv, flat_q.reshape(-1), key.reshape(-1),
-        su.reshape(-1), sv.reshape(-1), inbox.reshape(-1), dump,
-        pos.reshape(-1),
-        **_chi_payload(wchi, None if schi is None else schi.reshape(-1)))
-    return out[1], out[2], out[3] if schi is not None else wchi, out[0]
 
 
 def exact_fill(fill: str, method: int) -> bool:
@@ -400,21 +316,12 @@ def eligibility(state: GrowState, n: int, relax: bool = False, lanes=None,
     +inf where it cannot be popped.  Under ``relax`` a pixel is eligible
     while its candidate beats its energy (cand_e < ene * ``RELAX_MARGIN`` -
     1e-6), and a fixed pixel's key is cand_e + ``RECLAIM_BIAS``.  ``owned``
-    ((n,) bool, optional): +inf outside a row shard's own rows."""
-    dev = state.cand_e.device
-    rows = _lane_rows(state.fixed.shape[0], lanes, dev)
-    inf = torch.full((), INF, device=dev)
-    cand_rows = state.cand_e[rows, :n]
-    if relax:
-        improving = cand_rows < state.ene[rows, :n] * RELAX_MARGIN - 1e-6
-        key = torch.where(state.fixed[rows, :n], cand_rows + RECLAIM_BIAS,
-                          cand_rows)
-        eligible = torch.where(improving, key, inf)
-    else:
-        eligible = torch.where(state.fixed[rows, :n], inf, cand_rows)
-    if owned is not None:
-        eligible = torch.where(owned, eligible, inf)
-    return eligible
+    ((n,) bool, optional): +inf outside a row shard's own rows.  (K2 forms
+    the same keys itself; the ordering modes and the sharded growing's band
+    anchor read them here.)"""
+    rows = _lane_rows(state.fixed.shape[0], lanes, state.cand_e.device)
+    return keys_plain(state.cand_e, state.fixed, state.ene, n, relax, rows,
+                      owned)
 
 
 def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
@@ -426,7 +333,7 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                 exactmin: int = 0, exactmin_band: str = "0",
                 defer: float = 0.0, defer_win: int = 0, lanes=None,
                 owned=None, ybounds=None, row_offset: int = 0,
-                band_min=None, with_wkey: bool = False):
+                band_min=None, with_wkey: bool = False, *, _static=False):
     """One wavefront sweep of L independent growing lanes as one batch
     (``_sweep_body`` with the exact working-flow scatter of radius wr for
     every lane), solving with ``method``'s patch solver.
@@ -459,18 +366,19 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
       holds a strictly lower accepted key while the window's accepted flows
       spread by more than ``defer`` are dropped (``_contested``).
 
-    Selection is per lane: one stable sort of the (L, h*w) keys by row
-    (ties to the lower flat index within the lane), and each lane its own
+    Selection is per lane (K2, ``ops/select.py``): the top min(bsz, h*w)
+    keys of each lane in ``lax.top_k``'s order (the keys' IEEE total order,
+    ties to the lower flat index within the lane), and each lane its own
     e_min and band, queue and rank floor, and block-local band.  The
     accepted candidates of all lanes are flattened lane-major into one
     batch that gets one state crop (K0's planes form), one fill, one solve
-    and one set of scatters.  A pixel's slot is flat at ``lane * (N+1) +
-    q``, each lane's dump slot at ``lane * (N+1) + N``.  Ties of the payload
-    scatters keep, within a lane, the order of a one-lane sweep: positions
-    d*K+b (neighbour candidates) and (r*p+c)*K+b (working flow) with b
-    lane-major, so a lane's winners keep their relative order, and slots of
-    different lanes never collide.  Each lane's result is therefore that of
-    its own one-lane sweep, bit for bit.
+    and one set of scatters (K3, ``ops/scatter.py``).  A pixel's slot is
+    flat at ``lane * (N+1) + q``, each lane's dump slot at ``lane * (N+1) +
+    N``.  Ties of the payload scatters keep, within a lane, the order of a
+    one-lane sweep: positions d*K+b (neighbour candidates) and (r*p+c)*K+b
+    (working flow) with b lane-major, so a lane's winners keep their
+    relative order, and slots of different lanes never collide.  Each
+    lane's result is therefore that of its own one-lane sweep, bit for bit.
 
     The hooks of a row shard of the sharded growing
     (``parallel.spatial_grow``), which sweeps an extended domain of h rows:
@@ -488,9 +396,11 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     * ``with_wkey``: also return the working-flow scatter's key plane,
       (L, h*w+1), -inf where nothing landed.
 
-    Returns (new state, accepted counts of the swept lanes, in ``lanes``
-    order), read from the card in one host read; and the key plane third
-    under ``with_wkey``."""
+    The batch holds the accepted candidates only, sized by one host read of
+    the counts (``_static``: ``sweep_static``'s fixed batch and no read).
+    Returns (new state, accepted counts of the swept lanes, in
+    ``lanes`` order), read from the card in that one host read; and the key
+    plane third under ``with_wkey``."""
     solver = solver_for(method)
     exact = exact_fill(fill, method)
     dense = fill == "dense"
@@ -512,77 +422,88 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     rows = _lane_rows(nl, lanes, dev)
     ymin, ymax = (0, h) if ybounds is None else ybounds
 
-    # --- selection, per lane: top-bsz eligible, delta band, queue-adaptive
-    # floor
-    eligible = eligibility(state, n, relax, lanes, owned)
-    vals, order = torch.sort(eligible, dim=1, stable=True)
-    e_pop = vals[:, :bsz]
-    idx = order[:, :bsz]
-    e_min = e_pop[:, :1] if band_min is None else band_min
-    band = e_min + torch.clamp(delta_rel * e_min, min=delta)
-    e_ok = e_pop <= band
-    if block:
-        # a candidate passes with its tile's band or the global one
-        e_ok = e_ok | _block_band(eligible, h, w, block, delta,
-                                  delta_rel).gather(1, idx)
-    queue = torch.isfinite(eligible).sum(1, keepdim=True)
-    floor_base = max(int(floor), 1)
-    fscale = torch.full_like(queue, max(int(floor_scale), 1))
-    if floor_scale_hi > 0:
-        # staged divisor: floor_scale_hi once the queue reaches queue_hi
-        fscale = torch.where(queue >= queue_hi, int(floor_scale_hi), fscale)
-    floor_dyn = torch.where(fscale > 1, (queue // fscale).clamp(1, floor_base),
-                            floor_base)
+    # --- selection, per lane (K2): top-bsz eligible, delta band,
+    # queue-adaptive floor; the ordering modes build their mask with plain
+    # ops between K2's two calls
+    e_pop, idx, queue = select(state.cand_e, state.fixed, state.ene, n, bsz,
+                               relax, None if isinstance(rows, slice) else rows,
+                               owned)
+    throttle = (delta, delta_rel, floor, floor_scale, floor_scale_hi,
+                queue_hi)
+    valid = None
+    if block or exactmin > 0 or defer > 0:
+        eligible = eligibility(state, n, relax, lanes, owned)
+        _, e_ok, floor_dyn = band_floor_plain(e_pop, queue, *throttle,
+                                              band_min)
+        if block:
+            # a candidate passes with its tile's band or the global one
+            e_ok = e_ok | _block_band(eligible, h, w, block, delta,
+                                      delta_rel).gather(1, idx)
+        rank = torch.arange(e_pop.shape[1], device=dev)
+        in_floor = e_ok | (rank < floor_dyn)
+        valid = torch.isfinite(e_pop) & in_floor
+        if exactmin > 0:
+            # the window minima of the keys, in place of the band and the
+            # floor
+            wmin = _window_reduce(eligible.view(-1, h, w), int(exactmin), "min")
+            valid = torch.isfinite(e_pop) & (eligible <= wmin.view(-1, n)).gather(
+                1, idx)
+            if exactmin_band == "1":
+                valid = valid & e_ok
+            elif exactmin_band == "2":
+                valid = valid & in_floor
+        if defer > 0:
+            pops = [getattr(state, f)[rows, :n].gather(1, idx)
+                    for f in ("cand_u", "cand_v")]
+            valid = valid & ~_contested(valid, idx, e_pop, *pops, h, w,
+                                        float(np.float32(defer)),
+                                        int(defer_win) or p)
+    acc = accept(e_pop, queue, *throttle, band_min=band_min, valid=valid)
     width = e_pop.shape[1]
-    rank = torch.arange(width, device=dev)
-    in_floor = e_ok | (rank < floor_dyn)
-    valid = torch.isfinite(e_pop) & in_floor
-    if exactmin > 0:
-        # the window minima of the keys, in place of the band and the floor
-        wmin = _window_reduce(eligible.view(-1, h, w), int(exactmin), "min")
-        valid = torch.isfinite(e_pop) & (eligible <= wmin.view(-1, n)).gather(
-            1, idx)
-        if exactmin_band == "1":
-            valid = valid & e_ok
-        elif exactmin_band == "2":
-            valid = valid & in_floor
-    if defer > 0:
-        pops = [getattr(state, f)[rows, :n].gather(1, idx)
-                for f in ("cand_u", "cand_v")]
-        valid = valid & ~_contested(valid, idx, e_pop, *pops, h, w,
-                                    float(np.float32(defer)),
-                                    int(defer_win) or p)
-    counts = valid.sum(1).tolist()          # the sweep's one host read
-    k = sum(counts)
-    if k == 0:
-        if with_wkey:
-            return state, counts, torch.full(state.wu.shape, -INF,
-                                             dtype=torch.float32, device=dev)
-        return state, counts
-    # the accepted (lane, rank) pairs, lane-major, in rank order
-    vflat = valid.reshape(-1)
-    slot = torch.where(vflat, vflat.cumsum(0) - 1, k)
-    pick = torch.empty((k + 1,), dtype=torch.int64, device=dev).scatter_(
-        0, slot, torch.arange(vflat.shape[0], device=dev))[:k]
+    if _static:
+        # the whole batch, the accepted (lane, rank) pairs first
+        pick = acc.order
+        if dev.type == "cpu":
+            # no card to spare a read of here, and the CPU twins' time grows
+            # with the batch: cut it to the accepted count rounded up to a
+            # power of two (canvases are independent: the same result)
+            total = int(acc.total)
+            pick = pick[:min(pick.shape[0], 1 << max(total - 1, 0).bit_length())]
+        ok_b = torch.arange(pick.shape[0], device=dev) < acc.total
+        counts = acc.counts
+    else:
+        counts = acc.counts.tolist()        # the sweep's one host read
+        k = sum(counts)
+        if k == 0:
+            if with_wkey:
+                return state, counts, torch.full(state.wu.shape, -INF,
+                                                 dtype=torch.float32,
+                                                 device=dev)
+            return state, counts
+        # the accepted (lane, rank) pairs, lane-major, in rank order
+        pick = acc.order[:k]
+        ok_b = None
+    k = pick.shape[0]
     pix = idx.reshape(-1)[pick]
     lane = pick // width
     if not isinstance(rows, slice):
         lane = rows[lane]
     base = lane * stride
-    q = base + pix                         # flat slots of the accepted pixels
+    q = base + pix                         # flat slots of the batch's pixels
     dump = base + n                        # their lanes' dump slots
+    q_fix = q if ok_b is None else torch.where(ok_b, q, dump)
 
     i, j, oy, ox, ph, pw = patch_geometry(pix, h, w, wr, ymin, ymax)
 
     # --- fix accepted candidates (local_growing pop, :899-937)
     flat = GrowState(*(t.reshape(-1) for t in state))
-    fixed = flat.fixed.index_put((q,), torch.ones((), dtype=torch.bool,
-                                                  device=dev))
-    out_u = flat.out_u.index_put((q,), flat.cand_u[q])
-    out_v = flat.out_v.index_put((q,), flat.cand_v[q])
-    ene = flat.ene.index_put((q,), flat.cand_e[q])
-    cand_e = flat.cand_e.index_put((q,), torch.full((), INF, device=dev))
-    out_chi = (flat.out_chi.index_put((q,), flat.cand_chi[q]) if with_chi
+    fixed = flat.fixed.index_put((q_fix,), torch.ones((), dtype=torch.bool,
+                                                      device=dev))
+    out_u = flat.out_u.index_put((q_fix,), flat.cand_u[q])
+    out_v = flat.out_v.index_put((q_fix,), flat.cand_v[q])
+    ene = flat.ene.index_put((q_fix,), flat.cand_e[q])
+    cand_e = flat.cand_e.index_put((q_fix,), torch.full((), INF, device=dev))
+    out_chi = (flat.out_chi.index_put((q_fix,), flat.cand_chi[q]) if with_chi
                else flat.out_chi)
 
     # --- per-patch init (add_neighbors :688-705): one launch of K0's planes
@@ -645,11 +566,13 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     su, sv, schi, ener = _solve(solver, sconsts, i, jg, oyg, ox, ph, pw,
                                 u_init, v_init, p, warps, max_iters, c_init, ln)
 
-    # --- 4-neighbour candidates and same-sweep donations (:497-537)
+    # --- 4-neighbour candidates and same-sweep donations (:497-537), K3
     q4, inb4, e4, nu4, nv4, nc4 = _neighbour_candidates(
         su, sv, ener, i, j, oy, ox, sal.reshape(-1), h, w, p, schi, base,
         ymin, ymax)
     dump4 = dump.repeat(len(NEIGHBOURS))
+    if ok_b is not None:
+        inb4 = inb4 & ok_b.repeat(len(NEIGHBOURS))
     if relax:
         ok = (inb4 & (e4 < cand_e[q4])
               & (e4 < ene[q4] * RELAX_MARGIN - 1e-6))
@@ -666,28 +589,58 @@ def sweep_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     cand_chi = cand[3] if with_chi else flat.cand_chi
     out_chi = don[3] if with_chi else out_chi
 
-    # --- centre update (add_neighbors :718-726), after the donations
+    # --- centre update (add_neighbors :718-726), after the donations: a
+    # min scatter (K3) of the patches whose energy beats their pixel's
     cy, cx = j - oy, i - ox
     bidx = torch.arange(k, device=dev)
     better = ener < ene[q]
-    upd = torch.where(better, q, dump)
-    out_u = out_u.index_put((upd,), su[bidx, cy, cx])
-    out_v = out_v.index_put((upd,), sv[bidx, cy, cx])
-    if with_chi:
-        out_chi = out_chi.index_put((upd,), schi[bidx, cy, cx])
-    ene = ene.index_put((upd,), torch.where(better, ener,
-                                            torch.full_like(ener, INF)))
+    if ok_b is not None:
+        better = better & ok_b
+    centre = scatter_min_payload(
+        ene, out_u, out_v, q, ener, su[bidx, cy, cx], sv[bidx, cy, cx], better,
+        dump, **_chi_payload(out_chi, schi[bidx, cy, cx] if with_chi else None))
+    ene, out_u, out_v = centre[:3]
+    out_chi = centre[3] if with_chi else out_chi
 
-    # --- persistent working flow (max energy wins == later pop wins)
-    wu, wv, wchi, wkey = _wflow_scatter(flat.wu, flat.wv, flat.wchi, su, sv,
-                                        schi, ener, oy, ox, inbox, h, w, p,
-                                        base)
+    # --- persistent working flow (max energy wins == later pop wins), K3
+    inbox_w = inbox if ok_b is None else inbox & ok_b[:, None, None]
+    wu, wv, wchi, wkey = wflow_scatter(flat.wu, flat.wv, flat.wchi, su, sv,
+                                       schi, ener, oy, ox, inbox_w, h, w, p,
+                                       base)
     new = GrowState(fixed, out_u, out_v, ene, cand_u, cand_v, cand_e, wu, wv,
                     out_chi, cand_chi, wchi)
     new = GrowState(*(t.view(nl, stride) for t in new))
     if with_wkey:
         return new, counts, wkey.view(nl, stride)
     return new, counts
+
+
+def sweep_static(state: GrowState, sconsts: SolverConsts, trust2d, sal,
+                 iteration: int, h: int, w: int, wr: int, bsz: int,
+                 warps: int, max_iters: int, floor_scale: int,
+                 method: int = P.M_TVL1, lanes=None, **throttles):
+    """The drains' sweep of methods 0 and 1 under the patch fills, shaped as
+    JAX's ``_sweep_body``: the batch is every swept lane's top min(bsz,
+    h*w) candidates, the accepted ones first (lane-major, in rank order, as
+    ``sweep_lanes`` batches them) and then the rest, each keeping its pixel
+    so that its box lies in the image; every write of a candidate that was
+    not accepted (the fix, its neighbour candidates and donations, the
+    centre update, the working flow) goes to its lane's dump slot.  K0's
+    planes form, K13 and K12 run on the whole batch; canvases are
+    independent, so the accepted ones come out bit for bit as in
+    ``sweep_lanes``, and the state's h*w cells equal its.  (On CPU tensors
+    the batch is cut to the accepted count rounded up to a power of two:
+    the twins' time grows with it, and there is no card to read.)  Nothing
+    is read back from a card: returns (new state, the swept lanes' accepted counts as an (L',)
+    int64 tensor on the state's device).  ``throttles``: ``sweep_lanes``'
+    throttles and ordering dials."""
+    if method not in STATIC_METHODS or throttles.get("fill") == "dense":
+        raise ValueError(f"sweep_static takes methods {STATIC_METHODS} under "
+                         f"the patch fills, not method {method}, fill "
+                         f"{throttles.get('fill')!r}")
+    return sweep_lanes(state, sconsts, trust2d, sal, iteration, h, w, wr, bsz,
+                       warps, max_iters, floor_scale, method, lanes=lanes,
+                       _static=True, **throttles)
 
 
 def sweep_body(state: GrowState, sconsts: SolverConsts, trust2d, sal,
@@ -742,8 +695,8 @@ def seed_batch(state: GrowState, seed_idx, seed_u, seed_v,
         state.cand_e, state.cand_u, state.cand_v, q4, e4, nu4, nv4,
         inb4 & (e4 < state.cand_e[q4]), dump,
         **_chi_payload(state.cand_chi, nc4))
-    wu, wv, wchi, _ = _wflow_scatter(state.wu, state.wv, state.wchi, su, sv,
-                                     schi, ener, oy, ox, inbox, h, w, p)
+    wu, wv, wchi, _ = wflow_scatter(state.wu, state.wv, state.wchi, su, sv,
+                                    schi, ener, oy, ox, inbox, h, w, p)
     return state._replace(cand_e=out[0], cand_u=out[1], cand_v=out[2],
                           cand_chi=out[3] if with_chi else state.cand_chi,
                           wu=wu, wv=wv, wchi=wchi)
@@ -787,24 +740,45 @@ def insert_seeds(state: GrowState, seeds: np.ndarray, sconsts: SolverConsts,
 
 # sweeps between the sync points of JAX's chunked ``grow``
 CHUNK = 64
+# sweeps between the host's reads of a static drain's lane flags and sweep
+# counts: a divisor of CHUNK, so that the snapshots fall where they did.
+# Measured on the m0 growing on four hosts (PERF.md 6, with
+# ``cli/sweep_profile.time_sync_sweeps``): the best interval moved from host
+# to host within 1-16; 4 came within 14% of the best median on each (a
+# read stalls the host, a no-op sweep costs a full sweep)
+SYNC_SWEEPS = 4
 
 
 def drain_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
                 iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
                 max_iters: int, floor_scale: int, method: int = P.M_TVL1,
-                lanes=None, on_chunk=None, **throttles):
+                lanes=None, on_chunk=None, reads=None, **throttles):
     """Sweep the lanes ``lanes`` (None: all) of a lane-stacked state together
-    (``sweep_lanes``) until every one accepts nothing (``grow_to_completion``
-    a lane).  A lane leaves the batch after its first empty sweep, which its
-    count includes, as JAX's does; a drained lane's sweep would change
-    nothing.  Returns (state, sweeps of each lane in ``lanes`` order).
-    ``throttles`` go to every sweep.
+    until every one accepts nothing (``grow_to_completion`` a lane).  A
+    lane's count ends with its first empty sweep, which it includes, as
+    JAX's does; a drained lane's sweep changes nothing.  Returns (state,
+    sweeps of each lane in ``lanes`` order).  ``throttles`` go to every
+    sweep.
+
+    Methods 0 and 1 under the patch fills drain as JAX's ``drain_pair``
+    does (``sweep_static``): every lane sweeps every time, a drained one as
+    a no-op, and each lane's active flag and sweep count stay on the card;
+    the host reads them once every ``SYNC_SWEEPS`` sweeps (so up to
+    ``SYNC_SWEEPS`` - 1 no-op sweeps run after the last lane drained).
+    ``reads`` (a list, optional) gets (sweeps run, host reads) of such a
+    drain.
+    The other methods and ``fill="dense"`` sweep with ``sweep_lanes``, one
+    host read a sweep, the drained lanes left out.
 
     ``on_chunk(state of lane 0)``, if given, is called after every ``CHUNK``
     sweeps of lane 0 and after its last one: the sync points of JAX's
     chunked ``grow`` (local_step.py:1219-1236), where the partial-results
     snapshots are taken."""
     order = list(range(state.fixed.shape[0])) if lanes is None else list(lanes)
+    if method in STATIC_METHODS and throttles.get("fill", "patch") != "dense":
+        return _drain_static(state, sconsts, trust2d, sal, iteration, h, w,
+                             wr, bsz, warps, max_iters, floor_scale, method,
+                             lanes, order, on_chunk, reads, throttles)
     sweeps = dict.fromkeys(order, 0)
     active = order
     while active:
@@ -821,18 +795,53 @@ def drain_lanes(state: GrowState, sconsts: SolverConsts, trust2d, sal,
     return state, [sweeps[lane] for lane in order]
 
 
+def _drain_static(state, sconsts, trust2d, sal, iteration, h, w, wr, bsz,
+                  warps, max_iters, floor_scale, method, lanes, order,
+                  on_chunk, reads_out, throttles):
+    """``drain_lanes``' fixed-shape drain: ``sweep_static`` until every
+    lane's flag is down, read every ``SYNC_SWEEPS`` sweeps."""
+    dev = state.cand_e.device
+    nl = len(order)
+    active = torch.ones((nl,), dtype=torch.bool, device=dev)
+    sweeps = torch.zeros((nl,), dtype=torch.int64, device=dev)
+    lane0 = order.index(0) if on_chunk is not None and 0 in order else None
+    lane0_done = False
+    t = reads = 0
+    while True:
+        state, counts = sweep_static(state, sconsts, trust2d, sal, iteration,
+                                     h, w, wr, bsz, warps, max_iters,
+                                     floor_scale, method, lanes=lanes,
+                                     **throttles)
+        sweeps += active
+        active &= counts > 0
+        t += 1
+        if t % SYNC_SWEEPS:
+            continue
+        flags = torch.cat([active.to(torch.int64), sweeps]).tolist()
+        reads += 1
+        up, done = flags[:nl], flags[nl:]
+        if lane0 is not None and not lane0_done:
+            if not up[lane0] or t % CHUNK == 0:
+                on_chunk(lane_state(state, 0))
+            lane0_done = not up[lane0]
+        if not any(up):
+            if reads_out is not None:
+                reads_out.append((t, reads))
+            return state, done
+
+
 def drain(state: GrowState, sconsts: SolverConsts, trust2d, sal,
           iteration: int, h: int, w: int, wr: int, bsz: int, warps: int,
           max_iters: int, floor_scale: int, method: int = P.M_TVL1,
-          on_chunk=None, **throttles):
+          on_chunk=None, reads=None, **throttles):
     """Sweep one growing lane until a sweep accepts nothing: ``drain_lanes``
     at L = 1 on the flat state (``sweep_body``'s arguments).  Returns
     (state, sweeps); the count includes the final empty sweep.
-    ``on_chunk(state)`` as in ``drain_lanes``."""
+    ``on_chunk(state)`` and ``reads`` as in ``drain_lanes``."""
     st, sweeps = drain_lanes(GrowState(*(t[None] for t in state)), sconsts,
                              trust2d[None], sal[None], iteration, h, w, wr,
                              bsz, warps, max_iters, floor_scale, method,
-                             on_chunk=on_chunk, **throttles)
+                             on_chunk=on_chunk, reads=reads, **throttles)
     return lane_state(st, 0), sweeps[0]
 
 

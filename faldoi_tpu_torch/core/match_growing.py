@@ -231,8 +231,9 @@ def match_growing(go: np.ndarray, ba: np.ndarray, i0n: torch.Tensor,
     857-903): drains, polish, prune and requeue, bilateral.
     ``snapshot_dir``: where the partial-results snapshots go (the CLIs'
     ``-partial_res``); None = none.
-    ``stats`` (a dict, optional) receives the stage seconds and the sweeps
-    of every lane's drains."""
+    ``stats`` (a dict, optional) receives the stage seconds, the sweeps
+    of every lane's drains and, under "drain_reads", (sweeps run, host
+    reads) of each fixed-shape drain (``local_step.drain_lanes``)."""
     occ = None
     if prm.val_method == P.M_TVL1_OCC:
         if i_1n is None or i2n is None:
@@ -282,8 +283,9 @@ def match_growing_pairs(seeds_pairs, frames_pairs, prm: P.Parameters,
     Methods 0-7; method 8 (whose patch solver takes no lane index) raises.
 
     Returns a list of (flow (h, w, 2), energy (h, w), occlusions (h, w)),
-    one a pair.  ``stats`` receives the stage seconds and every lane's
-    sweeps (entries with "it", "lane" fwd/bwd, "pair", "sweeps")."""
+    one a pair.  ``stats`` receives the stage seconds, every lane's
+    sweeps (entries with "it", "lane" fwd/bwd, "pair", "sweeps") and the
+    "drain_reads" of ``match_growing``."""
     if prm.val_method == P.M_TVL1_OCC:
         raise ValueError("pairs mode takes methods 0-7; run method 8 per pair "
                          "(match_growing)")
@@ -363,6 +365,7 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
     stats = {} if stats is None else stats
     stats.setdefault("sweeps", [])
     stats.setdefault("seconds", {})
+    stats.setdefault("drain_reads", [])
 
     def mksal(s):
         base = np.ones(n + 1, np.float32)
@@ -402,7 +405,7 @@ def _grow(seeds_pairs, frames_pairs, prm, bsz, seed_bsz, stats, warm_band,
         marks["it"] = it
         label = "drain_final" if it == prm.iterations_of else f"drain_it{it}"
         kw = dict(on_chunk=snapshot, relax=relax or (relax_late and it >= 1),
-                  **throttles)
+                  reads=stats["drain_reads"], **throttles)
         if lockstep:
             st, ks = drain_fn(stack_states(sts), sc_lanes, trust2d, sal, it,
                               h, w, wr, bsz, prm.warps, max_iters, fs, method,

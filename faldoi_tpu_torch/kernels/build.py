@@ -108,6 +108,18 @@ _SIGNATURES = {
     # w1d (or null) u1o u2o ener, hp, wp, h, w, b, p, wr, warps, max_iters,
     # stream
     "faldoi_tvl1_patch_solve": (_P,) * 19 + (_I,) * 9 + (_P,),
+    # cand_e fixed ene owned lanes (or nulls), lane stride, relax, margin,
+    # bias, words cand work e_pop idx queue, lanes, n, cap, stream
+    "faldoi_select": (_P,) * 5 + (_L, _I, _F, _F) + (_P,) * 6 + (_I, _L, _I, _P),
+    # e_pop queue band_min valid_in (or nulls), delta, delta_rel, floor,
+    # floor_scale, floor_scale_hi, queue_hi, band floor_dyn valid order
+    # counts total, lanes, cap, stream
+    "faldoi_accept": (_P,) * 4 + (_F, _F) + (_L,) * 4 + (_P,) * 6 + (_I, _I, _P),
+    # is_min, key_out t0 t1 t2 q key ok pos v0 v1 v2 words, m, stream
+    "faldoi_scatter_payload": (_I,) + (_P,) * 12 + (_L, _P),
+    # key_out wu wv wchi su sv schi ener oy ox inbox base words, w, k, p,
+    # stream
+    "faldoi_wflow_scatter": (_P,) * 13 + (_L, _I, _I, _P),
     # x, y, out, n, stream
     "faldoi_probe_axpy": (_P, _P, _P, _L, _P),
     # x, out, rows, cols, lanes, stream

@@ -242,13 +242,14 @@ def _sharded_drain(mesh: Mesh, halo: int):
     flat lane-stacked state by rows over ``mesh.devices[0]``, drains it
     there (``drain_spatial``) and joins the rows back on the state's device.
     The consts go to every device once.  ``on_chunk`` is always None here:
-    the sharded growing takes no snapshots."""
+    the sharded growing takes no snapshots; ``reads`` stays empty (its
+    sweeps read the card every sweep)."""
     devs = mesh.devices[0]
     cache = {}
 
     def drain(state, sconsts, trust2d, sal, iteration, h, w, wr, bsz, warps,
               max_iters, floor_scale, method=P.M_TVL1, lanes=None,
-              on_chunk=None, **throttles):
+              on_chunk=None, reads=None, **throttles):
         if cache.get("of") is not sconsts:
             cache.update(of=sconsts, on=[_consts_on(sconsts, d) for d in devs])
         hs = h // len(devs)

@@ -2681,3 +2681,284 @@ def test_k12_refuses_what_it_does_not_take_on_card(dev):
     with pytest.raises(ValueError):
         solve(*geo, big, big, 33, 1, 4, False)
     assert tvl1_patch_solve.launches == before
+
+
+# --- K2 (candidate selection) and K3 (payload scatters) ------------------
+
+NEG_NAN_BITS = -4194304          # 0xFFC00000: x86's default NaN
+
+
+def _key_planes(rng, nl, n, case):
+    """Lane-stacked (L, n + 1) cand_e / fixed / ene planes for a case."""
+    cand = rng.choice(np.float32([0.25, 0.5, 0.75, 1.0, 0.0]), (nl, n + 1))
+    fixed = rng.random((nl, n + 1)) < 0.3
+    ene = rng.choice(np.float32([0.2, 0.6, 1.2, np.inf]), (nl, n + 1))
+    if case == "adversarial":
+        cand[:, 1::3] = -0.0
+        cand[:, 2::7] = np.inf
+        cand[:, 3::11] = -np.inf
+        cand[:, 5::13] = np.nan
+        neg = np.zeros((nl, n + 1), bool)
+        neg[:, 7::17] = True
+        cand[neg] = np.int32(NEG_NAN_BITS).view(np.float32)
+    elif case == "all_inf":
+        cand[:] = np.inf
+    elif case == "distinct":
+        cand = rng.standard_normal((nl, n + 1)).astype(np.float32)
+    return cand.astype(np.float32), fixed, ene.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,nl,bsz,case,relax", [
+    ((5, 7), 1, 1, "adversarial", False),
+    ((5, 7), 2, 1024, "adversarial", False),
+    ((40, 56), 1, 1024, "adversarial", True),
+    ((40, 56), 2, 1024, "all_inf", False),
+    ((40, 56), 8, 1024, "distinct", False),
+    ((40, 56), 2, 1, "distinct", True),
+    ((436, 1024), 2, 8192, "adversarial", False),
+    ((436, 1024), 1, 8192, "exact_bsz", False),
+    ((436, 1024), 8, 8192, "distinct", False),
+    ((436, 1024), 2, 8192, "distinct", True),
+    ((40, 56), 66, 1024, "distinct", False),
+    ((40, 56), 130, 2240, "adversarial", False),
+])
+def test_k2_matches_twin_on_card(dev, shape, nl, bsz, case, relax):
+    """K2's select and accept against their twins, bit for bit: e_pop (bits),
+    idx, queue, band, floor, valid, order, counts, total; with a lane subset
+    and owned rows on the adversarial cases, a modes' mask and band_min."""
+    from faldoi_tpu_torch.ops.select import (
+        accept, accept_plain, select, select_plain,
+    )
+
+    h, w = shape
+    n = h * w
+    rng = np.random.default_rng(h * nl + bsz)
+    cand, fixed, ene = _key_planes(rng, nl, n, "distinct" if case == "exact_bsz"
+                                   else case)
+    if case == "exact_bsz":
+        # exactly bsz finite keys
+        cand[:] = np.inf
+        fixed[:] = False
+        cand[0, rng.choice(n, bsz, replace=False)] = rng.random(bsz)
+    args = [torch.as_tensor(x) for x in (cand, fixed, ene)]
+    extras = [dict()]
+    if case == "adversarial" and nl > 1:
+        extras.append(dict(lanes=torch.tensor([nl - 1, 0]),
+                           owned=torch.as_tensor(rng.random(n) < 0.7)))
+    before = select.launches, accept.launches
+    for kw in extras:
+        want = select_plain(*args, n, bsz, relax, **kw)
+        got = select(*(a.to(dev) for a in args), n, bsz, relax,
+                     **{k: v.to(dev) for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu(), want[2])
+        for akw in (dict(), dict(band_min=want[0][:, :1] + 0.5),
+                    dict(valid=torch.as_tensor(rng.random(want[0].shape) < 0.5))):
+            wa = accept_plain(want[0], want[2], 0.05, 0.5, 40, 16, 4, 300,
+                              **akw)
+            ga = accept(got[0], got[2], 0.05, 0.5, 40, 16, 4, 300,
+                        **{k: v.to(dev) for k, v in akw.items()})
+            for name, x, y in zip(ga._fields, ga, wa):
+                x = x.cpu()
+                if name == "band":
+                    assert torch.equal(x.isnan(), y.isnan()), name
+                    assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)), name
+                else:
+                    assert torch.equal(x.reshape(y.shape), y), name
+    assert (select.launches - before[0], accept.launches - before[1]) == (
+        len(extras), 3 * len(extras))
+
+
+def _nan_bits(x):
+    """A float tensor's bits with NaN as one pattern (the card's canonical
+    NaN and the CPU's may carry other payloads)."""
+    return torch.where(x.isnan(), torch.full_like(x, float("nan")), x).view(torch.int32)
+
+
+@pytest.mark.parametrize("n,m,nan,chi", [(60, 500, False, False),
+                                         (60, 500, True, True),
+                                         (4000, 40000, True, False),
+                                         (446465, 32768, False, True),
+                                         (446465, 1, True, False)])
+def test_k3_generic_matches_twin_on_card(dev, n, m, nan, chi):
+    """K3's generic form, min and max, against its twin: collisions, ties
+    within the batch and with the target, signed zeros, NaN keys, masked
+    updates, the chi payload, a position order; bit for bit off the dump
+    slot, NaN by mask."""
+    from faldoi_tpu_torch.ops.scatter import (
+        scatter_max_payload, scatter_max_payload_plain, scatter_min_payload,
+        scatter_min_payload_plain, scatter_payload,
+    )
+
+    rng = np.random.default_rng(n + m)
+    q = torch.as_tensor(rng.integers(0, min(n, 3 * m), m))
+    e = torch.as_tensor(rng.choice(np.float32([0.5, 1.0, 0.0, -0.0, 2.0]), m))
+    if nan:
+        e[::37] = float("nan")
+    u, v, c = (torch.as_tensor(rng.standard_normal(m).astype(np.float32))
+               for _ in range(3))
+    ok = torch.as_tensor(rng.random(m) < 0.7)
+    pos = torch.as_tensor(rng.permutation(m))
+    tgt = [torch.as_tensor(rng.choice(np.float32([0.75, 1.0, 0.0, -0.0, np.inf]),
+                                      n + 1))]
+    if nan:
+        tgt[0][3::11] = float("nan")
+    tgt += [torch.as_tensor(rng.standard_normal(n + 1).astype(np.float32))
+            for _ in range(3)]
+    kw = dict(tgt_c=tgt[3], c=c) if chi else {}
+    before = scatter_payload.launches
+    calls = 0
+    for port, twin, t0 in ((scatter_min_payload, scatter_min_payload_plain,
+                            tgt[0]),
+                           (scatter_max_payload, scatter_max_payload_plain,
+                            torch.where(tgt[0].isinf(), -tgt[0], tgt[0]))):
+        for p_ in (None, pos):
+            want = twin(t0, tgt[1], tgt[2], q, e, u, v, ok, n, p_, **kw)
+            got = port(t0.to(dev), tgt[1].to(dev), tgt[2].to(dev), q.to(dev),
+                       e.to(dev), u.to(dev), v.to(dev), ok.to(dev), n,
+                       None if p_ is None else p_.to(dev),
+                       **{k: x.to(dev) for k, x in kw.items()})
+            calls += 1
+            assert len(got) == len(want)
+            for x, y in zip(got, want):
+                assert torch.equal(_nan_bits(x.cpu()[:n]), _nan_bits(y[:n]))
+    assert scatter_payload.launches - before == calls
+
+
+@pytest.mark.parametrize("h,w,k,p,lanes,chi", [(436, 1024, 16384, 11, 2, False),
+                                               (436, 1024, 8192, 11, 1, True),
+                                               (40, 56, 1703, 3, 1, False),
+                                               (40, 56, 300, 11, 8, False),
+                                               (5, 7, 1, 11, 1, True)])
+def test_k3_wflow_matches_twin_on_card(dev, h, w, k, p, lanes, chi):
+    """K3's working-flow form against its twin: overlapping boxes at the
+    image's edges, masked patches, tied and NaN energies, lane bases; the
+    key plane and the payloads bit for bit off the dump slots."""
+    from faldoi_tpu_torch.core.local_step import patch_geometry
+    from faldoi_tpu_torch.ops.scatter import wflow_scatter, wflow_scatter_plain
+    from faldoi_tpu_torch.ops.stencils import canvas_ids
+
+    rng = np.random.default_rng(h + k + lanes)
+    n, wr = h * w, p // 2
+    pix = torch.as_tensor(rng.integers(0, n, k))
+    _, _, oy, ox, ph, pw = patch_geometry(pix, h, w, wr)
+    rows, cols = canvas_ids(p, "cpu")
+    inbox = ((rows < ph[:, None, None]) & (cols < pw[:, None, None])
+             & torch.as_tensor(rng.random(k) < 0.8)[:, None, None])
+    ener = torch.as_tensor(rng.choice(np.float32([0.5, 1.0, 2.0, np.nan]), k,
+                                      p=[0.4, 0.3, 0.29, 0.01]))
+    su, sv, schi = (torch.as_tensor(rng.standard_normal((k, p, p)).astype(np.float32))
+                    for _ in range(3))
+    planes = [torch.as_tensor(rng.standard_normal(lanes * (n + 1)).astype(np.float32))
+              for _ in range(3)]
+    base = (torch.as_tensor(rng.integers(0, lanes, k)) * (n + 1)
+            if lanes > 1 else None)
+    args = (*planes, su, sv, schi if chi else None, ener, oy, ox, inbox, h, w, p)
+    want = wflow_scatter_plain(*args, base)
+    cuda = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    got = wflow_scatter(*cuda, None if base is None else base.to(dev))
+    off_dump = torch.ones(lanes * (n + 1), dtype=torch.bool)
+    off_dump[n::n + 1] = False
+    for x, y in zip(got, want):
+        assert torch.equal(_nan_bits(x.cpu()[off_dump]), _nan_bits(y[off_dump]))
+
+
+def _static_lanes(d, h, w, method, copies=1):
+    """Two m0 / m1 lanes (fwd, bwd) of a synthetic pair, seeded, with their
+    stacked consts and saliency; ``copies`` times over (2 * copies lanes,
+    as pairs mode stacks them)."""
+    from faldoi_tpu_torch.core.functionals import (
+        make_solver_consts, stack_solver_consts,
+    )
+    from faldoi_tpu_torch.core.local_step import (
+        init_state, insert_seeds, stack_states,
+    )
+    from faldoi_tpu_torch.core.preprocess import prepare_pair
+
+    i0, i1, gf, gb = syn.make_pair(h, w, seed=220)
+    a, b = prepare_pair(i0, i1, device=d)
+    rng = np.random.default_rng(221)
+    scs, sts = [], []
+    for src, dst, g, cnt in ((a, b, gf, 60), (b, a, gb, 45)):
+        sc = make_solver_consts(src, dst, 40.0, 0.3, 0.125, 0.01, 11, method)
+        seeds = syn.make_seeds(g, syn.random_seed_positions(h, w, cnt, rng), rng)
+        scs.append(sc)
+        sts.append(insert_seeds(init_state(h, w, d), seeds, sc,
+                                torch.ones(h * w + 1, device=d), 1, 4,
+                                method=method))
+    return (stack_solver_consts(scs * copies), stack_states(sts * copies),
+            torch.ones((2 * copies, h * w + 1), device=d))
+
+
+@pytest.mark.parametrize("method", [0, 1])
+def test_static_sweep_and_drain_on_card_match_cpu(dev, method):
+    """The drains' fixed-shape sweep and drain on the 96x128 crop, on the
+    card against the CPU: the sweep (under sync debug mode "error": no host
+    read) and a whole drain of both lanes, bit for bit off the dump slots,
+    the counts and each lane's sweeps; K2's two entry points launch once a
+    sweep, K3's generic form three times (candidates, donations, centre)
+    and its working-flow form once."""
+    from faldoi_tpu_torch.core import local_step
+    from faldoi_tpu_torch.ops.scatter import scatter_payload, wflow_scatter
+    from faldoi_tpu_torch.ops.select import accept, select
+
+    h, w = 96, 128
+    n = h * w
+    out = {}
+    for d in ("cpu", dev):
+        sc, st, sal = _static_lanes(d, h, w, method)
+        tr = torch.ones((2, h, w), device=d)
+        if d != "cpu":
+            counters = (select, accept, scatter_payload, wflow_scatter)
+            before = [f.launches for f in counters]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            one, counts = local_step.sweep_static(st, sc, tr, sal, 0, h, w, 5,
+                                                  8192, 1, 4, 64, method)
+        finally:
+            if d != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        if d != "cpu":
+            assert [f.launches - b for f, b in zip(counters, before)] == [
+                1, 1, 3, 1]
+        drained, sweeps = local_step.drain_lanes(st, sc, tr, sal, 0, h, w, 5,
+                                                 8192, 1, 4, 64, method)
+        out[d] = (one, counts.cpu(), drained, sweeps)
+    (c1, cc, cd, cs), (g1, gc, gd, gs) = out["cpu"], out[dev]
+    assert torch.equal(gc, cc) and gs == cs and int(cc.sum()) > 0
+    for a, b in ((g1, c1), (gd, cd)):
+        for x, y in zip(a, b):
+            x, y = x[:, :n].cpu(), y[:, :n]
+            if x.dtype == torch.float32:
+                x, y = _nan_bits(x), _nan_bits(y)
+            assert torch.equal(x, y)
+
+
+def test_static_sweep_on_card_takes_66_lanes(dev):
+    """The fixed-shape sweep and drain at 66 lanes (pairs mode at N 33) on
+    a 30x40 crop, on the card against the CPU, bit for bit off the dump
+    slots: K2's acceptance takes any number of lanes."""
+    from faldoi_tpu_torch.core import local_step
+
+    h, w = 30, 40
+    n = h * w
+    out = {}
+    for d in ("cpu", dev):
+        sc, st, sal = _static_lanes(d, h, w, 0, copies=33)
+        tr = torch.ones((66, h, w), device=d)
+        one, counts = local_step.sweep_static(st, sc, tr, sal, 0, h, w, 5, 64,
+                                              1, 4, 64, 0)
+        drained, sweeps = local_step.drain_lanes(st, sc, tr, sal, 0, h, w, 5,
+                                                 64, 1, 4, 64, 0)
+        out[d] = (one, counts.cpu(), drained, sweeps)
+    (c1, cc, cd, cs), (g1, gc, gd, gs) = out["cpu"], out[dev]
+    assert torch.equal(gc, cc) and gs == cs and int(cc.sum()) > 0
+    for a, b in ((g1, c1), (gd, cd)):
+        for x, y in zip(a, b):
+            x, y = x[:, :n].cpu(), y[:, :n]
+            if x.dtype == torch.float32:
+                x, y = _nan_bits(x), _nan_bits(y)
+            assert torch.equal(x, y)
